@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port's serving decode on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving decode and trainer on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -6,22 +7,44 @@ Drives `smoe_tpu_torch` end to end on the card and fails (non-zero exit,
 no result line) on any fault:
   1. the card (nvidia-smi name and power limit), torch / CUDA versions,
      TF32 flags (both forced off);
-  2. builds the Hopper gate+expert kernel (K1) from
-     smoe_tpu_torch/kernels/csrc/gate_expert_fwd.cu with nvcc;
-  3. holds the kernel against its plain torch version at three shapes
-     (the 512^2 x 256-kernel flagship, d = 4, K = 2304): res <= 1e-5
-     absolute, surv <= 1e-6;
-  4. decodes the committed fixture tests/data/bench512_k256.smoe (written
+  2. builds the Hopper kernels K1 (gate+expert forward,
+     smoe_tpu_torch/kernels/csrc/gate_expert_fwd.cu) and K2 (its backward,
+     csrc/gate_expert_bwd.cu), one nvcc each, in parallel;
+  3. holds K1 against its plain torch version at three shapes (the
+     512^2 x 256-kernel flagship, d = 4, K = 2304): res <= 1e-5 absolute,
+     surv <= 1e-6;
+  4. holds K2 against its plain version at the same shapes: max |dq', dG,
+     dpi error| / max |plain| <= 1e-4 each, and two K2 runs bit-identical;
+  5. decodes the committed fixture tests/data/bench512_k256.smoe (written
      by the JAX package, scripts/make_torch_fixture.py) natively, at
-     scale 2 and in a window, through the kernel; checks the kernel ran,
-     that the decode is within 1 LSB of the plain-torch decode (>= 99.9 %
-     of pixels identical) and of the JAX decode recorded beside the
-     fixture, and that its PSNR is within 0.01 dB of the recorded one;
-  5. encodes a seeded 3840x2160 RGB model with 48x48 = 2304 kernels with
+     scale 2 and in a window, through K1; checks that the decode is within
+     1 LSB of the plain-torch decode (>= 99.9 % of pixels identical) and of
+     the JAX decode recorded beside the fixture, and that its PSNR is
+     within 0.01 dB of the recorded one;
+  6. encodes a seeded 3840x2160 RGB model with 48x48 = 2304 kernels with
      the port's own init, quantizer and bitstream writer, decodes it on the
-     card through the kernel and checks it against the plain version on a
-     strided row subset.
-Then prints the card line, one JSON line of kernel results, and
+     card through K1 and checks it against the plain version on a strided
+     row subset;
+  7. fits the bench flagship (bench.py:46-54: 512^2 RGB, 16x16 kernels,
+     YUV loss, determinant gating, one block, Adam 1e-3 / pis /100 /
+     A x1000) for 20 sweeps on the kernel path and 20 on the plain path
+     from the same init: one K1 and one K2 launch per sweep, none on the
+     plain path, the mse trajectories within TRAJ_RTOL of each other and of
+     the JAX fit recorded in tests/data/bench512_train20_ref.npz
+     (scripts/make_torch_train_fixture.py); one host sync per chunk;
+  8. runs bench.py's recipe on the kernel path (bench.py:129-167): s/iter
+     at the settled width, then reinit and chunks of 20 sweeps with
+     update_kernel_list every 100 until 32 dB (three fits); the plain
+     path's s/iter and both paths' fwd/bwd/opt phases;
+  9. quantizes the fitted model, writes the .smoe and decodes it through
+     K1 within 1 LSB of the trainer's own quantized-params eval;
+ 10. fits 1080p RGB with 24x24 = 576 kernels in 16 blocks
+     (scripts/bench_1080p.py:40) for 20 sweeps on the kernel path, capped
+     below K_pad = 640, with one K1 and one K2 launch per block per sweep
+     and one host sync per chunk, against 20 sweeps on the plain path.
+Launch counts are zeroed before each path and read after it; the launches
+made to compare a kernel with its plain version are not counted.  Then
+prints the card line, one JSON line of kernel results, and
 {"ok": true, "device": {...}} as the last line.
 """
 
@@ -41,9 +64,23 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "tests", "data", "bench512_k256.smoe")
 FIXTURE_REF = os.path.join(HERE, "tests", "data", "bench512_k256_ref.npz")
+TRAIN_REF = os.path.join(HERE, "tests", "data", "bench512_train20_ref.npz")
+FIT_SWEEPS = 20
+RECIPE_MAX_ITERS = 2000
+DEVICE = "cuda"
+KERNEL_MODE = "auto"         # use_pallas of the kernel path ("auto" on a GPU)
 RES_TOL, SURV_TOL = 1e-5, 1e-6
+# K2 against its plain version: max |kernel - plain| / max |plain| per
+# output; both sum over up to 262144 pixels in different orders
+BWD_REL_TOL = 1e-4
+# per-sweep mse of two fits of the same model from the same init (kernel
+# path, plain path, the recorded JAX fit): max |a - b| / b over the sweeps;
+# measured at most 5.4e-5 on an H100 over 20 flagship and 40 1080p sweeps
+TRAJ_RTOL = 1e-3
 KERNEL_SRC = "smoe_tpu_torch/kernels/csrc/gate_expert_fwd.cu"
 KERNEL_REPLACES = "smoe_tpu/kernels/gate_expert.py:113"
+BWD_SRC = "smoe_tpu_torch/kernels/csrc/gate_expert_bwd.cu"
+BWD_REPLACES = "smoe_tpu/kernels/gate_expert.py:236"
 
 
 class SmokeFailure(RuntimeError):
@@ -171,6 +208,46 @@ def compare_kernel(name, n, k, d, e, c, seed, thr, floor, time_it):
     return out
 
 
+def compare_bwd(name, n, k, d, e, c, seed, thr, floor, time_it):
+    """K2 against its plain version on the same inputs: relative error
+    max |kernel - plain| / max |plain| of dq', dG and dpi_det, and two
+    kernel runs bit-identical."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
+                                                    gate_expert_bwd_reference)
+    phi, xe, q, G, pi_det, mask = random_case(n, k, d, e, c, seed, "cuda")
+    q_s = (q * (-0.5 * mask)[:, None]).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # the cotangent of a mean over the pixels, as the trainer's loss gives
+    g = torch.randn((n, c), generator=gen, device="cuda") / n
+    args = (phi, xe, q_s, G, pi_det, g, thr, floor)
+    out_k = gate_expert_bwd(*args)
+    again = gate_expert_bwd(*args)
+    torch.cuda.synchronize()
+    out_p = gate_expert_bwd_reference(*args)
+    rel = {}
+    for label, a, b in zip(("dq", "dG", "dpi"), out_k, out_p):
+        check(torch.isfinite(a).all().item(), f"{name}: non-finite {label}")
+        rel[label] = float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30))
+    out = {"shape": name, "n": n, "k": k, "f": phi.shape[1], "e": e, "c": c,
+           "rel_err": rel, "max_rel_err": max(rel.values()),
+           "max_abs_err": max(float((a - b).abs().max())
+                              for a, b in zip(out_k, out_p)),
+           "bit_identical_rerun": all(torch.equal(a, b)
+                                      for a, b in zip(out_k, again))}
+    del out_p
+    if time_it:
+        out["ms"] = cuda_ms(lambda: gate_expert_bwd(*args), 10)
+        out["plain_ms"] = cuda_ms(lambda: gate_expert_bwd_reference(*args),
+                                  3)
+    print(f"K2-vs-plain {json.dumps(out)}", flush=True)
+    check(out["bit_identical_rerun"], f"{name}: K2 reruns differ")
+    check(max(rel.values()) <= BWD_REL_TOL,
+          f"{name}: K2 relative error {rel} over {BWD_REL_TOL}")
+    return out
+
+
 def build_4k_image(h=2160, w=3840, seed=0):
     """Seeded smooth + edged RGB test image (bench.build_image's recipe at
     4K), float32 in [0, 1]."""
@@ -187,6 +264,309 @@ def build_4k_image(h=2160, w=3840, seed=0):
     img[h // 2:, : w // 4, 1] -= 0.15
     img += rng.normal(0, 0.005, img.shape).astype(np.float32)
     return np.clip(img, 0, 1).astype(np.float32)
+
+
+def psnr_of(mse: float) -> float:
+    from smoe_tpu_torch.core.losses import psnr_from_mse
+    return psnr_from_mse(float(mse), 8)
+
+
+def max_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def reset_counts():
+    from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
+                                                    gate_expert_fwd)
+    gate_expert_fwd.launches = 0
+    gate_expert_bwd.launches = 0
+
+
+def read_counts():
+    from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
+                                                    gate_expert_fwd)
+    return gate_expert_fwd.launches, gate_expert_bwd.launches
+
+
+def host_s(fn):
+    """Wall seconds of fn() on the host clock, the card idle before and
+    after (fn ends in a host pull of its metrics)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def syncs_of(fn):
+    """(host syncs during fn() as torch's sync debug mode reports them,
+    fn's result).  The mode is a prototype that may miss some syncs."""
+    import warnings
+    import torch
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught), out
+
+
+def flagship_smoe(img, mode):
+    from smoe_tpu_torch.fit.trainer import Smoe
+    s = Smoe(img, kernels_per_dim=[16], use_yuv=True, use_determinant=True,
+             use_pallas=mode, device=DEVICE)
+    s.set_optimizer()
+    return s
+
+
+def trainer_flagship(img, launches):
+    """Phase 7: 20 sweeps on the kernel path against 20 on the plain path
+    from the same init, one K1 and one K2 launch per sweep (one block),
+    none on the plain path; both against the recorded JAX trajectory."""
+    s_k = flagship_smoe(img, KERNEL_MODE)
+    check(s_k.fused, "the flagship fit on the card did not take the fused op")
+    s_p = flagship_smoe(img, "off")
+    reset_counts()
+    t_k, (loss_k, mse_k, npi_k, _) = host_s(
+        lambda: s_k.run_batched_chunk(FIT_SWEEPS))
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    check(n1 == FIT_SWEEPS and n2 == FIT_SWEEPS,
+          f"flagship fit launched K1 {n1} / K2 {n2} times in {FIT_SWEEPS} "
+          "one-block sweeps")
+    reset_counts()
+    t_p, (loss_p, mse_p, npi_p, _) = host_s(
+        lambda: s_p.run_batched_chunk(FIT_SWEEPS))
+    check(read_counts() == (0, 0), "the plain path launched a kernel")
+    # one host sync per chunk: the metrics pull (the width is cached now)
+    syncs, _ = syncs_of(lambda: s_k.run_batched_chunk(5))
+    ref = np.load(TRAIN_REF)
+    out = {"sweeps": FIT_SWEEPS, "mse_kernel": [float(v) for v in mse_k],
+           "mse_plain": [float(v) for v in mse_p],
+           "mse_jax_recorded": [float(v) for v in ref["mse"]],
+           "kernel_vs_plain_mse_max_rel": max_rel(mse_k, mse_p),
+           "kernel_vs_jax_mse_max_rel": max_rel(mse_k, ref["mse"]),
+           "plain_vs_jax_mse_max_rel": max_rel(mse_p, ref["mse"]),
+           "num_pi_kernel_plain_jax": [int(npi_k[-1]), int(npi_p[-1]),
+                                       int(ref["num_pi"][-1])],
+           "first_chunk_s_kernel": t_k, "first_chunk_s_plain": t_p,
+           "launches_k1_k2": [n1, n2], "host_syncs_per_chunk": syncs}
+    print(f"flagship fit: {json.dumps(out)}", flush=True)
+    check(syncs == 1, f"flagship chunk synced with the host {syncs} times")
+    for name, a in (("kernel", mse_k), ("plain", mse_p)):
+        check(np.isfinite(a).all() and a[-1] < a[0],
+              f"flagship {name} fit did not train: mse {a[0]} -> {a[-1]}")
+    check(out["kernel_vs_plain_mse_max_rel"] <= TRAJ_RTOL,
+          f"kernel path mse off the plain path by "
+          f"{out['kernel_vs_plain_mse_max_rel']:.2e} > {TRAJ_RTOL}")
+    check(out["kernel_vs_jax_mse_max_rel"] <= TRAJ_RTOL,
+          f"kernel path mse off the recorded JAX fit by "
+          f"{out['kernel_vs_jax_mse_max_rel']:.2e} > {TRAJ_RTOL}")
+    return s_k, s_p, out
+
+
+def trainer_bench_recipe(s_k, s_p, launches):
+    """Phase 8: bench.py's recipe on the kernel path: s/iter at the
+    settled width (bench.py:129-131), then `timed_fit` (bench.py:140-167):
+    reinit, chunks of 20 sweeps with update_kernel_list every 100, until
+    32 dB; the plain path's s/iter beside it; phases fwd/bwd/opt."""
+    reset_counts()
+    sweeps = 0
+    s_k.run_batched_chunk(20)
+    sweeps += 20
+    prev = object()
+    for _ in range(4):               # bench.warm_chunk: settle the width
+        s_k.run_batched_chunk(100)
+        sweeps += 100
+        cap = s_k._current_k_cap()
+        if cap == prev:
+            break
+        prev = cap
+    t, _ = host_s(lambda: s_k.run_batched_chunk(100))
+    sweeps += 100
+    s_iter_kernel = t / 100
+
+    fits = []
+    for _ in range(3):
+        s_k.reinit()
+        t0 = time.perf_counter()
+        iters, psnr, t_run, psnr20 = 0, 0.0, None, None
+        while iters < RECIPE_MAX_ITERS:
+            _, mse_a, npi_a, _ = s_k.run_batched_chunk(20)
+            iters += 20
+            if iters % 100 == 0:
+                s_k.update_kernel_list()
+            psnr = max(psnr, psnr_of(np.nanmin(mse_a)))
+            if psnr20 is None:
+                psnr20 = psnr
+            if psnr >= 32.0:
+                t_run = time.perf_counter() - t0
+                break
+        sweeps += iters
+        fits.append({"wallclock_s": t_run, "iters": iters, "psnr": psnr,
+                     "psnr_after_20": psnr20, "num_pi": int(npi_a[-1])})
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    check(n1 == sweeps and n2 == sweeps,
+          f"bench recipe: {sweeps} sweeps launched K1 {n1} / K2 {n2} times")
+    check(all(f["wallclock_s"] is not None for f in fits),
+          f"bench recipe did not reach 32 dB in {RECIPE_MAX_ITERS} sweeps: "
+          f"{fits}")
+
+    s_p.run_batched_chunk(5)
+    t, _ = host_s(lambda: s_p.run_batched_chunk(20))
+    s_iter_plain = t / 20
+    reset_counts()
+    phases_k = s_k.phase_breakdown(n_steps=20)
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    phases_p = s_p.phase_breakdown(n_steps=10)
+    out = {"s_per_iter_kernel": s_iter_kernel, "s_per_iter_plain": s_iter_plain,
+           "wallclock_to_32db_s": [f["wallclock_s"] for f in fits],
+           "wallclock_to_32db_median_s": statistics.median(
+               f["wallclock_s"] for f in fits),
+           "iters_to_32db": [f["iters"] for f in fits],
+           "psnr_after_20_sweeps_db": [f["psnr_after_20"] for f in fits],
+           "phases_ms_kernel": {k: v * 1e3 for k, v in phases_k.items()
+                                if k != "k_cap"},
+           "phases_ms_plain": {k: v * 1e3 for k, v in phases_p.items()
+                               if k != "k_cap"},
+           "k_cap": phases_k["k_cap"]}
+    print(f"bench recipe: {json.dumps(out)}", flush=True)
+    return out
+
+
+def trainer_file_roundtrip(s_k, img, launches):
+    """Phase 9: the fitted model to a .smoe file and back through the
+    serving decode (K1), within 1 LSB of the trainer's own quantized-params
+    eval (the exact plain path)."""
+    from smoe_tpu_torch.codec.bitstream import write_bitstream
+    from smoe_tpu_torch.codec.quantize import quantize_params, rescaler
+    from smoe_tpu_torch.codec.serve import decode_bitstream
+    cfg = s_k.cfg
+    reset_counts()
+    s_k.qparams = quantize_params(s_k.get_params(), cfg)
+    s_k.rparams = rescaler(s_k.qparams, cfg)
+    _, qmse, _, _ = s_k.run_batched(train=False, update_reconstruction=True,
+                                    with_quantized_params=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit512.smoe")
+        bits = write_bitstream(path, s_k.qparams, cfg, extra={
+            "shape_of_img": list(img.shape[:2]),
+            "dim_of_output": img.shape[-1], "use_yuv": cfg.use_yuv,
+            "use_determinant": cfg.use_determinant,
+            "train_gammas": cfg.train_gammas})
+        size = os.path.getsize(path)
+        rec = decode_bitstream(path, device=DEVICE)
+    n1, n2 = read_counts()
+    launches[0] += n1
+    check(n1 == 1 and n2 == 0, f"fit-to-file decode launched K1 {n1} / K2 "
+          f"{n2} times, expected 1 / 0 (the quantized eval is plain)")
+    qrec = s_k.qreconstruction_image
+    lsb, same = lsb_stats(rec, qrec)
+    out = {"payload_bits": bits, "file_bytes": size,
+           "trainer_q_psnr_db": psnr_of(qmse),
+           "decode_psnr_db": psnr_of(float(np.mean((rec - img) ** 2))
+                                     * 2 ** 16),
+           "decode_vs_trainer_q_eval_max_lsb": lsb,
+           "identical_share": same}
+    print(f"fit to file and back: {json.dumps(out)}", flush=True)
+    check(rec.shape == img.shape and np.isfinite(rec).all(),
+          "fit-to-file decode: bad output")
+    check(lsb <= 1, f"decode differs from the trainer's quantized eval by "
+          f"{lsb} LSB")
+    return out
+
+
+def load_1080p():
+    """scripts/bench_1080p.py:17 `build_1080p`, loaded by path (that
+    module imports no jax at module level)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "bench_1080p", os.path.join(HERE, "scripts", "bench_1080p.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build_1080p()
+
+
+def trainer_1080p(img, launches):
+    """Phase 10: 1080p RGB, 24x24 = 576 kernels, 16 blocks of 270x480
+    (scripts/bench_1080p.py:40), on the kernel path and the plain path
+    from the same init: a first chunk of 20 sweeps, in which the lists
+    settle to the survivors, then a timed chunk of 20 at the settled width,
+    which must be capped below K_pad = 640.  One K1 and one K2 launch per
+    block per sweep on the kernel path, none on the plain path."""
+    from smoe_tpu_torch.fit.trainer import Smoe
+    runs = {}
+    for path, mode in (("kernel", KERNEL_MODE), ("plain", "off")):
+        s = Smoe(img, kernels_per_dim=[24, 24],
+                 batch_size=(img.shape[0] // 4, img.shape[1] // 4),
+                 use_yuv=True, use_determinant=True, use_pallas=mode,
+                 device=DEVICE)
+        s.set_optimizer()
+        run = {"blocks": s.start_batches, "k_cap": [], "mse": [],
+               "chunk_s": [], "launches_k1_k2": [], "host_syncs": []}
+        for _ in range(2):
+            run["k_cap"].append(s._current_k_cap())
+            reset_counts()
+            t, (syncs, (_, mse, _, _)) = host_s(lambda: syncs_of(
+                lambda: s.run_batched_chunk(FIT_SWEEPS)))
+            run["host_syncs"].append(syncs)
+            n1, n2 = read_counts()
+            if path == "kernel":
+                launches[0] += n1
+                launches[1] += n2
+            run["mse"] += [float(v) for v in mse]
+            run["chunk_s"].append(t)
+            run["launches_k1_k2"].append([n1, n2])
+        run["s_per_iter_settled"] = run["chunk_s"][1] / FIT_SWEEPS
+        run["list_counts_max"] = int(s.kernel_lists.sum(1).max())
+        runs[path] = run
+        del s
+    k, p = runs["kernel"], runs["plain"]
+    out = {"kernel": k, "plain": p,
+           "kernel_vs_plain_mse_max_rel": max_rel(k["mse"], p["mse"])}
+    print(f"1080p fit: {json.dumps(out)}", flush=True)
+    nb = k["blocks"]
+    check(nb == 16, f"1080p: {nb} blocks, expected 16")
+    check(k["launches_k1_k2"] == [[nb * FIT_SWEEPS] * 2] * 2,
+          f"1080p: launches {k['launches_k1_k2']}, expected one K1 and one "
+          f"K2 per block per sweep")
+    check(p["launches_k1_k2"] == [[0, 0]] * 2,
+          "1080p plain path launched a kernel")
+    check(k["host_syncs"][1] == 1,
+          f"1080p settled chunk synced with the host {k['host_syncs'][1]} "
+          "times, expected once (the metrics pull)")
+    check(k["k_cap"][1] is not None and k["k_cap"][1] < 640,
+          f"1080p settled width {k['k_cap'][1]} is not capped below 640")
+    check(np.isfinite(k["mse"]).all() and k["mse"][-1] < k["mse"][0],
+          "1080p kernel fit did not train")
+    check(out["kernel_vs_plain_mse_max_rel"] <= TRAJ_RTOL,
+          f"1080p kernel path mse off the plain path by "
+          f"{out['kernel_vs_plain_mse_max_rel']:.2e} > {TRAJ_RTOL}")
+    return out
+
+
+def build_all():
+    """Phase 2: both kernels, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from smoe_tpu_torch.kernels import build
+    names = ("gate_expert_fwd", "gate_expert_bwd")
+    with ThreadPoolExecutor(len(names)) as ex:
+        builds = dict(zip(names, ex.map(build.build, names)))
+    for name, b in builds.items():
+        print(f"build {name}: {b['path']} built={b['built']} in "
+              f"{b['seconds']:.2f} s", flush=True)
+        for line in b["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 def main() -> int:
@@ -206,8 +586,6 @@ def main() -> int:
                                             sample_grid)
     from smoe_tpu_torch.config import SmoeConfig
     from smoe_tpu_torch.core.init import init_params
-    from smoe_tpu_torch.core.losses import psnr_from_mse
-    from smoe_tpu_torch.kernels import build
     from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
 
     t_start = time.perf_counter()
@@ -221,15 +599,9 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # phase 2: build
-    b = build.build("gate_expert_fwd")
-    print(f"build: {b['path']} built={b['built']} in {b['seconds']:.2f} s",
-          flush=True)
-    for line in b["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_all()
 
-    # phase 3: kernel against plain at three shapes
+    # phase 3: K1 against plain at three shapes
     thr, floor = 0.5 / 2 ** 8, 1e-11
     flagship = compare_kernel("flagship 512^2 x K256 d2", 512 * 512, 256, 2,
                               3, 3, 1, thr, floor, time_it=True)
@@ -239,18 +611,30 @@ def main() -> int:
                            floor, time_it=True)
     max_err = max(o["max_abs_err_res"] for o in (flagship, d4, k2304))
 
-    # phase 4: the main path on the committed fixture
+    # phase 4: K2 against plain at the same three shapes
+    bwd = [compare_bwd("flagship 512^2 x K256 d2", 512 * 512, 256, 2, 3, 3,
+                       1, thr, floor, time_it=True),
+           compare_bwd("d4 F21", 40009, 300, 4, 5, 3, 2, thr, floor,
+                       time_it=False),
+           compare_bwd("K2304 d2", 3840 * 17 + 5, 2304, 2, 3, 3, 3, thr,
+                       floor, time_it=True)]
+    max_err_bwd = max(o["max_abs_err"] for o in bwd)
+    max_rel_bwd = max(o["max_rel_err"] for o in bwd)
+    launches = [0, 0]          # K1, K2 on the main paths
+
+    # phase 5: the decode path on the committed fixture
     ref = np.load(FIXTURE_REF)
     stride = int(ref["stride"])
     roi = ((96, 352), (160, 480))
-    gate_expert_fwd.launches = 0
+    reset_counts()
     rec = decode_bitstream(FIXTURE, device="cuda")
     rec2 = decode_bitstream(FIXTURE, scale=2.0, device="cuda")
     rec_roi = decode_bitstream(FIXTURE, roi=roi, device="cuda")
-    launches = gate_expert_fwd.launches
-    print(f"fixture decode: launches={launches} shapes {rec.shape} "
+    n_dec = gate_expert_fwd.launches
+    launches[0] += n_dec
+    print(f"fixture decode: launches={n_dec} shapes {rec.shape} "
           f"{rec2.shape} {rec_roi.shape}", flush=True)
-    check(launches == 3, f"fixture decode launched the kernel {launches} "
+    check(n_dec == 3, f"fixture decode launched the kernel {n_dec} "
           "times, expected 3")
     for name, r, shape in (("native", rec, (512, 512, 3)),
                            ("scale2", rec2, (1024, 1024, 3)),
@@ -268,7 +652,7 @@ def main() -> int:
     lsb_j, same_j = lsb_stats(rec[::stride, ::stride],
                               ref["sample"].astype(np.float64) / 255)
     img = build_image(512)
-    psnr = psnr_from_mse(float(np.mean((rec - img) ** 2)) * 2 ** 16, 8)
+    psnr = psnr_of(float(np.mean((rec - img) ** 2)) * 2 ** 16)
     print(f"  native vs recorded JAX decode: max {lsb_j} LSB, "
           f"{100 * same_j:.3f} % identical on the {stride}-strided sample; "
           f"PSNR {psnr:.4f} dB vs JAX {float(ref['psnr_db']):.4f} dB",
@@ -295,7 +679,7 @@ def main() -> int:
                 lambda: dec(*pargs), 5)
     print(f"fixture decode times: {json.dumps(times)}", flush=True)
 
-    # phase 5: 4K x 2304 kernels, encoded by the port itself
+    # phase 6: 4K x 2304 kernels, encoded by the port itself
     img4k = build_4k_image()
     cfg4k = SmoeConfig(kernels_per_dim=(48, 48), use_yuv=True,
                        use_determinant=True)
@@ -313,12 +697,12 @@ def main() -> int:
         bits = write_bitstream(path4k, qp, cfg4k, extra={
             "shape_of_img": [2160, 3840], "dim_of_output": 3,
             "use_yuv": True, "use_determinant": True, "train_gammas": True})
-        gate_expert_fwd.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         rec4k = decode_bitstream(path4k, device="cuda")
         first_ms = (time.perf_counter() - t0) * 1e3
         launches4k = gate_expert_fwd.launches
-        launches += launches4k
+        launches[0] += launches4k
         check(launches4k == 1, f"4K decode launched {launches4k} kernels")
         check(rec4k.shape == (2160, 3840, 3) and np.isfinite(rec4k).all(),
               f"4K decode: bad output {rec4k.shape}")
@@ -347,13 +731,28 @@ def main() -> int:
           f"{100 * same4:.4f} % identical; {json.dumps(t4)}", flush=True)
     check(lsb4 <= 1 and same4 >= 0.999, "4K kernel vs plain decode")
 
+    # phases 7-10: the trainer path (K1 forward, K2 backward)
+    s_k, s_p, _ = trainer_flagship(img, launches)
+    trainer_bench_recipe(s_k, s_p, launches)
+    trainer_file_roundtrip(s_k, img, launches)
+    del s_k, s_p
+    torch.cuda.empty_cache()
+    trainer_1080p(load_1080p(), launches)
+    check(launches[0] > 0 and launches[1] > 0,
+          f"main paths launched K1 {launches[0]} / K2 {launches[1]} times")
+
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "gate_expert_fwd", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": flagship["ms"],
-        "plain_ms": flagship["plain_ms"]}]}))
+    print(json.dumps({"kernels": [
+        {"name": "gate_expert_fwd", "route": "cuda", "source": KERNEL_SRC,
+         "replaces": KERNEL_REPLACES, "launches": launches[0],
+         "max_abs_err": max_err, "ms": flagship["ms"],
+         "plain_ms": flagship["plain_ms"]},
+        {"name": "gate_expert_bwd", "route": "cuda", "source": BWD_SRC,
+         "replaces": BWD_REPLACES, "launches": launches[1],
+         "max_abs_err": max_err_bwd, "max_rel_err": max_rel_bwd,
+         "ms": bwd[0]["ms"],
+         "plain_ms": bwd[0]["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

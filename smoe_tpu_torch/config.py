@@ -1,4 +1,5 @@
-"""Model configuration: a copy of `SmoeConfig` from smoe_tpu/config.py:14-184.
+"""Model configuration: copies of `SmoeConfig` and `OptConfig` from
+smoe_tpu/config.py:14-199.
 
 The port carries its own copy because importing any `smoe_tpu` submodule
 runs `smoe_tpu/__init__.py`, which imports jax.  Field names, defaults and
@@ -13,7 +14,7 @@ Mirrors the hyperparameter surface of the reference `Smoe.__init__`
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,3 +188,18 @@ class SmoeConfig:
 
     def replace(self, **kw) -> "SmoeConfig":
         return dataclasses.replace(self, **kw)
+
+
+# Default Adam learning-rate structure (reference smoe_test.py:84-97):
+#   group 1 {nu_e, gamma_e, musX}: base_lr
+#   group 2 {pis}:                 base_lr / lr_div        (default /100)
+#   group 3 {A_diag, A_corr}:      base_lr * lr_mult       (default x1000)
+#   group 4 {SV}:                  base_lr * lr_mult_sv
+#   group 5 {motion h**}:          base_lr
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    base_lr: float = 1e-3
+    lr_div: float = 100.0
+    lr_mult: float = 1000.0
+    lr_mult_sv: float = 1.0
+    grad_clip_value_abs: Optional[float] = None

@@ -1,16 +1,18 @@
-"""Initialization: coordinate domain, kernel grid, expert means, pis.
+"""Initialization: coordinate domain, kernel grid, expert means, pis, block
+shape.
 
-A numpy copy of smoe_tpu/core/init.py:20-205 (imports pointed into the
+A numpy copy of smoe_tpu/core/init.py:20-238 (imports pointed into the
 port; `init_motion_identity` from smoe_tpu/core/params.py:119-127 written
 in numpy).  Host-side, run once before a fit (reference equivalents:
 gen_domain smoe.py:2395-2426, generate_kernel_grid :2146-2163,
 generate_experts :2165-2235, generate_pis :2237-2242,
-init_domain_and_target :1890-1893).
+get_batch_shape :2459-2543, init_domain_and_target :1890-1893).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from itertools import product
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -214,3 +216,34 @@ def init_params(image: np.ndarray, cfg: SmoeConfig,
         musX=pad(musX, cap), a_diag=a_diag, a_corr=a_corr,
         pis=pad(pis, cap), nu_e=pad(nu_e, cap), gamma_e=pad(gamma_e, cap),
         motion=motion, sv=sv, sv_bw_diag=sv_bw_diag, sv_bw_corr=sv_bw_corr)
+
+
+def get_batch_shape(desired_batches: int, domain_shape: Sequence[int]
+                    ) -> Tuple[int, ...]:
+    """Pick a block shape: smallest divisor-product >= desired batch count,
+    preferring near-cubic blocks (reference smoe.py:2459-2543).
+
+    domain_shape includes the channel-ish last dim (kept undivided).
+    """
+    def divisors(n):
+        return [i for i in range(1, n + 1) if n % i == 0]
+
+    dims = list(domain_shape)
+    factor_lists = [divisors(n) for n in dims[:-1]] + [[1]]
+    if len(dims) > 4:                      # light-field: never split views
+        factor_lists[0] = [1]
+        factor_lists[1] = [1]
+
+    shapes = list(product(*factor_lists))
+    counts = np.array([np.prod(s[:-1]) for s in shapes], dtype=np.float64)
+    diff = counts - desired_batches
+    diff[diff < 0] = np.inf
+    target = counts[int(np.argmin(diff))]
+    candidates = [s for s, c in zip(shapes, counts) if c == target]
+    # prefer near-cubic: minimize sum of divisors (reference :2531-2538);
+    # the light-field branch scores ONLY the 3rd-dim divisor — the
+    # reference's identical `divs[2:3]` slice (smoe.py:2535-2536)
+    def score(s):
+        return np.sum(s[2:3]) if len(s) > 4 else np.sum(s)
+    best = min(candidates, key=score)
+    return tuple(int(n // f) for n, f in zip(dims, best))

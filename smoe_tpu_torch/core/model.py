@@ -11,9 +11,9 @@ symmetric inverse-cov matrix directly)
 Two paths, as in the JAX package:
   * the plain path (`maha_from_A` -> `gating` -> `expert_regression`,
     `smoe_forward`; model.py:57-215, 345-367) — plain torch ops;
-  * `forward_fused` (model.py:250-342, forward only) — the same function
-    through the fused gate+expert op (kernels/gate_expert.py), which on a
-    CUDA tensor runs the hand-written Hopper kernel.
+  * `forward_fused` (model.py:250-342) — the same function through the
+    fused gate+expert op (kernels/gate_expert.py), which on a CUDA tensor
+    runs the hand-written Hopper kernels: K1 forward, K2 backward.
 
 Numerics: every maha contraction is exact fp32.  The quadratic-feature
 form cancels A^2-scale terms, so TF32 (like the TPU's one-pass bf16)
@@ -44,6 +44,16 @@ class ForwardOut(NamedTuple):
     maha: Optional[torch.Tensor]        # (N, K)
 
 
+def clip_unit(x: torch.Tensor) -> torch.Tensor:
+    """jnp.clip(x, 0, 1) with its gradient.
+
+    Every clamp a gradient passes through in the port is torch.maximum /
+    torch.minimum against a 0-dim constant, never torch.clamp: at an exact
+    tie their gradient is 0.5, as jnp.maximum's and jnp.clip's are, where
+    torch.clamp's is 1."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def _exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b in full fp32: refuses a CUDA matmul while TF32 is allowed."""
     if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
@@ -59,6 +69,16 @@ def quadratic_features(x: torch.Tensor) -> torch.Tensor:
     outer = (x[:, :, None] * x[:, None, :]).reshape(n, d * d)
     ones = torch.ones((n, 1), dtype=x.dtype, device=x.device)
     return torch.cat([outer, x, ones], dim=-1)
+
+
+def det_diag(diag_A: torch.Tensor) -> torch.Tensor:
+    """prod(diag A) per kernel, (K, d) -> (K,), as a chain of multiplies:
+    the backward of torch.prod looks for zeros with `nonzero`, which waits
+    for the card once per backward."""
+    out = diag_A[:, 0]
+    for i in range(1, diag_A.shape[1]):
+        out = out * diag_A[:, i]
+    return out
 
 
 def _aat(A: torch.Tensor) -> torch.Tensor:
@@ -88,7 +108,7 @@ def maha_from_A(A: torch.Tensor, musX: torch.Tensor, cfg: SmoeConfig,
     q = kernel_quadratics(B, musX)
     maha = _exact_matmul(quadratic_features(coords), q.T)
     if not cfg.train_inverse_cov:
-        maha = torch.clamp(maha, min=0.0)
+        maha = torch.maximum(maha, maha.new_zeros(()))
     return maha
 
 
@@ -101,11 +121,12 @@ def gating(maha: torch.Tensor, pis: torch.Tensor, diag_A: torch.Tensor,
     n_exp = torch.exp(-0.5 * torch.where(mask[None, :], maha,
                                          torch.zeros_like(maha)))
     if cfg.use_determinant:
-        n_div = torch.prod(diag_A, dim=-1)
+        n_div = det_diag(diag_A)
         n_quo = n_div / math.sqrt((2.0 * math.pi) ** cfg.dim_domain)
         n_exp = n_exp * n_quo[None, :]
     n_w = n_exp * torch.where(mask, pis, torch.zeros_like(pis))[None, :]
-    denom = torch.clamp(torch.sum(n_w, dim=1, keepdim=True), min=DENOM_FLOOR)
+    denom = torch.maximum(n_w.new_full((), DENOM_FLOOR),
+                          torch.sum(n_w, dim=1, keepdim=True))
     w_e = n_w / denom
     return w_e * (w_e > cfg.minimum_influence)
 
@@ -143,24 +164,51 @@ def fake_quant_unit(x: torch.Tensor, bits: int) -> torch.Tensor:
     return x + (q - x).detach()
 
 
+def resolve_fused(use_pallas: str, device) -> bool:
+    """Whether the trainer takes the fused op (counterpart of
+    model.py:229-247 `resolve_pallas`).
+
+    'auto' takes it on a CUDA device and the plain path on the CPU, as
+    JAX's 'auto' takes the XLA path off the TPU; 'on' takes it everywhere
+    (on the CPU the fused op runs through its plain versions); 'off' takes
+    the plain path."""
+    if use_pallas == "packed":
+        raise ValueError(
+            "use_pallas='packed' was removed from the JAX package: capped-"
+            "dense ('auto') is faster at every measured size (see ROADMAP.md)")
+    if use_pallas not in ("auto", "on", "off"):
+        raise ValueError(f"use_pallas must be 'auto', 'on' or 'off', got "
+                         f"{use_pallas!r}")
+    if use_pallas == "off":
+        return False
+    return use_pallas == "on" or torch.device(device).type == "cuda"
+
+
 def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
                   gamma_e: torch.Tensor, pis: torch.Tensor, cfg: SmoeConfig,
-                  coords: torch.Tensor,
-                  kernel_mask: torch.Tensor) -> ForwardOut:
-    """Forward through the fused gate+expert op (model.py:250-342, forward
-    only): builds q, pi_det, phi, xe and G as model.py:284-316 does and
-    calls `kernels.gate_expert.gate_expert_fwd`.
+                  coords: torch.Tensor, kernel_mask: torch.Tensor,
+                  sv_add: Optional[torch.Tensor] = None,
+                  k_cap: Optional[int] = None) -> ForwardOut:
+    """Forward through the fused gate+expert op (model.py:250-342): builds
+    q, pi_det, phi, xe and G as model.py:284-316 does and calls
+    `kernels.gate_expert.GateExpert`, whose backward is the K2 kernel.
+    Gradients flow to A, musX, nu_e, gamma_e and pis; coords carry none
+    (the motion-compensated video path, where they would, is not ported).
 
-    The backward kernel (K2) is not ported yet, so inputs that require
-    grad are refused; the capped-dense `k_cap` gather, `sv_add` and the
-    dual-model features wait for the trainer and video slices.
+    k_cap: width cap of the capped-dense mode (model.py:318-329): the
+    caller guarantees every kernel list holds at most k_cap active kernels;
+    the active kernels are gathered first, in index order (a stable sort,
+    as jnp.argsort), the op runs at the narrow width and the survivors are
+    scattered back.  A falsy cap means no cap.
+    sv_add: (N,) residual added to the Y channel before the clip
+    (model.py:337-339).
     """
-    from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
+    from smoe_tpu_torch.kernels.gate_expert import GateExpert
 
-    if any(t.requires_grad for t in (A, musX, nu_e, gamma_e, pis, coords)):
+    if coords.requires_grad:
         raise NotImplementedError(
-            "forward_fused has no backward kernel yet (K2, ROADMAP.md "
-            "Queue 2); use smoe_forward for gradients")
+            "forward_fused gives coords no gradient (video train_trafo, "
+            "ROADMAP.md Queue 1 item 10)")
     B = A if cfg.train_inverse_cov else _aat(A)
     q = kernel_quadratics(B, musX)
 
@@ -168,7 +216,7 @@ def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
     zero = torch.zeros_like(pis)
     if cfg.use_determinant:
         diag_A = torch.diagonal(A, dim1=1, dim2=2)
-        det = torch.prod(diag_A, dim=-1) / math.sqrt(
+        det = det_diag(diag_A) / math.sqrt(
             (2.0 * math.pi) ** cfg.dim_domain)
         pi_det = torch.where(mask, pis * det, zero)
     else:
@@ -184,10 +232,22 @@ def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
         G = torch.cat([gamma_e.reshape(k, d * c), nu_e], dim=1)
     else:
         xe, G = ones, nu_e
-    res_raw, surv = gate_expert_fwd(
-        phi, xe, q, G, pi_det.float(), mask.float(),
-        float(cfg.minimum_influence), float(DENOM_FLOOR))
-    res = fake_quant_unit(torch.clamp(res_raw, 0.0, 1.0), cfg.precision)
+    thr, floor = float(cfg.minimum_influence), float(DENOM_FLOOR)
+    if k_cap and k_cap < k:
+        order = torch.argsort((~mask).to(torch.int32), stable=True)[:k_cap]
+        res_raw, surv_c = GateExpert.apply(
+            phi, xe, q[order], G[order], pi_det[order].float(),
+            mask[order].float(), thr, floor)
+        surv = torch.zeros((k,), dtype=surv_c.dtype,
+                           device=surv_c.device).index_put((order,), surv_c)
+    else:
+        res_raw, surv = GateExpert.apply(phi, xe, q, G.contiguous(),
+                                         pi_det.float(), mask.float(), thr,
+                                         floor)
+    if sv_add is not None:
+        res_raw = torch.cat([res_raw[:, :1] + sv_add[:, None], res_raw[:, 1:]],
+                            dim=1)
+    res = fake_quant_unit(clip_unit(res_raw), cfg.precision)
     return ForwardOut(res=res, w_e=None, survivors=surv > 0, maha=None)
 
 
@@ -209,6 +269,6 @@ def smoe_forward(params: SmoeParams, cfg: SmoeConfig,
     diag_A = torch.diagonal(A, dim1=1, dim2=2)
     w_e = gating(maha, params.pis, diag_A, cfg, kernel_mask)
     res = expert_regression(w_e, coords, params.nu_e, params.gamma_e, cfg)
-    res = fake_quant_unit(torch.clamp(res, 0.0, 1.0), cfg.precision)
+    res = fake_quant_unit(clip_unit(res), cfg.precision)
     survivors = torch.any(w_e > cfg.minimum_influence, dim=0)
     return ForwardOut(res=res, w_e=w_e, survivors=survivors, maha=maha)

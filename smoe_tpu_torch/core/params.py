@@ -11,7 +11,8 @@ marks a dead kernel):
     motion, sv, sv_bw_diag, sv_bw_corr   optional (video / SV residual)
 
 `params_from_numpy` / `params_to_numpy` carry parameters between the two
-packages as numpy arrays, so both compute on identical values.
+packages as numpy arrays, so both compute on identical values;
+`adam_state_from_numpy` carries optax's Adam moments the same way.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def params_from_numpy(d, device="cpu") -> SmoeParams:
     for key, v in d.items():
         name = _DICT_NAMES.get(key, key)
         if name in FIELDS and v is not None:
-            vals[name] = torch.as_tensor(np.asarray(v, np.float32),
+            vals[name] = torch.as_tensor(np.array(v, np.float32),
                                          device=device)
     if "motion" not in vals and all(r in d for r in _MOTION_ROWS):
         vals["motion"] = torch.as_tensor(
@@ -92,6 +93,39 @@ def params_to_numpy(p: SmoeParams) -> dict:
         if v is not None:
             out[f] = v.detach().cpu().numpy() if torch.is_tensor(v) \
                 else np.asarray(v)
+    return out
+
+
+def _leaves(tree) -> dict:
+    """{field: array} of a dict or a params-like object, keeping only
+    array leaves (optax marks the fields outside a group with empty
+    `MaskedNode`s, which have no shape)."""
+    if not isinstance(tree, dict):
+        tree = {f: getattr(tree, f, None) for f in FIELDS}
+    return {_DICT_NAMES.get(k, k): v for k, v in tree.items()
+            if hasattr(v, "shape") and hasattr(v, "dtype")}
+
+
+def adam_state_from_numpy(mu, nu, count: int, device="cpu") -> dict:
+    """optax `ScaleByAdamState` leaves as numpy -> the port's Adam state.
+
+    mu, nu: first and second moments keyed by field (a dict, or the
+    `SmoeParams`-shaped trees optax keeps, whose non-group fields are
+    skipped); count: the step count.  Returns {field: {"step", "exp_avg",
+    "exp_avg_sq"}}, the per-tensor state of torch.optim.Adam, which
+    `Smoe.load_adam_state` installs.  Both packages then compute the same
+    next step: optax.adam and torch.optim.Adam apply the same update with
+    eps outside the square root, in a different op order.
+    """
+    mu, nu = _leaves(mu), _leaves(nu)
+    out = {}
+    for f, m in mu.items():
+        out[f] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.as_tensor(np.array(m, np.float32),
+                                       device=device),
+            "exp_avg_sq": torch.as_tensor(np.array(nu[f], np.float32),
+                                          device=device)}
     return out
 
 

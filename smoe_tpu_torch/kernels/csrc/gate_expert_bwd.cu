@@ -1,0 +1,339 @@
+// Fused SMoE gate + expert backward for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the Pallas TPU kernel smoe_tpu/kernels/gate_expert.py::_bwd_kernel
+// (launched by _bwd_call, wrapped by _fused_bwd).  Same function, not the
+// same block layout.  It recomputes the forward of gate_expert_fwd.cu and,
+// for the cotangent g (N, C) of res, returns
+//
+//   dq'[k]  = sum_n dn_w * n_w * clamp_f * phi_n     (K, F)  wrt the prescaled
+//                                                          q' = -0.5 * mask * q
+//   dG[k]   = sum_n w * dwg_n                       (K, E*C)
+//   dpi[k]  = sum_n dn_w * e                        (K,)
+//
+// with, per (pixel n, kernel k):
+//   mh_raw = phi_n . q'_k,  e = exp(min(mh_raw, 0)),  n_w = e * pi_det_k
+//   raw = sum_k n_w,  denom = max(floor, raw),  live = raw > floor
+//   w~ = n_w / denom,  cull = w~ > thr (straight-through),  w = w~ * cull
+//   dwg_n[j*C + c] = xe_nj * g_nc,  dw = cull * (dwg_n . G_k)
+//   s_n = sum_k dw * w~,  dn_w = (dw - s_n * live) / denom
+//   clamp_f = 1 below the tie, 0.5 at mh_raw == 0, 0 above (jnp.minimum's
+//   subgradient; gate_expert.py:292-297).
+//
+// Design.  The sum s_n needs a full pass over K before any dn_w exists, and
+// every output is a sum over all N pixels.  The TPU kernel walked pixel
+// tiles in sequence and carried the sums in its output block; CTAs here run
+// in parallel and in no order, and float atomics would make runs
+// irreproducible (the trainer's kernel lists and k_cap feed back on the
+// gradients).  So three launches, each summing in a fixed order:
+//
+//   A  pixel pass, one thread per pixel, q'/G/pi_det staged in shared
+//      memory KC kernels at a time exactly as K1 stages them: pass 1 sums the
+//      denominator in K1's order (same bits, so the cull decisions agree with
+//      the forward), pass 2 sums s_n.  Writes (denom, s_n * live) per pixel.
+//   B  kernel-major accumulate: each thread owns ONE kernel (its q', G, pi
+//      and its F + E*C + 1 running sums in registers); a CTA of TK kernels
+//      walks a fixed set of TP-pixel tiles (grid-stride over tiles, S pixel
+//      splits) staged in shared memory, every thread reading the same pixel
+//      (broadcast, no bank conflicts).  No shuffles, no atomics: each sum is
+//      sequential over that CTA's pixels.  Partials go to a (S, V, K) buffer,
+//      V = F + E*C + 1, k fastest so the stores coalesce.
+//   C  fixed-order reduce over the S splits, one thread per (v, k).
+//
+// S is chosen so that about 8 CTAs of TK threads sit on each of the 132
+// SMs, and at most 512, which bounds the partial buffer (S*V*K*4 bytes: 9 MB
+// at 512^2 x K256 d2, 20 MB at K2304 d4) and the reduce's serial length.
+// A pair whose exp underflows to exact 0 contributes exact zeros to every
+// sum and is skipped; culled pairs still feed dpi and dq' through
+// -s_n * live / denom and are not skipped.
+//
+// Every product is an fp32 FMA: no tensor cores, no TF32 — the quadratic-
+// feature maha cancels A^2-scale terms.  Built without --use_fast_math:
+// expf, IEEE division.
+//
+// What bounds it (a reckoning, not a measurement).  Per (pixel, kernel)
+// pair: three maha recomputations (3F FMAs), three expf, three IEEE
+// divisions, E*C FMAs for dw where the pair survives the cull (twice) and
+// F + E*C + 1 FMAs of accumulation in pass B.  At 512^2 x 256 that is
+// 6.7e7 pairs and ~7e9 FP32 instructions against ~13 MB of input: compute /
+// SFU bound like K1, at roughly three times K1's work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TPB = 256;    // pass A: pixels (threads) per CTA
+constexpr int KC = 256;     // pass A: kernels staged in shared memory
+constexpr int TK = 128;     // pass B: kernels (threads) per CTA
+constexpr int TP = 128;     // pass B: pixels per staged tile
+constexpr int TARGET_CTAS = 132 * 8;
+constexpr int MAX_SPLITS = 512;
+
+template <int F>
+__device__ __forceinline__ float maha_raw(const float* __restrict__ ph,
+                                          const float* __restrict__ qk) {
+  // phi . q' in K1's FMA order; q' carries the -0.5 * mask scale
+  float mh = 0.f;
+#pragma unroll
+  for (int j = 0; j < F; ++j) mh = fmaf(ph[j], qk[j], mh);
+  return mh;
+}
+
+int num_splits(int n, int k) {
+  const int n_tiles = (n + TP - 1) / TP;
+  const int kb = (k + TK - 1) / TK;
+  int s = (TARGET_CTAS + kb - 1) / kb;
+  if (s > MAX_SPLITS) s = MAX_SPLITS;
+  if (s > n_tiles) s = n_tiles;
+  return s < 1 ? 1 : s;
+}
+
+// ---- A: per-pixel denominator and s_n ------------------------------------
+template <int F, int E, int C>
+__global__ void __launch_bounds__(TPB)
+bwd_pixel_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
+                 const float* __restrict__ qs, const float* __restrict__ G,
+                 const float* __restrict__ pi_det,
+                 const float* __restrict__ g, float* __restrict__ pix,
+                 int n, int k, float thr, float floor_) {
+  constexpr int EC = E * C;
+  __shared__ float s_q[KC * F];
+  __shared__ float s_G[KC * EC];
+  __shared__ float s_pi[KC];
+
+  const int row = blockIdx.x * TPB + threadIdx.x;
+  const bool valid = row < n;
+  float ph[F];
+#pragma unroll
+  for (int j = 0; j < F; ++j) ph[j] = valid ? phi[(size_t)row * F + j] : 0.f;
+
+  // pass 1: the denominator, in K1's order
+  float raw = 0.f;
+  for (int k0 = 0; k0 < k; k0 += KC) {
+    const int kc = min(KC, k - k0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kc * F; i += TPB) s_q[i] = qs[(size_t)k0 * F + i];
+    for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
+    __syncthreads();
+    for (int kk = 0; kk < kc; ++kk)
+      raw += expf(fminf(maha_raw<F>(ph, s_q + kk * F), 0.f)) * s_pi[kk];
+  }
+  const float denom = fmaxf(floor_, raw);
+
+  float dwg[EC];
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const float x = valid ? xe[(size_t)row * E + j] : 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      dwg[j * C + c] = x * (valid ? g[(size_t)row * C + c] : 0.f);
+  }
+
+  // pass 2: s_n = sum_k cull * (dwg . G_k) * w~
+  float s = 0.f;
+  for (int k0 = 0; k0 < k; k0 += KC) {
+    const int kc = min(KC, k - k0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kc * F; i += TPB) s_q[i] = qs[(size_t)k0 * F + i];
+    for (int i = threadIdx.x; i < kc * EC; i += TPB) s_G[i] = G[(size_t)k0 * EC + i];
+    for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
+    __syncthreads();
+    for (int kk = 0; kk < kc; ++kk) {
+      const float wt =
+          expf(fminf(maha_raw<F>(ph, s_q + kk * F), 0.f)) * s_pi[kk] / denom;
+      if (wt > thr) {      // culled pairs add exact zeros
+        const float* gk = s_G + kk * EC;
+        float dw = 0.f;
+#pragma unroll
+        for (int j = 0; j < EC; ++j) dw = fmaf(dwg[j], gk[j], dw);
+        s = fmaf(dw, wt, s);
+      }
+    }
+  }
+  if (valid) {
+    pix[(size_t)row * 2] = denom;
+    pix[(size_t)row * 2 + 1] = raw > floor_ ? s : 0.f;
+  }
+}
+
+// ---- B: kernel-major accumulation over a fixed set of pixel tiles --------
+template <int F, int E, int C>
+__global__ void __launch_bounds__(TK)
+bwd_accum_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
+                 const float* __restrict__ qs, const float* __restrict__ G,
+                 const float* __restrict__ pi_det,
+                 const float* __restrict__ g, const float* __restrict__ pix,
+                 float* __restrict__ part, int n, int k, float thr) {
+  constexpr int EC = E * C;
+  constexpr int V = F + EC + 1;
+  __shared__ float s_phi[TP * F];
+  __shared__ float s_dwg[TP * EC];
+  __shared__ float s_den[TP];
+  __shared__ float s_sl[TP];
+
+  const int kid = blockIdx.y * TK + threadIdx.x;
+  const bool active = kid < k;
+  float qk[F], gk[EC], aq[F], aG[EC];
+  float pk = 0.f, ap = 0.f;
+#pragma unroll
+  for (int j = 0; j < F; ++j) {
+    qk[j] = active ? qs[(size_t)kid * F + j] : 0.f;
+    aq[j] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < EC; ++j) {
+    gk[j] = active ? G[(size_t)kid * EC + j] : 0.f;
+    aG[j] = 0.f;
+  }
+  if (active) pk = pi_det[kid];
+
+  const int n_tiles = (n + TP - 1) / TP;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int r0 = t * TP;
+    const int rows = min(TP, n - r0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * F; i += TK)
+      s_phi[i] = phi[(size_t)r0 * F + i];
+    for (int i = threadIdx.x; i < rows * EC; i += TK) {
+      const int p = i / EC, jc = i - p * EC;
+      const int j = jc / C, c = jc - j * C;
+      s_dwg[i] = xe[(size_t)(r0 + p) * E + j] * g[(size_t)(r0 + p) * C + c];
+    }
+    for (int i = threadIdx.x; i < rows; i += TK) {
+      s_den[i] = pix[(size_t)(r0 + i) * 2];
+      s_sl[i] = pix[(size_t)(r0 + i) * 2 + 1];
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int p = 0; p < rows; ++p) {
+      const float* ph = s_phi + p * F;
+      const float mh = maha_raw<F>(ph, qk);
+      const float e = expf(fminf(mh, 0.f));
+      if (e == 0.f) continue;    // every contribution is an exact zero
+      const float den = s_den[p];
+      const float n_w = e * pk;
+      const float wt = n_w / den;
+      const float* dg = s_dwg + p * EC;
+      float dwt = 0.f;
+      if (wt > thr) {
+        float dw = 0.f;
+#pragma unroll
+        for (int j = 0; j < EC; ++j) dw = fmaf(dg[j], gk[j], dw);
+        dwt = dw;
+#pragma unroll
+        for (int j = 0; j < EC; ++j) aG[j] = fmaf(wt, dg[j], aG[j]);
+      }
+      const float dn = (dwt - s_sl[p]) / den;
+      ap = fmaf(dn, e, ap);
+      const float cf = mh < 0.f ? 1.f : (mh == 0.f ? 0.5f : 0.f);
+      const float tq = dn * n_w * cf;
+#pragma unroll
+      for (int j = 0; j < F; ++j) aq[j] = fmaf(tq, ph[j], aq[j]);
+    }
+  }
+  if (!active) return;
+  float* out = part + (size_t)blockIdx.x * V * k + kid;
+#pragma unroll
+  for (int j = 0; j < F; ++j) out[(size_t)j * k] = aq[j];
+#pragma unroll
+  for (int j = 0; j < EC; ++j) out[(size_t)(F + j) * k] = aG[j];
+  out[(size_t)(F + EC) * k] = ap;
+}
+
+// ---- C: fixed-order reduce over the pixel splits -------------------------
+__global__ void bwd_reduce_kernel(const float* __restrict__ part,
+                                  float* __restrict__ dq,
+                                  float* __restrict__ dG,
+                                  float* __restrict__ dpi, int splits, int f,
+                                  int ec, int k) {
+  const int v_count = f + ec + 1;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= v_count * k) return;
+  const int v = idx / k, kid = idx - v * k;
+  const size_t stride = (size_t)v_count * k;
+  float acc = 0.f;
+  for (int s = 0; s < splits; ++s) acc += part[(size_t)s * stride + idx];
+  if (v < f)
+    dq[(size_t)kid * f + v] = acc;
+  else if (v < f + ec)
+    dG[(size_t)kid * ec + (v - f)] = acc;
+  else
+    dpi[kid] = acc;
+}
+
+template <int F, int E, int C>
+cudaError_t launch(const float* phi, const float* xe, const float* qs,
+                   const float* G, const float* pi_det, const float* g,
+                   float* dq, float* dG, float* dpi, int n, int k, float thr,
+                   float floor_, float* ws, cudaStream_t stream) {
+  constexpr int EC = E * C;
+  float* pix = ws;
+  float* part = ws + (size_t)n * 2;
+  const int splits = num_splits(n, k);
+  bwd_pixel_kernel<F, E, C><<<(n + TPB - 1) / TPB, TPB, 0, stream>>>(
+      phi, xe, qs, G, pi_det, g, pix, n, k, thr, floor_);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid_b(splits, (k + TK - 1) / TK);
+  bwd_accum_kernel<F, E, C><<<grid_b, TK, 0, stream>>>(
+      phi, xe, qs, G, pi_det, g, pix, part, n, k, thr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int total = (F + EC + 1) * k;
+  bwd_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
+      part, dq, dG, dpi, splits, F, EC, k);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Feature widths this build instantiates: the same as gate_expert_fwd.cu.
+int smoe_gate_expert_bwd_supported(int f, int e, int c) {
+  const int d = f == 7 ? 2 : f == 13 ? 3 : f == 21 ? 4 : 0;
+  return d && (e == 1 || e == d + 1) && (c == 1 || c == 3);
+}
+
+// Floats of scratch the caller allocates and passes as `ws`: (N, 2) per-pixel
+// values, then the (S, V, K) partial sums.
+long long smoe_gate_expert_bwd_workspace(int n, int f, int e, int c, int k) {
+  if (n <= 0 || k <= 0) return 1;
+  const long long v = f + (long long)e * c + 1;
+  return 2LL * n + (long long)num_splits(n, k) * v * k;
+}
+
+// dq (K, F), dG (K, E*C), dpi (K,) are written whole.  Launches on `stream`
+// and does not synchronise.  Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for a width this build lacks).
+int smoe_gate_expert_bwd(const float* phi, const float* xe, const float* qs,
+                         const float* G, const float* pi_det, const float* g,
+                         float* dq, float* dG, float* dpi, int n, int f, int e,
+                         int c, int k, float thr, float floor_, float* ws,
+                         void* stream_ptr) {
+  if (!smoe_gate_expert_bwd_supported(f, e, c) || n < 0 || k < 0)
+    return (int)cudaErrorInvalidValue;
+  if (k == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (n == 0) {
+    cudaMemsetAsync(dq, 0, sizeof(float) * (size_t)k * f, s);
+    cudaMemsetAsync(dG, 0, sizeof(float) * (size_t)k * e * c, s);
+    cudaMemsetAsync(dpi, 0, sizeof(float) * (size_t)k, s);
+    return (int)cudaGetLastError();
+  }
+#define SMOE_CASE(F_, E_, C_)                                                \
+  if (f == F_ && e == E_ && c == C_)                                         \
+    return (int)launch<F_, E_, C_>(phi, xe, qs, G, pi_det, g, dq, dG, dpi,   \
+                                   n, k, thr, floor_, ws, s);
+  SMOE_CASE(7, 3, 3) SMOE_CASE(7, 1, 3) SMOE_CASE(7, 3, 1) SMOE_CASE(7, 1, 1)
+  SMOE_CASE(13, 4, 3) SMOE_CASE(13, 1, 3) SMOE_CASE(13, 4, 1) SMOE_CASE(13, 1, 1)
+  SMOE_CASE(21, 5, 3) SMOE_CASE(21, 1, 3) SMOE_CASE(21, 5, 1) SMOE_CASE(21, 1, 1)
+#undef SMOE_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* smoe_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

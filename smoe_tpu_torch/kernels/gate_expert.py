@@ -1,20 +1,31 @@
-"""Fused SMoE gate+expert forward: the Hopper kernel K1 and its plain version.
+"""Fused SMoE gate+expert op: the Hopper kernels K1 (forward) and K2
+(backward), their plain versions, and the autograd op around them.
 
 Counterpart of smoe_tpu/kernels/gate_expert.py (`fused_gate_expert`
-forward, `gate_expert_reference` :459-471).  For every (pixel, kernel)
-pair it evaluates
+:377-452, `gate_expert_reference` :459-471).  For every (pixel, kernel)
+pair the forward evaluates
 
     maha -> exp(-0.5 maha) -> pi*det-weighted normalised gating
          -> influence cull -> affine expert mix
 
-without materialising any (N, K) intermediate.
+without materialising any (N, K) intermediate; the backward recomputes
+that chain and accumulates dq', dG and dpi_det over the pixels
+(_bwd_kernel :236-314).
 
-`gate_expert_fwd` dispatches on where its tensors lie:
-  * CPU tensors go to `gate_expert_reference`, the plain torch version;
-  * CUDA tensors launch the CUDA C++ kernel csrc/gate_expert_fwd.cu (built
-    by kernels/build.py at first use) or raise — there is no fallback.
-`gate_expert_fwd.launches` counts kernel launches (a plain int; the plain
-version does not count).
+`gate_expert_fwd` and `gate_expert_bwd` dispatch on where their tensors
+lie:
+  * CPU tensors go to `gate_expert_reference` / `gate_expert_bwd_reference`,
+    the plain torch versions;
+  * CUDA tensors launch the CUDA C++ kernels csrc/gate_expert_fwd.cu /
+    csrc/gate_expert_bwd.cu (built by kernels/build.py at first use) or
+    raise — there is no fallback.
+`gate_expert_fwd.launches` / `gate_expert_bwd.launches` count kernel
+launches (plain ints; the plain versions do not count).
+
+Gradient semantics are the JAX op's (gate_expert.py:38-42, 283-297): the
+cull mask and the denominator floor are straight-through constants, and
+the maha >= 0 clamp takes jnp.minimum's subgradient (1 below the tie, 0.5
+at it, 0 where clamped).
 """
 
 from __future__ import annotations
@@ -28,6 +39,13 @@ import torch
 from smoe_tpu_torch.kernels import build
 
 _NAME = "gate_expert_fwd"
+_BWD_NAME = "gate_expert_bwd"
+
+
+def _refuse_tf32(t: torch.Tensor) -> None:
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("allow_tf32 is on: the maha matmul needs exact "
+                           "fp32")
 
 
 def gate_expert_reference(phi, xe, q, G, pi_det, mask, thr: float,
@@ -40,12 +58,13 @@ def gate_expert_reference(phi, xe, q, G, pi_det, mask, thr: float,
     (zero for dead kernels); mask (K,) float 1/0 liveness.
     Returns (res (N, C) pre-clip, surv (K,) max culled weight per kernel).
     """
-    if phi.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("allow_tf32 is on: the maha matmul needs exact "
-                           "fp32")
-    maha = torch.clamp(phi @ q.T, min=0.0)
+    _refuse_tf32(phi)
+    # torch.maximum against a 0-dim constant: 0.5 gradient at a tie, as
+    # jnp.maximum (torch.clamp would give 1)
+    maha = torch.maximum(phi @ q.T, phi.new_zeros(()))
     n_w = torch.exp(-0.5 * (maha * mask[None, :])) * pi_det[None, :]
-    denom = torch.clamp(torch.sum(n_w, dim=1, keepdim=True), min=floor)
+    denom = torch.maximum(phi.new_full((), floor),
+                          torch.sum(n_w, dim=1, keepdim=True))
     w = n_w / denom
     w = torch.where(w > thr, w, torch.zeros_like(w))
     wg = w @ G
@@ -74,7 +93,7 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
     if t.device != device or t.dtype != torch.float32 \
             or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
         raise ValueError(
-            f"gate_expert_fwd: {name} must be a contiguous float32 tensor "
+            f"gate_expert: {name} must be a contiguous float32 tensor "
             f"of shape {tuple(shape)} on {device}; got {t.dtype} "
             f"{tuple(t.shape)} on {t.device}")
 
@@ -122,3 +141,128 @@ def gate_expert_fwd(phi, xe, q, G, pi_det, mask, thr: float,
 
 
 gate_expert_fwd.launches = 0
+
+
+def gate_expert_bwd_reference(phi, xe, q_s, G, pi_det, g, thr: float,
+                              floor: float):
+    """Plain torch backward of the fused op in `_bwd_kernel`'s op order
+    (gate_expert.py:249-302): recomputes the forward, then returns
+    (dq' (K, F) with respect to the PRESCALED q' = -0.5 * mask * q,
+    dG (K, E*C), dpi_det (K,)) for the cotangent g (N, C) of res."""
+    _refuse_tf32(phi)
+    e_dim = xe.shape[1]
+    mh_raw = phi @ q_s.T
+    mh = torch.minimum(mh_raw, phi.new_zeros(()))   # maha >= 0 clamp
+    e_term = torch.exp(mh)
+    n_w = e_term * pi_det[None, :]
+    raw = torch.sum(n_w, dim=1, keepdim=True)
+    denom = torch.maximum(phi.new_full((), floor), raw)
+    w_tilde = n_w / denom
+    cull = (w_tilde > thr).float()
+    w = w_tilde * cull
+    dwg = torch.cat([xe[:, j:j + 1] * g for j in range(e_dim)], dim=1)
+    dG = w.T @ dwg
+    dwt = (dwg @ G.T) * cull                    # cull is straight-through
+    s = torch.sum(dwt * w_tilde, dim=1, keepdim=True)
+    live = (raw > floor).float()
+    dn_w = (dwt - s * live) / denom
+    dpi = torch.sum(dn_w * e_term, dim=0)
+    clamp_f = 0.5 * ((mh_raw < 0).float() + (mh_raw <= 0).float())
+    dq = (dn_w * n_w * clamp_f).T @ phi
+    return dq, dG, dpi
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load(_BWD_NAME)
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.smoe_gate_expert_bwd.argtypes = ([ptr] * 9 + [i32] * 5
+                                         + [f32, f32, ptr, ptr])
+    lib.smoe_gate_expert_bwd.restype = i32
+    lib.smoe_gate_expert_bwd_workspace.argtypes = [i32, i32, i32, i32, i32]
+    lib.smoe_gate_expert_bwd_workspace.restype = ctypes.c_longlong
+    lib.smoe_gate_expert_bwd_supported.argtypes = [i32, i32, i32]
+    lib.smoe_gate_expert_bwd_supported.restype = i32
+    lib.smoe_cuda_error_string.argtypes = [i32]
+    lib.smoe_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def gate_expert_bwd(phi, xe, q_s, G, pi_det, g, thr: float, floor: float):
+    """Fused gate+expert backward; same arguments and results as
+    `gate_expert_bwd_reference`.  CPU tensors take the plain version; CUDA
+    tensors launch the Hopper kernel K2 (and count one launch) or raise.
+
+    The kernel sums over pixels in a fixed order (per-CTA partials, then a
+    second pass over them), so two runs on the same inputs give the same
+    bits."""
+    if phi.device.type == "cpu":
+        return gate_expert_bwd_reference(phi, xe, q_s, G, pi_det, g, thr,
+                                         floor)
+    if phi.device.type != "cuda":
+        raise ValueError(f"gate_expert_bwd: no kernel for {phi.device}")
+    n, f = phi.shape
+    e = xe.shape[1]
+    k = q_s.shape[0]
+    c = g.shape[1]
+    ec = e * c
+    dev = phi.device
+    for name, t, shape in (("phi", phi, (n, f)), ("xe", xe, (n, e)),
+                           ("q_s", q_s, (k, f)), ("G", G, (k, ec)),
+                           ("pi_det", pi_det, (k,)), ("g", g, (n, c))):
+        _check(name, t, shape, dev)
+    lib = _bwd_library()
+    if not lib.smoe_gate_expert_bwd_supported(f, e, c):
+        raise ValueError(f"gate_expert_bwd: no kernel instance for F={f}, "
+                         f"E={e}, C={c} (d = 2, 3, 4; C = 1 or 3)")
+    dq = torch.empty((k, f), dtype=torch.float32, device=dev)
+    dG = torch.empty((k, ec), dtype=torch.float32, device=dev)
+    dpi = torch.empty((k,), dtype=torch.float32, device=dev)
+    # scratch: per-pixel (denom, s * live) and the per-CTA partial sums;
+    # the kernel allocates nothing itself
+    ws = torch.empty((int(lib.smoe_gate_expert_bwd_workspace(n, f, e, c,
+                                                             k)),),
+                     dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.smoe_gate_expert_bwd(
+        phi.data_ptr(), xe.data_ptr(), q_s.data_ptr(), G.data_ptr(),
+        pi_det.data_ptr(), g.data_ptr(), dq.data_ptr(), dG.data_ptr(),
+        dpi.data_ptr(), n, f, e, c, k, thr, floor, ws.data_ptr(), stream)
+    if err:
+        raise RuntimeError("gate_expert_bwd launch failed: "
+                           + lib.smoe_cuda_error_string(err).decode())
+    gate_expert_bwd.launches += 1
+    return dq, dG, dpi
+
+
+gate_expert_bwd.launches = 0
+
+
+class GateExpert(torch.autograd.Function):
+    """The fused op with its recompute backward: counterpart of the custom
+    VJP `fused_gate_expert` (gate_expert.py:377-452).
+
+    apply(phi, xe, q, G, pi_det, mask, thr, floor) -> (res (N, C) pre-clip,
+    surv (K,)).  Saves the same residuals as `_fused_fwd` (:427-431) and
+    recomputes the (pixel, kernel) chain in the backward; gradients flow to
+    q, G and pi_det only (phi, xe and mask get none; surv carries none)."""
+
+    @staticmethod
+    def forward(ctx, phi, xe, q, G, pi_det, mask, thr, floor):
+        res, surv = gate_expert_fwd(phi, xe, q, G, pi_det, mask, thr, floor)
+        ctx.save_for_backward(phi, xe, q, G, pi_det, mask)
+        ctx.thr, ctx.floor = thr, floor
+        ctx.mark_non_differentiable(surv)
+        return res, surv
+
+    @staticmethod
+    def backward(ctx, g_res, g_surv):
+        phi, xe, q, G, pi_det, mask = ctx.saved_tensors
+        scale = (-0.5 * mask)[:, None]
+        # the forward's prescale, recomputed: the same bits as in K1
+        q_s = (q * scale).contiguous()
+        dq_s, dG, dpi = gate_expert_bwd(phi, xe, q_s, G, pi_det,
+                                        g_res.contiguous(), ctx.thr,
+                                        ctx.floor)
+        # chain factor of the prescale, on the small (K, F) result (:446-447)
+        return (None, None, dq_s * scale, dG, dpi, None, None, None)

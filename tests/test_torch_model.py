@@ -142,12 +142,18 @@ def test_forward_fused_matches_jax(d, variant):
 
 
 def test_forward_fused_refuses_grad():
+    """The fused op's backward (K2) gives coords no gradient, so coords
+    that require one are refused; parameters that require one are taken
+    (tests/test_torch_train_model.py checks their gradients)."""
     jcfg, tcfg, jp, tp, coords = _setup(2, {})
     A = assemble_A(tp, tcfg).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K2"):
+    mask = torch.ones(tp.capacity, dtype=torch.bool)
+    out = tm.forward_fused(A, tp.musX, tp.nu_e, tp.gamma_e, tp.pis, tcfg,
+                           torch.as_tensor(coords), mask)
+    assert out.res.requires_grad
+    with pytest.raises(NotImplementedError, match="coords"):
         tm.forward_fused(A, tp.musX, tp.nu_e, tp.gamma_e, tp.pis, tcfg,
-                         torch.as_tensor(coords),
-                         torch.ones(tp.capacity, dtype=torch.bool))
+                         torch.as_tensor(coords).requires_grad_(True), mask)
 
 
 def test_fake_quant_rounds_half_to_even_with_straight_through():

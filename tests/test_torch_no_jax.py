@@ -39,7 +39,7 @@ def _run(extra=""):
 
 
 def test_every_module_imports_without_jax():
-    assert int(_run().split()[-1]) >= 15
+    assert int(_run().split()[-1]) >= 26
 
 
 def test_decode_path_runs_without_jax():
@@ -55,3 +55,34 @@ rec = decode_bitstream("tests/data/bench512_k256.smoe", device="cpu",
 assert rec.shape == (64, 64, 3) and np.isfinite(rec).all()
 """
     _run(extra)
+
+
+def test_trainer_fit_runs_without_jax():
+    """A 2-sweep CPU fit through the port's trainer (fused op on its plain
+    versions, then a light eval and a quantized eval) loads no jax, optax
+    or smoe_tpu either."""
+    extra = """
+import numpy as np
+from bench import build_image
+from smoe_tpu_torch.codec.quantize import quantize_params, rescaler
+from smoe_tpu_torch.fit.trainer import Smoe
+s = Smoe(build_image(32), kernels_per_dim=[4], use_pallas="on",
+         device="cpu")
+loss, mse, npi, _ = s.run_batched_chunk(2)
+assert np.isfinite(mse).all() and mse[-1] < mse[0] and npi[-1] == 16
+s.qparams = quantize_params(s.get_params(), s.cfg)
+s.rparams = rescaler(s.qparams, s.cfg)
+ql, qm, _, _ = s.run_batched(train=False, with_quantized_params=True)
+assert np.isfinite(qm)
+"""
+    _run(extra)
+
+
+def test_chip_smoke_refuses_without_a_gpu():
+    """chip_smoke.py measures the card or fails: without CUDA it exits
+    non-zero and prints no result line."""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
