@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port's serving decode and trainer on one
-NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving decode, trainer, forward
+ablation variants and encode CLI on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,37 +8,54 @@ no result line) on any fault:
   1. the card (nvidia-smi name and power limit), torch / CUDA versions,
      TF32 flags (both forced off);
   2. builds the Hopper kernels K1 (gate+expert forward,
-     smoe_tpu_torch/kernels/csrc/gate_expert_fwd.cu) and K2 (its backward,
-     csrc/gate_expert_bwd.cu), one nvcc each, in parallel;
+     smoe_tpu_torch/kernels/csrc/gate_expert_fwd.cu), K2 (its backward,
+     csrc/gate_expert_bwd.cu) and K3 (the forward's ablation variants,
+     csrc/gate_expert_variants.cu), one nvcc each, in parallel;
   3. holds K1 against its plain torch version at three shapes (the
      512^2 x 256-kernel flagship, d = 4, K = 2304): res <= 1e-5 absolute,
      surv <= 1e-6;
   4. holds K2 against its plain version at the same shapes: max |dq', dG,
      dpi error| / max |plain| <= 1e-4 each, and two K2 runs bit-identical;
-  5. decodes the committed fixture tests/data/bench512_k256.smoe (written
+  5. holds K3 against its plain version at the same shapes, every mode:
+     <= 1e-5 absolute where the weights are normalised (full, exp2,
+     no_cull), <= 1e-5 of max |plain| for no_norm and no_exp, cull flips
+     counted as in phase 3; `full` bit-identical to K1 with xe = 1,
+     mask = 1; then runs the attribution tool (diag.contraction at
+     512^2 x 256: K1 and every K3 mode beside their plain versions, the
+     elementwise share), K3's main path, and checks that the tool's timer
+     reads phase 3's K1 time within 3 % on phase 3's inputs;
+  6. decodes the committed fixture tests/data/bench512_k256.smoe (written
      by the JAX package, scripts/make_torch_fixture.py) natively, at
      scale 2 and in a window, through K1; checks that the decode is within
      1 LSB of the plain-torch decode (>= 99.9 % of pixels identical) and of
      the JAX decode recorded beside the fixture, and that its PSNR is
      within 0.01 dB of the recorded one;
-  6. encodes a seeded 3840x2160 RGB model with 48x48 = 2304 kernels with
+  7. encodes a seeded 3840x2160 RGB model with 48x48 = 2304 kernels with
      the port's own init, quantizer and bitstream writer, decodes it on the
      card through K1 and checks it against the plain version on a strided
      row subset;
-  7. fits the bench flagship (bench.py:46-54: 512^2 RGB, 16x16 kernels,
+  8. fits the bench flagship (bench.py:46-54: 512^2 RGB, 16x16 kernels,
      YUV loss, determinant gating, one block, Adam 1e-3 / pis /100 /
      A x1000) for 20 sweeps on the kernel path and 20 on the plain path
      from the same init: one K1 and one K2 launch per sweep, none on the
      plain path, the mse trajectories within TRAJ_RTOL of each other and of
      the JAX fit recorded in tests/data/bench512_train20_ref.npz
      (scripts/make_torch_train_fixture.py); one host sync per chunk;
-  8. runs bench.py's recipe on the kernel path (bench.py:129-167): s/iter
+  9. runs bench.py's recipe on the kernel path (bench.py:129-167): s/iter
      at the settled width, then reinit and chunks of 20 sweeps with
      update_kernel_list every 100 until 32 dB (three fits); the plain
      path's s/iter and both paths' fwd/bwd/opt phases;
-  9. quantizes the fitted model, writes the .smoe and decodes it through
+ 10. quantizes the fitted model, writes the .smoe and decodes it through
      K1 within 1 LSB of the trainer's own quantized-params eval;
- 10. fits 1080p RGB with 24x24 = 576 kernels in 16 blocks
+ 11. the encode CLI: writes the flagship image as a PNG, fits the flagship
+     configuration on the picture the PNG holds (200 sweeps, kernel path)
+     and saves it with save_model, runs cli.reconstruct's default
+     automatic encode (--auto-bd 0.05 --prune 0, RuntimeWarning an error)
+     and its --ref encode, decodes qparams.pkl (plain) and model.smoe (K1) with
+     cli.decode: both within 1 LSB of the reconstruction, >= 99.9 %
+     identical; the automatic file smaller than --ref's at a PSNR within
+     0.3 dB of it;
+ 12. fits 1080p RGB with 24x24 = 576 kernels in 16 blocks
      (scripts/bench_1080p.py:40) for 20 sweeps on the kernel path, capped
      below K_pad = 640, with one K1 and one K2 launch per block per sweep
      and one host sync per chunk, against 20 sweeps on the plain path.
@@ -81,6 +98,12 @@ KERNEL_SRC = "smoe_tpu_torch/kernels/csrc/gate_expert_fwd.cu"
 KERNEL_REPLACES = "smoe_tpu/kernels/gate_expert.py:113"
 BWD_SRC = "smoe_tpu_torch/kernels/csrc/gate_expert_bwd.cu"
 BWD_REPLACES = "smoe_tpu/kernels/gate_expert.py:236"
+VAR_SRC = "smoe_tpu_torch/kernels/csrc/gate_expert_variants.cu"
+VAR_REPLACES = "scripts/bench_contraction.py:50"
+# K3 against its plain version: absolute for the modes whose weights are
+# normalised (res is O(1)); relative to max |plain| for no_norm (weights
+# pi*det, up to ~1e2 here) and no_exp (weights -maha/2, up to ~1e4)
+VAR_ABS_TOL, VAR_REL_TOL = 1e-5, 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -195,7 +218,11 @@ def compare_kernel(name, n, k, d, e, c, seed, thr, floor, time_it):
                                                     surv_p > 0))}
     del maha, n_w, w, near
     if time_it:
-        out["ms"] = cuda_ms(lambda: gate_expert_fwd(*args, thr, floor), 20)
+        # as many launches as the attribution's timer makes, after a
+        # warm-up that lets the clocks settle: phase 5 holds the two
+        # readings within 3 % of each other
+        out["ms"] = cuda_ms(lambda: gate_expert_fwd(*args, thr, floor), 50,
+                            warmup=10)
         out["plain_ms"] = cuda_ms(
             lambda: gate_expert_reference(*args, thr, floor), 5)
     print(f"kernel-vs-plain {json.dumps(out)}", flush=True)
@@ -248,6 +275,76 @@ def compare_bwd(name, n, k, d, e, c, seed, thr, floor, time_it):
     return out
 
 
+def var_tol(mode: str, max_abs_plain: float) -> float:
+    if mode in ("no_norm", "no_exp"):
+        return VAR_REL_TOL * max_abs_plain
+    return VAR_ABS_TOL
+
+
+def compare_variants(name, n, k, d, e, seed, time_it):
+    """K3 against its plain version on model-shaped inputs, every mode;
+    `full` against K1 (xe = 1, mask = 1), bit for bit.  A row whose plain
+    weights hold a pair within 1e-5 relative of the cull threshold may
+    flip it (as in phase 3); such rows are counted, never absorbed."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
+    from smoe_tpu_torch.kernels.gate_expert_variants import (
+        VARIANTS, gate_expert_variant, gate_expert_variant_reference)
+    from smoe_tpu_torch.diag.contraction import FLOOR as floor, THR as thr
+    phi, _, q, G, pi_det, _ = random_case(n, k, d, e, 3, seed, "cuda")
+    args = (phi, q, G, pi_det)
+    near = None
+    out = {"shape": name, "n": n, "k": k, "f": phi.shape[1], "e": e,
+           "modes": {}}
+    for mode in VARIANTS:
+        got = gate_expert_variant(*args, mode, thr, floor)
+        torch.cuda.synchronize()
+        ref = gate_expert_variant_reference(*args, mode, thr, floor)
+        check(torch.isfinite(got).all().item(), f"{name} {mode}: non-finite")
+        d_row = (got - ref).abs().amax(1)
+        scale = float(ref.abs().max())
+        tol = var_tol(mode, scale)
+        bad = d_row > tol
+        flips = 0
+        if mode in ("full", "exp2") and bool(bad.any()):
+            if near is None:
+                mh = torch.minimum(phi @ (q * -0.5).T, phi.new_zeros(()))
+                n_w = torch.exp(mh) * pi_det[None, :]
+                w = n_w / torch.clamp(n_w.sum(1, keepdim=True), min=floor)
+                near = ((w - thr).abs() <= 1e-5 * thr).any(1)
+                del mh, n_w, w
+            flips = int((bad & near).sum())
+            bad = bad & ~near
+        m = {"max_abs_err": float(d_row.max()),
+             "max_rel_err": float(d_row.max()) / max(scale, 1e-30),
+             "max_abs_plain": scale, "tol": tol, "cull_flip_rows": flips,
+             "rows_over_tol": int(bad.sum())}
+        if mode == "full":
+            k1, _ = gate_expert_fwd(phi, torch.ones_like(phi[:, :e]), q, G,
+                                    pi_det, torch.ones_like(pi_det), thr,
+                                    floor)
+            m["bit_identical_to_k1"] = bool(torch.equal(got, k1))
+        if time_it:
+            # every mode on model-shaped inputs, where most pairs are culled
+            # (the attribution tool's inputs cull few)
+            m["ms"] = cuda_ms(lambda: gate_expert_variant(
+                *args, mode, thr, floor), 20)
+            m["plain_ms"] = cuda_ms(lambda: gate_expert_variant_reference(
+                *args, mode, thr, floor), 5)
+        out["modes"][mode] = m
+        del got, ref
+    print(f"K3-vs-plain {json.dumps(out)}", flush=True)
+    for mode, m in out["modes"].items():
+        check(m["rows_over_tol"] == 0,
+              f"{name} {mode}: {m['rows_over_tol']} rows off the plain "
+              f"version by more than {m['tol']:.3g} without a cull flip")
+        check(m["cull_flip_rows"] <= 1e-4 * n,
+              f"{name} {mode}: {m['cull_flip_rows']} cull-flip rows")
+    check(out["modes"]["full"]["bit_identical_to_k1"],
+          f"{name}: K3 full is not bit-identical to K1")
+    return out
+
+
 def build_4k_image(h=2160, w=3840, seed=0):
     """Seeded smooth + edged RGB test image (bench.build_image's recipe at
     4K), float32 in [0, 1]."""
@@ -279,8 +376,11 @@ def max_rel(a, b) -> float:
 def reset_counts():
     from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
                                                     gate_expert_fwd)
+    from smoe_tpu_torch.kernels.gate_expert_variants import \
+        gate_expert_variant
     gate_expert_fwd.launches = 0
     gate_expert_bwd.launches = 0
+    gate_expert_variant.launches = 0
 
 
 def read_counts():
@@ -324,7 +424,7 @@ def flagship_smoe(img, mode):
 
 
 def trainer_flagship(img, launches):
-    """Phase 7: 20 sweeps on the kernel path against 20 on the plain path
+    """Phase 8: 20 sweeps on the kernel path against 20 on the plain path
     from the same init, one K1 and one K2 launch per sweep (one block),
     none on the plain path; both against the recorded JAX trajectory."""
     s_k = flagship_smoe(img, KERNEL_MODE)
@@ -371,7 +471,7 @@ def trainer_flagship(img, launches):
 
 
 def trainer_bench_recipe(s_k, s_p, launches):
-    """Phase 8: bench.py's recipe on the kernel path: s/iter at the
+    """Phase 9: bench.py's recipe on the kernel path: s/iter at the
     settled width (bench.py:129-131), then `timed_fit` (bench.py:140-167):
     reinit, chunks of 20 sweeps with update_kernel_list every 100, until
     32 dB; the plain path's s/iter beside it; phases fwd/bwd/opt."""
@@ -444,7 +544,7 @@ def trainer_bench_recipe(s_k, s_p, launches):
 
 
 def trainer_file_roundtrip(s_k, img, launches):
-    """Phase 9: the fitted model to a .smoe file and back through the
+    """Phase 10: the fitted model to a .smoe file and back through the
     serving decode (K1), within 1 LSB of the trainer's own quantized-params
     eval (the exact plain path)."""
     from smoe_tpu_torch.codec.bitstream import write_bitstream
@@ -485,6 +585,127 @@ def trainer_file_roundtrip(s_k, img, launches):
     return out
 
 
+def encode_cli(img, launches, sweeps=200):
+    """Phase 11: the encode CLI on the card, as a user runs it.  The
+    flagship image is written as a PNG (write_image: YUV -> BGR, then
+    write_png) and read back by read_image, which is what cli.reconstruct
+    will compare against; build_image's values are not all inside the YUV
+    gamut, so the PNG holds a clipped picture, and the flagship
+    configuration is fitted on that picture (`sweeps` sweeps on the kernel
+    path, K1 + K2) and saved with the port's save_model.  Then the default
+    automatic encode (--auto-bd 0.05 --prune 0) and the --ref encode run
+    through cli.reconstruct, and both outputs are decoded through
+    cli.decode: the pickle on the trainer's exact plain path, model.smoe
+    through K1.  A RuntimeWarning is an error here, so kernel_importance
+    cannot fall back to its analytic ordering silently."""
+    import contextlib
+    import io
+    import re
+    import warnings
+    import torch
+    from smoe_tpu_torch.cli import decode, reconstruct
+    from smoe_tpu_torch.codec.container import save_model
+    from smoe_tpu_torch.fit import trainer
+    from smoe_tpu_torch.io.images import read_image, write_image
+
+    evals = [0]
+    real_run = trainer.Smoe.run_batched
+
+    def counted(self, *a, **kw):
+        evals[0] += bool(kw.get("with_quantized_params"))
+        return real_run(self, *a, **kw)
+
+    def cli(main, args):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rec = main(args)
+        torch.cuda.synchronize()
+        return np.asarray(rec), buf.getvalue(), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = write_image(img, os.path.join(tmp, "img"), 2, yuv=True)
+        orig, _, _ = read_image(png)
+        s = flagship_smoe(orig, KERNEL_MODE)
+        reset_counts()
+        _, mse_fit, _, _ = s.run_batched_chunk(sweeps)
+        n1, n2 = read_counts()
+        launches[0] += n1
+        launches[1] += n2
+        check(n1 == sweeps and n2 == sweeps, f"encode-phase fit launched "
+              f"K1 {n1} / K2 {n2} times in {sweeps} sweeps")
+        pkl = os.path.join(tmp, "params.pkl")
+        save_model(pkl, s.get_params(), s.cfg)
+        del s
+        arms = {}
+        trainer.Smoe.run_batched = counted
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                for name, extra in (("auto", []), ("ref", ["--ref"])):
+                    d = os.path.join(tmp, name)
+                    evals[0] = 0
+                    reset_counts()
+                    rec, log, secs = cli(reconstruct.main,
+                                         ["-i", png, "-p", pkl, "-r", d,
+                                          "--device", DEVICE] + extra)
+                    arms[name] = {
+                        "rec": rec, "log": log, "seconds": secs,
+                        "quantized_evals": evals[0],
+                        "k1_launches": read_counts()[0],
+                        "file_bytes": os.path.getsize(
+                            os.path.join(d, "model.smoe")),
+                        "psnr_db": psnr_of(float(np.mean(
+                            (rec - orig) ** 2)) * 2 ** 16)}
+        finally:
+            trainer.Smoe.run_batched = real_run
+        a = arms["auto"]
+        bd = re.search(r"auto-bd: (\[[^\]]*\]) nu_anchor=(\d) "
+                       r"gamma_anchor=(\d)", a["log"])
+        keep = re.search(r"prune: keeping (\d+)/(\d+) kernels", a["log"])
+        check(bd is not None and keep is not None,
+              f"automatic encode did not report its choices:\n{a['log']}")
+        reset_counts()
+        dec = {}
+        for name in ("qparams.pkl", "model.smoe"):
+            rec, _, secs = cli(decode.main,
+                               ["-p", os.path.join(tmp, "auto", name), "-r",
+                                os.path.join(tmp, "dec_" + name), "--device",
+                                DEVICE])
+            lsb, same = lsb_stats(rec, a["rec"])
+            dec[name] = {"seconds": secs, "max_lsb": lsb,
+                         "identical_share": same, "shape": list(rec.shape)}
+        n1, n2 = read_counts()
+        launches[0] += n1
+    out = {"fit_sweeps": sweeps, "fit_psnr_db": psnr_of(mse_fit[-1]),
+           "png_vs_image_psnr_db": psnr_of(float(np.mean(
+               (orig - img) ** 2)) * 2 ** 16),
+           "auto": {k: v for k, v in a.items() if k not in ("rec", "log")},
+           "ref": {k: v for k, v in arms["ref"].items()
+                   if k not in ("rec", "log")},
+           "bit_depths": json.loads(bd.group(1)),
+           "nu_anchor": int(bd.group(2)), "gamma_anchor": int(bd.group(3)),
+           "kernels_kept": [int(keep.group(1)), int(keep.group(2))],
+           "decode": dec, "decode_k1_k2": [n1, n2]}
+    print(f"encode CLI: {json.dumps(out)}", flush=True)
+    for name, m in dec.items():
+        check(m["shape"] == list(img.shape) and m["max_lsb"] <= 1
+              and m["identical_share"] >= 0.999,
+              f"{name} decode vs the reconstruction: {m}")
+    check((n1, n2) == (1, 0), f"the two decodes launched K1 {n1} / K2 {n2} "
+          "times, expected 1 / 0 (the pickle decode is plain)")
+    check(out["auto"]["k1_launches"] == 0 and out["ref"]["k1_launches"] == 0,
+          "the encode's quantized evals launched K1 (they are plain)")
+    check(out["auto"]["file_bytes"] < out["ref"]["file_bytes"],
+          f"automatic encode {out['auto']['file_bytes']} B is not smaller "
+          f"than --ref's {out['ref']['file_bytes']} B")
+    check(out["auto"]["psnr_db"] >= out["ref"]["psnr_db"] - 0.3,
+          f"automatic encode {out['auto']['psnr_db']:.3f} dB more than "
+          f"0.3 dB under --ref's {out['ref']['psnr_db']:.3f} dB")
+    return out
+
+
 def load_1080p():
     """scripts/bench_1080p.py:17 `build_1080p`, loaded by path (that
     module imports no jax at module level)."""
@@ -497,7 +718,7 @@ def load_1080p():
 
 
 def trainer_1080p(img, launches):
-    """Phase 10: 1080p RGB, 24x24 = 576 kernels, 16 blocks of 270x480
+    """Phase 12: 1080p RGB, 24x24 = 576 kernels, 16 blocks of 270x480
     (scripts/bench_1080p.py:40), on the kernel path and the plain path
     from the same init: a first chunk of 20 sweeps, in which the lists
     settle to the survivors, then a timed chunk of 20 at the settled width,
@@ -554,11 +775,47 @@ def trainer_1080p(img, launches):
     return out
 
 
+def contraction_phase(flagship, launches):
+    """Phase 5, second half: the attribution tool (diag.contraction.run at
+    512^2 x 256, the JAX script's inputs): K3's main path.  Also times K1
+    with the tool's timer on phase 3's flagship inputs, which must agree
+    with phase 3's reading within 3 %; K1 on the tool's own inputs is
+    reported beside it (K1's time depends on the data: the cull and the
+    exp underflow)."""
+    from smoe_tpu_torch.diag import contraction
+    from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
+    from smoe_tpu_torch.kernels.gate_expert_variants import \
+        gate_expert_variant
+    reset_counts()
+    out = contraction.run(512 * 512, 256, log=lambda m: print(m, flush=True))
+    n1, n3 = gate_expert_fwd.launches, gate_expert_variant.launches
+    launches[0] += n1
+    launches[2] += n3
+    print(f"attribution: {json.dumps(out)}", flush=True)
+    args = random_case(512 * 512, 256, 2, 3, 3, 1, "cuda")
+    thr, floor = 0.5 / 2 ** 8, 1e-11
+    k1_tool_timer = contraction.time_launches(
+        lambda: gate_expert_fwd(*args, thr, floor), 50, 5) * 1e3
+    ratio = k1_tool_timer / flagship["ms"]
+    print(f"K1 at the phase-3 flagship inputs: {k1_tool_timer:.4f} ms by "
+          f"the tool's timer vs {flagship['ms']:.4f} ms in phase 3 "
+          f"({ratio:.4f}x); on the tool's inputs "
+          f"{out['production']['ms']:.4f} ms", flush=True)
+    check(n1 > 0 and n3 > 0, f"attribution launched K1 {n1} / K3 {n3} times")
+    check(abs(ratio - 1) <= 0.03, f"K1 by the tool's timer {k1_tool_timer} "
+          f"ms vs phase 3's {flagship['ms']} ms")
+    for mode, m in out["variants"].items():
+        tol = var_tol(mode, m["max_abs_plain"])
+        check(m["max_abs_err"] <= tol, f"attribution {mode}: kernel off its "
+              f"plain version by {m['max_abs_err']} > {tol}")
+    return out
+
+
 def build_all():
-    """Phase 2: both kernels, one nvcc each, started together."""
+    """Phase 2: the three kernels, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from smoe_tpu_torch.kernels import build
-    names = ("gate_expert_fwd", "gate_expert_bwd")
+    names = ("gate_expert_fwd", "gate_expert_bwd", "gate_expert_variants")
     with ThreadPoolExecutor(len(names)) as ex:
         builds = dict(zip(names, ex.map(build.build, names)))
     for name, b in builds.items():
@@ -620,9 +877,23 @@ def main() -> int:
                        floor, time_it=True)]
     max_err_bwd = max(o["max_abs_err"] for o in bwd)
     max_rel_bwd = max(o["max_rel_err"] for o in bwd)
-    launches = [0, 0]          # K1, K2 on the main paths
+    launches = [0, 0, 0]       # K1, K2, K3 on the main paths
 
-    # phase 5: the decode path on the committed fixture
+    # phase 5: K3 against plain at the same three shapes, then the
+    # attribution
+    var = [compare_variants("flagship 512^2 x K256 d2", 512 * 512, 256, 2, 3,
+                            1, time_it=True),
+           compare_variants("d4 F21", 40009, 300, 4, 5, 2, time_it=False),
+           compare_variants("K2304 d2", 3840 * 17 + 5, 2304, 2, 3, 3,
+                            time_it=True)]
+    max_err_var = max(m["max_abs_err"] for o in var
+                      for mode, m in o["modes"].items()
+                      if mode not in ("no_norm", "no_exp"))
+    max_rel_var = max(m["max_rel_err"] for o in var
+                      for m in o["modes"].values())
+    attribution = contraction_phase(flagship, launches)
+
+    # phase 6: the decode path on the committed fixture
     ref = np.load(FIXTURE_REF)
     stride = int(ref["stride"])
     roi = ((96, 352), (160, 480))
@@ -679,7 +950,7 @@ def main() -> int:
                 lambda: dec(*pargs), 5)
     print(f"fixture decode times: {json.dumps(times)}", flush=True)
 
-    # phase 6: 4K x 2304 kernels, encoded by the port itself
+    # phase 7: 4K x 2304 kernels, encoded by the port itself
     img4k = build_4k_image()
     cfg4k = SmoeConfig(kernels_per_dim=(48, 48), use_yuv=True,
                        use_determinant=True)
@@ -731,15 +1002,18 @@ def main() -> int:
           f"{100 * same4:.4f} % identical; {json.dumps(t4)}", flush=True)
     check(lsb4 <= 1 and same4 >= 0.999, "4K kernel vs plain decode")
 
-    # phases 7-10: the trainer path (K1 forward, K2 backward)
+    # phases 8-12: the trainer path (K1 forward, K2 backward) and the
+    # encode CLI
     s_k, s_p, _ = trainer_flagship(img, launches)
     trainer_bench_recipe(s_k, s_p, launches)
     trainer_file_roundtrip(s_k, img, launches)
+    encode_cli(img, launches)
     del s_k, s_p
     torch.cuda.empty_cache()
     trainer_1080p(load_1080p(), launches)
-    check(launches[0] > 0 and launches[1] > 0,
-          f"main paths launched K1 {launches[0]} / K2 {launches[1]} times")
+    check(all(n > 0 for n in launches),
+          f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
+          f"{launches[2]} times")
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
@@ -752,7 +1026,13 @@ def main() -> int:
          "replaces": BWD_REPLACES, "launches": launches[1],
          "max_abs_err": max_err_bwd, "max_rel_err": max_rel_bwd,
          "ms": bwd[0]["ms"],
-         "plain_ms": bwd[0]["plain_ms"]}]}))
+         "plain_ms": bwd[0]["plain_ms"]},
+        {"name": "gate_expert_variants", "route": "cuda", "source": VAR_SRC,
+         "replaces": VAR_REPLACES, "launches": launches[2],
+         "max_abs_err": max_err_var, "max_rel_err": max_rel_var,
+         "ms": var[0]["modes"]["full"]["ms"],
+         "plain_ms": var[0]["modes"]["full"]["plain_ms"],
+         "elementwise_share": attribution["elementwise_share"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface.  It is compiled by `nvcc`
 for Hopper (`sm_90a`) into `kernels/build/lib<name>.so` (git-ignored) at
-first use, rebuilt when the source is newer than the library, and loaded
-with ctypes.  No PyTorch headers are compiled, so a build takes seconds.
+first use, rebuilt when the source or any `csrc/*.cuh` header it may
+include is newer than the library, and loaded with ctypes.  No PyTorch
+headers are compiled, so a build takes seconds.
 No `--use_fast_math`: the kernels rely on IEEE division and full `expf`.
 """
 
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import os
 import shutil
 import subprocess
@@ -35,6 +37,17 @@ def nvcc() -> str:
     return found
 
 
+def is_stale(so: str, src: str, src_dir: str = SRC_DIR) -> bool:
+    """True when the library `so` is missing or older than `src` or any
+    `*.cuh` header in `src_dir` (a header edit must rebuild every library,
+    since each may include it)."""
+    if not os.path.exists(so):
+        return True
+    built = os.path.getmtime(so)
+    deps = [src] + glob.glob(os.path.join(src_dir, "*.cuh"))
+    return any(os.path.getmtime(p) > built for p in deps)
+
+
 def build(name: str) -> dict:
     """Compile csrc/<name>.cu unless the library is up to date.
 
@@ -43,7 +56,7 @@ def build(name: str) -> dict:
     """
     src = os.path.join(SRC_DIR, name + ".cu")
     so = os.path.join(BUILD_DIR, "lib" + name + ".so")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    if not is_stale(so, src):
         return {"path": so, "built": False, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
     # build to a private path, then rename: never truncates a library

@@ -42,22 +42,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gate_expert_common.cuh"
+
 namespace {
 
-constexpr int TPB = 256;    // pixels (threads) per CTA
-constexpr int KC = 256;     // kernels staged in shared memory per chunk
-constexpr unsigned FULL = 0xffffffffu;
-
-template <int F>
-__device__ __forceinline__ float maha_term(const float (&ph)[F],
-                                           const float* __restrict__ qk) {
-  // min(phi . q', 0): q' carries the -0.5 * mask scale, so this is
-  // -0.5 * max(maha, 0), the maha >= 0 clamp of the reference.
-  float mh = 0.f;
-#pragma unroll
-  for (int j = 0; j < F; ++j) mh = fmaf(ph[j], qk[j], mh);
-  return fminf(mh, 0.f);
-}
+using smoe::FULL;
+using smoe::KC;
+using smoe::TPB;
+using smoe::maha_term;
 
 template <int F, int E, int C>
 __global__ void __launch_bounds__(TPB)

@@ -78,6 +78,42 @@ assert np.isfinite(qm)
     _run(extra)
 
 
+def test_encode_cli_and_variants_run_without_jax():
+    """The default automatic encode (--auto-bd 0.05 --prune 0), the pickle
+    and .smoe decodes of its outputs, and every K3 mode on CPU tensors,
+    in a process where jax is never loaded."""
+    extra = """
+import os, shutil, tempfile
+import numpy as np
+import torch
+from bench import build_image
+from smoe_tpu_torch.cli import decode, reconstruct
+from smoe_tpu_torch.codec.container import save_model
+from smoe_tpu_torch.fit.trainer import Smoe
+from smoe_tpu_torch.io.images import write_png
+from smoe_tpu_torch.kernels.gate_expert_variants import (
+    VARIANTS, gate_expert_variant)
+img = build_image(32)
+d = tempfile.mkdtemp()
+write_png(os.path.join(d, "img.png"), np.uint8(np.round(img * 255))[..., ::-1])
+s = Smoe(img, kernels_per_dim=[4], use_yuv=False, device="cpu")
+s.run_batched_chunk(10)
+save_model(os.path.join(d, "p.pkl"), s.get_params(), s.cfg)
+rec = reconstruct.main(["-i", os.path.join(d, "img.png"), "-p",
+                        os.path.join(d, "p.pkl"), "-r", d, "--device", "cpu"])
+for name in ("qparams.pkl", "model.smoe"):
+    dec = decode.main(["-p", os.path.join(d, name), "-r", d, "--device",
+                       "cpu"])
+    assert np.abs(dec - rec).max() <= 1.01 / 255, name
+phi, q = torch.rand(64, 7), torch.randn(8, 7)
+G, pi = torch.randn(8, 9), torch.full((8,), 1 / 8)
+for mode in VARIANTS:
+    assert torch.isfinite(gate_expert_variant(phi, q, G, pi, mode)).all()
+shutil.rmtree(d)
+"""
+    _run(extra)
+
+
 def test_chip_smoke_refuses_without_a_gpu():
     """chip_smoke.py measures the card or fails: without CUDA it exits
     non-zero and prints no result line."""
