@@ -12,10 +12,16 @@ no result line) on any fault:
      csrc/gate_expert_bwd.cu) and K3 (the forward's ablation variants,
      csrc/gate_expert_variants.cu), one nvcc each, in parallel;
   3. holds K1 against its plain torch version at three shapes (the
-     512^2 x 256-kernel flagship, d = 4, K = 2304): res <= 1e-5 absolute,
-     surv <= 1e-6;
-  4. holds K2 against its plain version at the same shapes: max |dq', dG,
-     dpi error| / max |plain| <= 1e-4 each, and two K2 runs bit-identical;
+     512^2 x 256-kernel flagship, d = 4, K = 2304; pixels drawn at random):
+     res <= 1e-5 absolute, surv <= 1e-6, cull flips counted; K1's
+     candidate fraction (pairs its second pass visits over N * K) and
+     surviving pairs, each kernel's time beside its bound; then K1 at
+     K = 16384 (64 KB of dynamic shared memory) against plain, and a K past
+     the card's shared memory per block, which must raise;
+  4. holds K2, fed the denominator K1 wrote for the same inputs (as the
+     trainer feeds it), against its plain version at the same shapes:
+     max |dq', dG, dpi error| / max |plain| <= 1e-4 each, reruns
+     bit-identical; without the denominator it must raise;
   5. holds K3 against its plain version at the same shapes, every mode:
      <= 1e-5 absolute where the weights are normalised (full, exp2,
      no_cull), <= 1e-5 of max |plain| for no_norm and no_exp, cull flips
@@ -33,14 +39,18 @@ no result line) on any fault:
   7. encodes a seeded 3840x2160 RGB model with 48x48 = 2304 kernels with
      the port's own init, quantizer and bitstream writer, decodes it on the
      card through K1 and checks it against the plain version on a strided
-     row subset;
+     row subset; then K1 and K2 on that decode's raster-ordered operands
+     against their plain versions (as phases 3 and 4, the plain versions
+     in row chunks), with the candidate fraction and times;
   8. fits the bench flagship (bench.py:46-54: 512^2 RGB, 16x16 kernels,
      YUV loss, determinant gating, one block, Adam 1e-3 / pis /100 /
      A x1000) for 20 sweeps on the kernel path and 20 on the plain path
      from the same init: one K1 and one K2 launch per sweep, none on the
      plain path, the mse trajectories within TRAJ_RTOL of each other and of
      the JAX fit recorded in tests/data/bench512_train20_ref.npz
-     (scripts/make_torch_train_fixture.py); one host sync per chunk;
+     (scripts/make_torch_train_fixture.py); one host sync per chunk; then
+     K1 and K2 on the fit's raster-ordered operands after the 20 sweeps,
+     as in phase 7;
   9. runs bench.py's recipe on the kernel path (bench.py:129-167): s/iter
      at the settled width, then reinit and chunks of 20 sweeps with
      update_kernel_list every 100 until 32 dB (three fits); the plain
@@ -61,7 +71,10 @@ no result line) on any fault:
      and one host sync per chunk, against 20 sweeps on the plain path.
 Launch counts are zeroed before each path and read after it; the launches
 made to compare a kernel with its plain version are not counted.  Then
-prints the card line, one JSON line of kernel results, and
+prints the card line, one JSON line of kernel results (each with its
+launches, error, time, plain time, bound, what binds it and library_ms,
+null: no single PyTorch call computes these functions; K1's and K2's
+raster-ordered times and K1's candidate fractions beside them), and
 {"ok": true, "device": {...}} as the last line.
 """
 
@@ -104,6 +117,11 @@ VAR_REPLACES = "scripts/bench_contraction.py:50"
 # normalised (res is O(1)); relative to max |plain| for no_norm (weights
 # pi*det, up to ~1e2 here) and no_exp (weights -maha/2, up to ~1e4)
 VAR_ABS_TOL, VAR_REL_TOL = 1e-5, 1e-5
+# rows per call of a plain version on inputs too large for one (N, K) map
+PLAIN_ROWS = 32768
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): fp32
+# outside the tensor cores and HBM3 bandwidth; the bounds below use them
+FP32_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -129,6 +147,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def in_turns(time_a, time_b):
+    """Two timings taken a, b, b, a: ((mean a, [a1, a2]), (mean b,
+    [b1, b2])), so a drift of the card's clocks or of the host's speed
+    weighs on both alike."""
+    a1, b1, b2, a2 = time_a(), time_b(), time_b(), time_a()
+    return ((a1 + a2) / 2, [a1, a2]), ((b1 + b2) / 2, [b1, b2])
 
 
 def host_ms_median(fn, reps: int = 5, warmup: int = 1) -> float:
@@ -185,6 +211,93 @@ def random_case(n, k, d, e, c, seed, device):
     return phi, xe, q, t(G), t(pi_det), t(mask)
 
 
+def fwd_vs_plain(args, res_k, surv_k, thr, floor, name):
+    """K1's res and surv against the plain version, PLAIN_ROWS rows per
+    plain call.  A pair whose plain weight sits within 1e-5 relative of the
+    cull threshold may land on the other side in the kernel (fp32 rounding
+    of a different summation order); such flips are counted, never
+    absorbed into the tolerance."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import gate_expert_reference
+    phi, xe, q, G, pi_det, mask = args
+    n, k = phi.shape[0], q.shape[0]
+    surv_p = torch.zeros_like(surv_k)
+    near_k = torch.zeros((k,), dtype=torch.bool, device=phi.device)
+    max_res, bad_rows, flips, unexplained = 0.0, 0, 0, 0
+    for i in range(0, n, PLAIN_ROWS):
+        sl = slice(i, i + PLAIN_ROWS)
+        res_p, s_p = gate_expert_reference(phi[sl], xe[sl], q, G, pi_det,
+                                           mask, thr, floor)
+        surv_p = torch.maximum(surv_p, s_p)
+        d_res = (res_k[sl] - res_p).abs().amax(1)
+        maha = torch.clamp(phi[sl] @ q.T, min=0.0)
+        n_w = torch.exp(-0.5 * (maha * mask[None, :])) * pi_det[None, :]
+        w = n_w / torch.clamp(n_w.sum(1, keepdim=True), min=floor)
+        near = (w - thr).abs() <= 1e-5 * thr
+        bad = d_res > RES_TOL
+        max_res = max(max_res, float(d_res.max()))
+        bad_rows += int(bad.sum())
+        flips += int(near[bad].sum())
+        unexplained += int((bad & ~near.any(1)).sum())
+        near_k |= near.any(0)
+        del maha, n_w, w, near
+    d_surv = (surv_k - surv_p).abs()
+    unexplained_k = int(((d_surv > SURV_TOL) & ~near_k).sum())
+    out = {"shape": name, "n": n, "k": k, "f": phi.shape[1],
+           "e": xe.shape[1], "c": res_k.shape[1], "max_abs_err_res": max_res,
+           "max_abs_err_surv": float(d_surv.max()),
+           "rows_over_tol": bad_rows, "cull_flip_pairs": flips,
+           "survivor_flags_equal": bool(torch.equal(surv_k > 0,
+                                                    surv_p > 0))}
+    check(torch.isfinite(res_k).all().item(), f"{name}: non-finite res")
+    check(unexplained == 0 and unexplained_k == 0,
+          f"{name}: {unexplained} rows / {unexplained_k} kernels exceed "
+          f"res {RES_TOL} / surv {SURV_TOL} without a cull flip")
+    check(bad_rows <= 1e-4 * n, f"{name}: {bad_rows} rows over tolerance")
+    return out
+
+
+def k1_stats(args, thr, floor):
+    """(candidate fraction, surviving pairs S): K1's own count of the pairs
+    its second pass visits, over P = N * K, and of the pairs that survive
+    the cull, on these inputs."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
+    phi, q = args[0], args[2]
+    stats = torch.zeros((2,), dtype=torch.int64, device=phi.device)
+    gate_expert_fwd(*args, thr, floor, stats=stats)
+    visited, survivors = (int(v) for v in stats.tolist())
+    return visited / (phi.shape[0] * q.shape[0]), survivors
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms, what binds): the larger of the operations over the fp32
+    peak and the bytes over the memory bandwidth."""
+    t_op, t_b = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_op, t_b) * 1e3, "operations" if t_op >= t_b else "bytes"
+
+
+def k1_bound(n, k, f, e, c, survivors, mix=True):
+    """K1's least work: every pair F maha FMAs, min, exp, multiply and the
+    denominator add (2F + 4 flops); every survivor the division and the E*C
+    mixing FMAs (1 + 2 E*C).  Bytes: phi, xe, res and the parameters once.
+    mix=False is K3's `full`, which reads no xe."""
+    flops = n * k * (2 * f + 4) + survivors * (1 + 2 * e * c)
+    nbytes = 4 * (n * (f + (e if mix else 0) + c) + k * (f + e * c + 2))
+    return bound(flops, nbytes)
+
+
+def k2_bound(n, k, f, e, c, survivors, with_denom=False):
+    """K2's least work, the gate computed once per pair: every pair the
+    gate (2F + 4), dn, dpi, the clamp factor and the F dq' FMAs (2F + 6);
+    every survivor the dw dot, s_n, dG and the division (4 E*C + 4).  Bytes:
+    phi, xe, g (and K1's denominator) read once, the gradients written."""
+    flops = n * k * (4 * f + 10) + survivors * (4 * e * c + 4)
+    nbytes = 4 * (n * (f + e + c + (1 if with_denom else 0))
+                  + 2 * k * (f + e * c + 1))
+    return bound(flops, nbytes)
+
+
 def compare_kernel(name, n, k, d, e, c, seed, thr, floor, time_it):
     import torch
     from smoe_tpu_torch.kernels.gate_expert import (gate_expert_fwd,
@@ -192,31 +305,10 @@ def compare_kernel(name, n, k, d, e, c, seed, thr, floor, time_it):
     args = random_case(n, k, d, e, c, seed, "cuda")
     res_k, surv_k = gate_expert_fwd(*args, thr, floor)
     torch.cuda.synchronize()
-    res_p, surv_p = gate_expert_reference(*args, thr, floor)
-    d_res = (res_k - res_p).abs().amax(1)
-    d_surv = (surv_k - surv_p).abs()
-    # a pair whose plain weight sits within 1e-5 relative of the cull
-    # threshold may land on the other side in the kernel (fp32 rounding
-    # of a different summation order); such flips are counted, never
-    # absorbed into the tolerance
-    phi, xe, q, G, pi_det, mask = args
-    maha = torch.clamp(phi @ q.T, min=0.0)
-    n_w = torch.exp(-0.5 * (maha * mask[None, :])) * pi_det[None, :]
-    w = n_w / torch.clamp(n_w.sum(1, keepdim=True), min=floor)
-    near = (w - thr).abs() <= 1e-5 * thr
-    bad_rows = d_res > RES_TOL
-    flip_pairs = int(near[bad_rows].sum())
-    unexplained = int((bad_rows & ~near.any(1)).sum())
-    bad_k = d_surv > SURV_TOL
-    unexplained_k = int((bad_k & ~near.any(0)).sum())
-    out = {"shape": name, "n": n, "k": k, "f": phi.shape[1], "e": e,
-           "c": c, "max_abs_err_res": float(d_res.max()),
-           "max_abs_err_surv": float(d_surv.max()),
-           "rows_over_tol": int(bad_rows.sum()),
-           "cull_flip_pairs": flip_pairs,
-           "survivor_flags_equal": bool(torch.equal(surv_k > 0,
-                                                    surv_p > 0))}
-    del maha, n_w, w, near
+    out = fwd_vs_plain(args, res_k, surv_k, thr, floor, name)
+    out["candidate_fraction"], out["survivors"] = k1_stats(args, thr, floor)
+    out["bound_ms"], out["bound_by"] = k1_bound(
+        n, k, out["f"], e, c, out["survivors"])
     if time_it:
         # as many launches as the attribution's timer makes, after a
         # warm-up that lets the clocks settle: phase 5 holds the two
@@ -226,12 +318,6 @@ def compare_kernel(name, n, k, d, e, c, seed, thr, floor, time_it):
         out["plain_ms"] = cuda_ms(
             lambda: gate_expert_reference(*args, thr, floor), 5)
     print(f"kernel-vs-plain {json.dumps(out)}", flush=True)
-    check(torch.isfinite(res_k).all().item(), f"{name}: non-finite res")
-    check(unexplained == 0 and unexplained_k == 0,
-          f"{name}: {unexplained} rows / {unexplained_k} kernels exceed "
-          f"res {RES_TOL} / surv {SURV_TOL} without a cull flip")
-    check(out["rows_over_tol"] <= 1e-4 * n,
-          f"{name}: {out['rows_over_tol']} rows over tolerance")
     return out
 
 
@@ -242,36 +328,117 @@ def compare_bwd(name, n, k, d, e, c, seed, thr, floor, time_it):
     import torch
     from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
                                                     gate_expert_bwd_reference)
-    phi, xe, q, G, pi_det, mask = random_case(n, k, d, e, c, seed, "cuda")
+    fargs = random_case(n, k, d, e, c, seed, "cuda")
+    out, args, den = bwd_vs_plain(fargs, seed, thr, floor, name)
+    _, survivors = k1_stats(fargs, thr, floor)
+    # the main path feeds K2 K1's denominator: its bound reads it
+    out["bound_ms"], out["bound_by"] = k2_bound(n, k, out["f"], e, c,
+                                                survivors, True)
+    if time_it:
+        out["ms"] = cuda_ms(lambda: gate_expert_bwd(*args, denom=den), 10)
+        out["plain_ms"] = cuda_ms(lambda: gate_expert_bwd_reference(*args),
+                                  3)
+    print(f"K2-vs-plain {json.dumps(out)}", flush=True)
+    return out
+
+
+def bwd_vs_plain(fargs, seed, thr, floor, name):
+    """K2 on K1's operands `fargs`, fed the denominator K1 wrote for them
+    (as the trainer feeds it), against its plain version (PLAIN_ROWS rows
+    per plain call; the sums over the pixels add up in fp64); reruns
+    bit-identical; without the denominator the wrapper raises."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
+                                                    gate_expert_bwd_reference,
+                                                    gate_expert_fwd)
+    phi, xe, q, G, pi_det, mask = fargs
+    n, k, c = phi.shape[0], q.shape[0], G.shape[1] // xe.shape[1]
     q_s = (q * (-0.5 * mask)[:, None]).contiguous()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     # the cotangent of a mean over the pixels, as the trainer's loss gives
     g = torch.randn((n, c), generator=gen, device="cuda") / n
     args = (phi, xe, q_s, G, pi_det, g, thr, floor)
-    out_k = gate_expert_bwd(*args)
-    again = gate_expert_bwd(*args)
+    den = torch.empty((n,), dtype=torch.float32, device="cuda")
+    gate_expert_fwd(*fargs, thr, floor, denom_out=den)
+    out_k = gate_expert_bwd(*args, denom=den)
+    again = gate_expert_bwd(*args, denom=den)
     torch.cuda.synchronize()
-    out_p = gate_expert_bwd_reference(*args)
+    out_p = [torch.zeros(t.shape, dtype=torch.float64, device="cuda")
+             for t in out_k]
+    for i in range(0, n, PLAIN_ROWS):
+        sl = slice(i, i + PLAIN_ROWS)
+        for acc, t in zip(out_p, gate_expert_bwd_reference(
+                phi[sl], xe[sl], q_s, G, pi_det, g[sl], thr, floor)):
+            acc += t.double()
+    out = {"shape": name, "n": n, "k": k, "f": phi.shape[1],
+           "e": xe.shape[1], "c": c}
     rel = {}
     for label, a, b in zip(("dq", "dG", "dpi"), out_k, out_p):
         check(torch.isfinite(a).all().item(), f"{name}: non-finite {label}")
-        rel[label] = float((a - b).abs().max() / b.abs().max().clamp_min(
-            1e-30))
-    out = {"shape": name, "n": n, "k": k, "f": phi.shape[1], "e": e, "c": c,
-           "rel_err": rel, "max_rel_err": max(rel.values()),
-           "max_abs_err": max(float((a - b).abs().max())
-                              for a, b in zip(out_k, out_p)),
-           "bit_identical_rerun": all(torch.equal(a, b)
-                                      for a, b in zip(out_k, again))}
-    del out_p
-    if time_it:
-        out["ms"] = cuda_ms(lambda: gate_expert_bwd(*args), 10)
-        out["plain_ms"] = cuda_ms(lambda: gate_expert_bwd_reference(*args),
-                                  3)
-    print(f"K2-vs-plain {json.dumps(out)}", flush=True)
-    check(out["bit_identical_rerun"], f"{name}: K2 reruns differ")
+        rel[label] = float((a.double() - b).abs().max()
+                           / b.abs().max().clamp_min(1e-30))
+    out["rel_err"] = rel
+    out["max_rel_err"] = max(rel.values())
     check(max(rel.values()) <= BWD_REL_TOL,
           f"{name}: K2 relative error {rel} over {BWD_REL_TOL}")
+    out["max_abs_err"] = max(float((a.double() - b).abs().max())
+                             for a, b in zip(out_k, out_p))
+    out["bit_identical_rerun"] = all(torch.equal(a, b)
+                                     for a, b in zip(out_k, again))
+    check(out["bit_identical_rerun"], f"{name}: K2 reruns differ")
+    try:
+        gate_expert_bwd(*args)
+    except ValueError:
+        out["raises_without_denom"] = True
+    check(out.get("raises_without_denom", False),
+          f"{name}: K2 ran on the card without K1's denominator")
+    return out, args, den
+
+
+def compare_raster(name, fargs, thr, floor, seed):
+    """Phases 7 and 8: K1 and K2 on raster-ordered operands (a decode's
+    raster, a fit's block), where a CTA's pixels are neighbours and few
+    kernels are candidates: both against their plain versions (K2 fed
+    K1's denominator), the candidate fraction and the survivors S, each
+    kernel's time beside its bound."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
+                                                    gate_expert_fwd)
+    phi, xe, q, G = fargs[:4]
+    n, k, f, e = phi.shape[0], q.shape[0], phi.shape[1], xe.shape[1]
+    c = G.shape[1] // e
+    res_k, surv_k = gate_expert_fwd(*fargs, thr, floor)
+    torch.cuda.synchronize()
+    fwd = fwd_vs_plain(fargs, res_k, surv_k, thr, floor, name)
+    del res_k, surv_k
+    fwd["candidate_fraction"], fwd["survivors"] = k1_stats(fargs, thr, floor)
+    fwd["bound_ms"], fwd["bound_by"] = k1_bound(n, k, f, e, c,
+                                                fwd["survivors"])
+    fwd["ms"] = cuda_ms(lambda: gate_expert_fwd(*fargs, thr, floor), 10)
+    bwd, args, den = bwd_vs_plain(fargs, seed, thr, floor, name)
+    bwd["bound_ms"], bwd["bound_by"] = k2_bound(n, k, f, e, c,
+                                                fwd["survivors"], True)
+    bwd["ms"] = cuda_ms(lambda: gate_expert_bwd(*args, denom=den), 5)
+    print(f"raster K1-vs-plain {json.dumps(fwd)}", flush=True)
+    print(f"raster K2-vs-plain {json.dumps(bwd)}", flush=True)
+    return {"k1": fwd, "k2": bwd}
+
+
+def compare_smem_edge(thr, floor):
+    """Phase 3, last case: K1 at a K whose list of per-kernel maxima needs
+    more than 48 KB of dynamic shared memory, against its plain version;
+    and a K past the card's shared memory per block, which must raise."""
+    from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
+    out = compare_kernel("smem K16384 d2", 2053, 16384, 2, 3, 3, 5, thr,
+                         floor, time_it=False)
+    big = random_case(256, 60000, 2, 3, 3, 6, "cuda")
+    try:
+        gate_expert_fwd(*big, thr, floor)
+    except ValueError as err:
+        out["k60000_raises"] = str(err)
+    print(f"shared-memory edge: {json.dumps(out)}", flush=True)
+    check("limit" in out.get("k60000_raises", ""),
+          "K1 at K = 60000 did not raise on the shared-memory limit")
     return out
 
 
@@ -320,10 +487,13 @@ def compare_variants(name, n, k, d, e, seed, time_it):
              "max_abs_plain": scale, "tol": tol, "cull_flip_rows": flips,
              "rows_over_tol": int(bad.sum())}
         if mode == "full":
-            k1, _ = gate_expert_fwd(phi, torch.ones_like(phi[:, :e]), q, G,
-                                    pi_det, torch.ones_like(pi_det), thr,
-                                    floor)
+            k1_args = (phi, torch.ones_like(phi[:, :e]), q, G, pi_det,
+                       torch.ones_like(pi_det))
+            k1, _ = gate_expert_fwd(*k1_args, thr, floor)
             m["bit_identical_to_k1"] = bool(torch.equal(got, k1))
+            _, survivors = k1_stats(k1_args, thr, floor)
+            m["bound_ms"], m["bound_by"] = k1_bound(
+                n, k, phi.shape[1], e, 3, survivors, mix=False)
         if time_it:
             # every mode on model-shaped inputs, where most pairs are culled
             # (the attribution tool's inputs cull few)
@@ -361,6 +531,67 @@ def build_4k_image(h=2160, w=3840, seed=0):
     img[h // 2:, : w // 4, 1] -= 0.15
     img += rng.normal(0, 0.005, img.shape).astype(np.float32)
     return np.clip(img, 0, 1).astype(np.float32)
+
+
+def write_uhd_model(path: str) -> int:
+    """Phase 7's model, written to `path`: a seeded 3840x2160 RGB image,
+    48x48 = 2304 kernels from the port's own init (steering and experts
+    perturbed from a seed), its quantizer and bitstream writer.  Returns the
+    payload bits."""
+    from smoe_tpu_torch.codec.bitstream import write_bitstream
+    from smoe_tpu_torch.codec.quantize import quantize_params
+    from smoe_tpu_torch.config import SmoeConfig
+    from smoe_tpu_torch.core.init import init_params
+    img4k = build_4k_image()
+    cfg4k = SmoeConfig(kernels_per_dim=(48, 48), use_yuv=True,
+                       use_determinant=True)
+    p = init_params(img4k, cfg4k)
+    rng = np.random.default_rng(4)
+    pdict = {"pis": p.pis, "musX": p.musX, "A_diagonal": p.a_diag,
+             "A_corr": p.a_corr + np.tril(rng.normal(
+                 0, 10.0, p.a_corr.shape), -1).astype(np.float32),
+             "nu_e": p.nu_e,
+             "gamma_e": rng.normal(0, 0.1, p.gamma_e.shape).astype(
+                 np.float32)}
+    qp = quantize_params(pdict, cfg4k)
+    return write_bitstream(path, qp, cfg4k, extra={
+        "shape_of_img": [2160, 3840], "dim_of_output": 3,
+        "use_yuv": True, "use_determinant": True, "train_gammas": True})
+
+
+def decode_kernel_args(path: str):
+    """K1's operands in the decode of the .smoe file `path` at its native
+    raster (one launch over every pixel, as codec/serve.py:make_decoder
+    makes it): (phi, xe, q, G, pi_det, mask, thr, floor) on the card."""
+    import torch
+    from smoe_tpu_torch.codec.serve import pad_decoded_params, read_model
+    from smoe_tpu_torch.core.model import fused_op_inputs
+    cfg, rp, header = read_model(path)
+    shape = tuple(int(v) for v in np.ravel(header["shape_of_img"]))
+    pad = pad_decoded_params(rp, int(rp["pis"].shape[0]), 2, 3)
+    A, musX, nu_e, gamma_e, pis = (torch.as_tensor(pad[n], device="cuda")
+                                   for n in ("A", "musX", "nu_e", "gamma_e",
+                                             "pis"))
+    axes = [torch.as_tensor(np.linspace(0.0, 1.0, v).astype(np.float32),
+                            device="cuda") for v in shape]
+    coords = torch.stack(torch.meshgrid(*axes, indexing="ij"),
+                         dim=-1).reshape(-1, 2)
+    return fused_op_inputs(A, musX, nu_e, gamma_e, pis, cfg, coords,
+                           pis > 0)
+
+
+def trainer_kernel_args(s):
+    """K1's operands for block 0 of the trainer `s` at its current
+    parameters, at full width (the flagship's one block is the image)."""
+    import torch
+    from smoe_tpu_torch.core.model import fused_op_inputs
+    from smoe_tpu_torch.fit.trainer import effective_params
+    with torch.no_grad():
+        eff = effective_params(s.params, s.cfg, s.musX_grid)
+        return tuple(t.detach() if torch.is_tensor(t) else t
+                     for t in fused_op_inputs(
+                         eff.A, eff.musX, eff.nu_e, eff.gamma_e, eff.pis,
+                         s.cfg, s.bset.coords[0], s.kernel_lists[0]))
 
 
 def psnr_of(mse: float) -> float:
@@ -426,7 +657,9 @@ def flagship_smoe(img, mode):
 def trainer_flagship(img, launches):
     """Phase 8: 20 sweeps on the kernel path against 20 on the plain path
     from the same init, one K1 and one K2 launch per sweep (one block),
-    none on the plain path; both against the recorded JAX trajectory."""
+    none on the plain path; both against the recorded JAX trajectory.
+    Also returns K1's operands after those 20 sweeps, for phase 8's
+    raster-ordered kernel checks."""
     s_k = flagship_smoe(img, KERNEL_MODE)
     check(s_k.fused, "the flagship fit on the card did not take the fused op")
     s_p = flagship_smoe(img, "off")
@@ -439,6 +672,7 @@ def trainer_flagship(img, launches):
     check(n1 == FIT_SWEEPS and n2 == FIT_SWEEPS,
           f"flagship fit launched K1 {n1} / K2 {n2} times in {FIT_SWEEPS} "
           "one-block sweeps")
+    fargs = trainer_kernel_args(s_k)
     reset_counts()
     t_p, (loss_p, mse_p, npi_p, _) = host_s(
         lambda: s_p.run_batched_chunk(FIT_SWEEPS))
@@ -467,7 +701,7 @@ def trainer_flagship(img, launches):
     check(out["kernel_vs_jax_mse_max_rel"] <= TRAJ_RTOL,
           f"kernel path mse off the recorded JAX fit by "
           f"{out['kernel_vs_jax_mse_max_rel']:.2e} > {TRAJ_RTOL}")
-    return s_k, s_p, out
+    return s_k, s_p, out, fargs
 
 
 def trainer_bench_recipe(s_k, s_p, launches):
@@ -778,10 +1012,12 @@ def trainer_1080p(img, launches):
 def contraction_phase(flagship, launches):
     """Phase 5, second half: the attribution tool (diag.contraction.run at
     512^2 x 256, the JAX script's inputs): K3's main path.  Also times K1
-    with the tool's timer on phase 3's flagship inputs, which must agree
-    with phase 3's reading within 3 %; K1 on the tool's own inputs is
-    reported beside it (K1's time depends on the data: the cull and the
-    exp underflow)."""
+    on phase 3's flagship inputs with the tool's timer and with phase 3's,
+    in turns (phase 3, tool, tool, phase 3), which must agree within 3 %:
+    at a quarter of a millisecond per launch the wrapper's host work is a
+    good part of a launch, and the host's speed drifts between phases; K1
+    on the tool's own inputs is reported beside it (K1's time depends on
+    the data: the cull and the exp underflow)."""
     from smoe_tpu_torch.diag import contraction
     from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
     from smoe_tpu_torch.kernels.gate_expert_variants import \
@@ -794,16 +1030,20 @@ def contraction_phase(flagship, launches):
     print(f"attribution: {json.dumps(out)}", flush=True)
     args = random_case(512 * 512, 256, 2, 3, 3, 1, "cuda")
     thr, floor = 0.5 / 2 ** 8, 1e-11
-    k1_tool_timer = contraction.time_launches(
-        lambda: gate_expert_fwd(*args, thr, floor), 50, 5) * 1e3
-    ratio = k1_tool_timer / flagship["ms"]
+    k1 = lambda: gate_expert_fwd(*args, thr, floor)         # noqa: E731
+    phase3, tool = in_turns(
+        lambda: cuda_ms(k1, 50, warmup=10),
+        lambda: contraction.time_launches(k1, 50, 5) * 1e3)
+    k1_tool_timer = tool[0]
+    ratio = k1_tool_timer / phase3[0]
     print(f"K1 at the phase-3 flagship inputs: {k1_tool_timer:.4f} ms by "
-          f"the tool's timer vs {flagship['ms']:.4f} ms in phase 3 "
-          f"({ratio:.4f}x); on the tool's inputs "
+          f"the tool's timer vs {phase3[0]:.4f} ms by phase 3's, in turns "
+          f"(readings {phase3[1]} / {tool[1]}; {ratio:.4f}x); "
+          f"{flagship['ms']:.4f} ms in phase 3; on the tool's inputs "
           f"{out['production']['ms']:.4f} ms", flush=True)
     check(n1 > 0 and n3 > 0, f"attribution launched K1 {n1} / K3 {n3} times")
     check(abs(ratio - 1) <= 0.03, f"K1 by the tool's timer {k1_tool_timer} "
-          f"ms vs phase 3's {flagship['ms']} ms")
+          f"ms vs phase 3's {phase3[0]} ms")
     for mode, m in out["variants"].items():
         tol = var_tol(mode, m["max_abs_plain"])
         check(m["max_abs_err"] <= tol, f"attribution {mode}: kernel off its "
@@ -836,13 +1076,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, HERE)
     from bench import build_image
-    from smoe_tpu_torch.codec.bitstream import write_bitstream
-    from smoe_tpu_torch.codec.quantize import quantize_params
     from smoe_tpu_torch.codec.serve import (decode_bitstream, make_decoder,
                                             pad_decoded_params, read_model,
                                             sample_grid)
-    from smoe_tpu_torch.config import SmoeConfig
-    from smoe_tpu_torch.core.init import init_params
     from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
 
     t_start = time.perf_counter()
@@ -866,7 +1102,9 @@ def main() -> int:
                         time_it=False)
     k2304 = compare_kernel("K2304 d2", 3840 * 17 + 5, 2304, 2, 3, 3, 3, thr,
                            floor, time_it=True)
-    max_err = max(o["max_abs_err_res"] for o in (flagship, d4, k2304))
+    smem_edge = compare_smem_edge(thr, floor)
+    max_err = max(o["max_abs_err_res"]
+                  for o in (flagship, d4, k2304, smem_edge))
 
     # phase 4: K2 against plain at the same three shapes
     bwd = [compare_bwd("flagship 512^2 x K256 d2", 512 * 512, 256, 2, 3, 3,
@@ -951,23 +1189,9 @@ def main() -> int:
     print(f"fixture decode times: {json.dumps(times)}", flush=True)
 
     # phase 7: 4K x 2304 kernels, encoded by the port itself
-    img4k = build_4k_image()
-    cfg4k = SmoeConfig(kernels_per_dim=(48, 48), use_yuv=True,
-                       use_determinant=True)
-    p = init_params(img4k, cfg4k)
-    rng = np.random.default_rng(4)
-    pdict = {"pis": p.pis, "musX": p.musX, "A_diagonal": p.a_diag,
-             "A_corr": p.a_corr + np.tril(rng.normal(
-                 0, 10.0, p.a_corr.shape), -1).astype(np.float32),
-             "nu_e": p.nu_e,
-             "gamma_e": rng.normal(0, 0.1, p.gamma_e.shape).astype(
-                 np.float32)}
-    qp = quantize_params(pdict, cfg4k)
     with tempfile.TemporaryDirectory() as tmp:
         path4k = os.path.join(tmp, "uhd_k2304.smoe")
-        bits = write_bitstream(path4k, qp, cfg4k, extra={
-            "shape_of_img": [2160, 3840], "dim_of_output": 3,
-            "use_yuv": True, "use_determinant": True, "train_gammas": True})
+        bits = write_uhd_model(path4k)
         reset_counts()
         t0 = time.perf_counter()
         rec4k = decode_bitstream(path4k, device="cuda")
@@ -997,6 +1221,13 @@ def main() -> int:
                                   device="cuda", reference=True)
         t4["decode_4k_plain_device_ms"] = cuda_ms(lambda: dec4_plain(*args4),
                                                   1, warmup=1)
+        del dec4, dec4_plain
+        # K1 and K2 on the decode's raster-ordered operands
+        *fargs4, thr4, floor4 = decode_kernel_args(path4k)
+        raster = {"uhd": compare_raster("4K decode 2160x3840 x K2304",
+                                        fargs4, thr4, floor4, 7)}
+        del fargs4
+        torch.cuda.empty_cache()
     print(f"4K decode: 2160x3840 x 2304 kernels, kernel vs plain on "
           f"{rows.size} strided rows: max {lsb4} LSB, "
           f"{100 * same4:.4f} % identical; {json.dumps(t4)}", flush=True)
@@ -1004,7 +1235,11 @@ def main() -> int:
 
     # phases 8-12: the trainer path (K1 forward, K2 backward) and the
     # encode CLI
-    s_k, s_p, _ = trainer_flagship(img, launches)
+    s_k, s_p, _, (*fargs, thr_f, floor_f) = trainer_flagship(img, launches)
+    # K1 and K2 on the flagship fit's operands after its 20 sweeps
+    raster["flagship"] = compare_raster("flagship fit, sweep 20", fargs,
+                                        thr_f, floor_f, 8)
+    del fargs
     trainer_bench_recipe(s_k, s_p, launches)
     trainer_file_roundtrip(s_k, img, launches)
     encode_cli(img, launches)
@@ -1017,21 +1252,30 @@ def main() -> int:
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
+    full = var[0]["modes"]["full"]
     print(json.dumps({"kernels": [
         {"name": "gate_expert_fwd", "route": "cuda", "source": KERNEL_SRC,
          "replaces": KERNEL_REPLACES, "launches": launches[0],
          "max_abs_err": max_err, "ms": flagship["ms"],
-         "plain_ms": flagship["plain_ms"]},
+         "plain_ms": flagship["plain_ms"], "bound_ms": flagship["bound_ms"],
+         "bound_by": flagship["bound_by"], "library_ms": None,
+         "candidate_fraction": flagship["candidate_fraction"],
+         "raster_ms": {k: v["k1"]["ms"] for k, v in raster.items()},
+         "raster_candidate_fraction": {
+             k: v["k1"]["candidate_fraction"] for k, v in raster.items()}},
         {"name": "gate_expert_bwd", "route": "cuda", "source": BWD_SRC,
          "replaces": BWD_REPLACES, "launches": launches[1],
          "max_abs_err": max_err_bwd, "max_rel_err": max_rel_bwd,
-         "ms": bwd[0]["ms"],
-         "plain_ms": bwd[0]["plain_ms"]},
+         "ms": bwd[0]["ms"], "plain_ms": bwd[0]["plain_ms"],
+         "bound_ms": bwd[0]["bound_ms"], "bound_by": bwd[0]["bound_by"],
+         "library_ms": None,
+         "raster_ms": {k: v["k2"]["ms"] for k, v in raster.items()}},
         {"name": "gate_expert_variants", "route": "cuda", "source": VAR_SRC,
          "replaces": VAR_REPLACES, "launches": launches[2],
          "max_abs_err": max_err_var, "max_rel_err": max_rel_var,
-         "ms": var[0]["modes"]["full"]["ms"],
-         "plain_ms": var[0]["modes"]["full"]["plain_ms"],
+         "ms": full["ms"], "plain_ms": full["plain_ms"],
+         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+         "library_ms": None,
          "elementwise_share": attribution["elementwise_share"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Where a training sweep of the PyTorch port spends its time on the card.
 
     python scripts/profile_torch_trainer.py [flagship|1080p] [--sweeps 20]
+        [--root DIR]
 
 Fits the bench flagship (bench.py:46-54; 512^2 RGB, 16x16 kernels, one
 block) or the 1080p configuration (scripts/bench_1080p.py:40; 24x24
@@ -11,6 +12,8 @@ the card's kernel time per sweep (the sum of the device time of every
 kernel launched), the device busy share (kernel time / wall time), the
 number of kernel launches per sweep and the top kernels by device time.
 With --trace FILE, writes the Chrome trace there (tens of MB at 1080p).
+With --root DIR, profiles the smoe_tpu_torch of another tree (an earlier
+commit unpacked with `git archive`), to compare two trees on one card.
 """
 
 from __future__ import annotations
@@ -32,8 +35,11 @@ def main(argv=None):
                    choices=("flagship", "1080p"))
     p.add_argument("--sweeps", type=int, default=20)
     p.add_argument("--trace", metavar="FILE")
+    p.add_argument("--root", default=ROOT,
+                   help="the tree whose smoe_tpu_torch is profiled")
     a = p.parse_args(argv)
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(a.root))
     import torch
     from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
@@ -81,7 +87,8 @@ def main(argv=None):
     dev_total = sum(dev_us(e) for e in kernels) / 1e6
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    out = {"config": a.config, "card": torch.cuda.get_device_name(0),
+    out = {"config": a.config, "root": os.path.abspath(a.root),
+           "card": torch.cuda.get_device_name(0),
            "sweeps": a.sweeps, "k_cap": s._current_k_cap(),
            "wall_ms_per_sweep": wall / a.sweeps * 1e3,
            "kernel_ms_per_sweep": dev_total / a.sweeps * 1e3,

@@ -184,31 +184,12 @@ def resolve_fused(use_pallas: str, device) -> bool:
     return use_pallas == "on" or torch.device(device).type == "cuda"
 
 
-def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
-                  gamma_e: torch.Tensor, pis: torch.Tensor, cfg: SmoeConfig,
-                  coords: torch.Tensor, kernel_mask: torch.Tensor,
-                  sv_add: Optional[torch.Tensor] = None,
-                  k_cap: Optional[int] = None) -> ForwardOut:
-    """Forward through the fused gate+expert op (model.py:250-342): builds
-    q, pi_det, phi, xe and G as model.py:284-316 does and calls
-    `kernels.gate_expert.GateExpert`, whose backward is the K2 kernel.
-    Gradients flow to A, musX, nu_e, gamma_e and pis; coords carry none
-    (the motion-compensated video path, where they would, is not ported).
-
-    k_cap: width cap of the capped-dense mode (model.py:318-329): the
-    caller guarantees every kernel list holds at most k_cap active kernels;
-    the active kernels are gathered first, in index order (a stable sort,
-    as jnp.argsort), the op runs at the narrow width and the survivors are
-    scattered back.  A falsy cap means no cap.
-    sv_add: (N,) residual added to the Y channel before the clip
-    (model.py:337-339).
-    """
-    from smoe_tpu_torch.kernels.gate_expert import GateExpert
-
-    if coords.requires_grad:
-        raise NotImplementedError(
-            "forward_fused gives coords no gradient (video train_trafo, "
-            "ROADMAP.md Queue 1 item 10)")
+def fused_op_inputs(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
+                    gamma_e: torch.Tensor, pis: torch.Tensor, cfg: SmoeConfig,
+                    coords: torch.Tensor, kernel_mask: torch.Tensor):
+    """The fused op's operands at full width, built as model.py:284-316
+    builds them: (phi (N, F), xe (N, E), q (K, F), G (K, E*C) contiguous,
+    pi_det (K,) float, mask (K,) float, thr, floor)."""
     B = A if cfg.train_inverse_cov else _aat(A)
     q = kernel_quadratics(B, musX)
 
@@ -232,17 +213,48 @@ def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
         G = torch.cat([gamma_e.reshape(k, d * c), nu_e], dim=1)
     else:
         xe, G = ones, nu_e
-    thr, floor = float(cfg.minimum_influence), float(DENOM_FLOOR)
+    return (phi, xe, q, G.contiguous(), pi_det.float(), mask.float(),
+            float(cfg.minimum_influence), float(DENOM_FLOOR))
+
+
+def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
+                  gamma_e: torch.Tensor, pis: torch.Tensor, cfg: SmoeConfig,
+                  coords: torch.Tensor, kernel_mask: torch.Tensor,
+                  sv_add: Optional[torch.Tensor] = None,
+                  k_cap: Optional[int] = None) -> ForwardOut:
+    """Forward through the fused gate+expert op (model.py:250-342): builds
+    q, pi_det, phi, xe and G as model.py:284-316 does (`fused_op_inputs`)
+    and calls `kernels.gate_expert.GateExpert`, whose backward is the K2
+    kernel.  Gradients flow to A, musX, nu_e, gamma_e and pis; coords carry
+    none (the motion-compensated video path, where they would, is not
+    ported).
+
+    k_cap: width cap of the capped-dense mode (model.py:318-329): the
+    caller guarantees every kernel list holds at most k_cap active kernels;
+    the active kernels are gathered first, in index order (a stable sort,
+    as jnp.argsort), the op runs at the narrow width and the survivors are
+    scattered back.  A falsy cap means no cap.
+    sv_add: (N,) residual added to the Y channel before the clip
+    (model.py:337-339).
+    """
+    from smoe_tpu_torch.kernels.gate_expert import GateExpert
+
+    if coords.requires_grad:
+        raise NotImplementedError(
+            "forward_fused gives coords no gradient (video train_trafo, "
+            "ROADMAP.md Queue 1 item 10)")
+    phi, xe, q, G, pi_det, mask, thr, floor = fused_op_inputs(
+        A, musX, nu_e, gamma_e, pis, cfg, coords, kernel_mask)
+    k = q.shape[0]
     if k_cap and k_cap < k:
-        order = torch.argsort((~mask).to(torch.int32), stable=True)[:k_cap]
+        order = torch.argsort((mask == 0).to(torch.int32), stable=True)[:k_cap]
         res_raw, surv_c = GateExpert.apply(
-            phi, xe, q[order], G[order], pi_det[order].float(),
-            mask[order].float(), thr, floor)
+            phi, xe, q[order], G[order], pi_det[order], mask[order], thr,
+            floor)
         surv = torch.zeros((k,), dtype=surv_c.dtype,
                            device=surv_c.device).index_put((order,), surv_c)
     else:
-        res_raw, surv = GateExpert.apply(phi, xe, q, G.contiguous(),
-                                         pi_det.float(), mask.float(), thr,
+        res_raw, surv = GateExpert.apply(phi, xe, q, G, pi_det, mask, thr,
                                          floor)
     if sv_add is not None:
         res_raw = torch.cat([res_raw[:, :1] + sv_add[:, None], res_raw[:, 1:]],

@@ -16,7 +16,10 @@ the card.
 On this card every maha product is an fp32 FMA (no MXU, no tensor
 cores), so `no_exp` is the floor of the FMA work, not a matmul floor, and
 the share counts the exponentials, the denominator pass, the division and
-the cull.  K1 - full is K1's survivor merge and xe tail.
+the cull.  K1 - full is K1's survivor merge, xe tail and candidate
+bookkeeping: the variants keep K1's plain two-pass loop over every kernel,
+while K1 visits in its second pass only its CTA's candidate kernels (on
+these inputs, where few pairs are culled, nearly every kernel is one).
 """
 
 from __future__ import annotations
@@ -127,8 +130,8 @@ def run(n: int = 512 * 512, k: int = 256, reps: int = 5, iters: int = 50,
     log(f"\nN={n} K={k}: elementwise share = "
         f"{out['elementwise_share'] * 100:.1f}% of the forward "
         f"(full {full:.3f} ms vs no-exp FMA floor {floor_t:.3f} ms); "
-        f"K1 - full = {out['k1_minus_full_ms']:.3f} ms (survivor merge "
-        f"and xe tail)")
+        f"K1 - full = {out['k1_minus_full_ms']:.3f} ms (survivor merge, "
+        f"xe tail and candidate bookkeeping)")
     return out
 
 

@@ -210,7 +210,8 @@ class Smoe:
                  device=None,
                  **cfg_overrides):
         """device: where the fit runs ("cuda", "cpu", a torch.device);
-        defaults to the first GPU when there is one."""
+        defaults to "cuda" and raises when no card is present (pass
+        device="cpu" to fit on the CPU)."""
         if mesh is not None:
             _not_ported("multi-GPU training (mesh=)", 14)
         if affines is not None or model_mask_init is not None:
@@ -227,9 +228,11 @@ class Smoe:
         if image.shape[-1] != 3 and cfg.use_yuv:
             cfg = cfg.replace(use_yuv=False)
         _check_ported(cfg)
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Smoe: device {str(self.device)!r}: no CUDA device is "
+                "available (pass device=\"cpu\" to fit on the CPU)")
         self.fused = resolve_fused(cfg.use_pallas, self.device)
 
         # block shape (reference smoe.py:231-247, 2459-2543)

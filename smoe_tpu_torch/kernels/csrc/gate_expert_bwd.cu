@@ -27,77 +27,81 @@
 // gradients).  So three launches, each summing in a fixed order:
 //
 //   A  pixel pass, one thread per pixel, q'/G/pi_det staged in shared
-//      memory KC kernels at a time exactly as K1 stages them: pass 1 sums the
-//      denominator in K1's order (same bits, so the cull decisions agree with
-//      the forward), pass 2 sums s_n.  Writes (denom, s_n * live) per pixel.
-//   B  kernel-major accumulate: each thread owns ONE kernel (its q', G, pi
-//      and its F + E*C + 1 running sums in registers); a CTA of TK kernels
+//      memory KC kernels at a time as K1 stages them.  The denominator is
+//      K1's: the caller hands K2 the (N,) buffer K1 wrote for the same
+//      inputs (live is denom > floor, which equals raw > floor).  One pass
+//      over K sums s_n, skipping the division and the dw dot wherever
+//      n_w < cull_cut(thr, denom): such a pair is certainly culled
+//      (gate_expert_common.cuh: CULL_MARGIN) and added an exact zero.
+//      Writes (denom, cut, s_n * live, dn0) per pixel, dn0 = (0 - s_n * live)
+//      / denom: the dn_w of every culled pair, bit for bit.
+//   B  kernel-major accumulate: each thread owns KPT kernels (their q', G,
+//      pi and F + E*C + 1 running sums in registers); a CTA of KB kernels
 //      walks a fixed set of TP-pixel tiles (grid-stride over tiles, S pixel
-//      splits) staged in shared memory, every thread reading the same pixel
-//      (broadcast, no bank conflicts).  No shuffles, no atomics: each sum is
-//      sequential over that CTA's pixels.  Partials go to a (S, V, K) buffer,
-//      V = F + E*C + 1, k fastest so the stores coalesce.
+//      splits) staged in shared memory (phi rows padded to whole float4s),
+//      every thread reading the same pixel (broadcast, no bank conflicts),
+//      so each staged pixel serves KPT pairs.  A pair whose exp underflows
+//      to exact 0 contributes exact zeros to every sum and is skipped; a
+//      pair with n_w < cut takes dn_w = dn0, without either division.  No
+//      shuffles, no atomics: each sum is sequential over that CTA's pixels.
+//      Partials go to a (S, V, K) buffer, V = F + E*C + 1, k fastest so the
+//      stores coalesce.
 //   C  fixed-order reduce over the S splits, one thread per (v, k).
 //
-// S is chosen so that about 8 CTAs of TK threads sit on each of the 132
+// S is chosen so that about 8 CTAs of KB kernels sit on each of the 132
 // SMs, and at most 512, which bounds the partial buffer (S*V*K*4 bytes: 9 MB
 // at 512^2 x K256 d2, 20 MB at K2304 d4) and the reduce's serial length.
-// A pair whose exp underflows to exact 0 contributes exact zeros to every
-// sum and is skipped; culled pairs still feed dpi and dq' through
-// -s_n * live / denom and are not skipped.
+// The split of the pixels is the same as with one kernel per thread, so the
+// sums keep the order (and the bits) they had then.
 //
-// Every product is an fp32 FMA: no tensor cores, no TF32 — the quadratic-
-// feature maha cancels A^2-scale terms.  Built without --use_fast_math:
-// expf, IEEE division.
+// Every product is an fp32 FMA or an explicitly rounded fp32 op: no tensor
+// cores, no TF32 (the quadratic-feature maha cancels A^2-scale terms).
+// Built without --use_fast_math: expf, IEEE division.
 //
 // What bounds it (a reckoning, not a measurement).  Per (pixel, kernel)
-// pair: three maha recomputations (3F FMAs), three expf, three IEEE
-// divisions, E*C FMAs for dw where the pair survives the cull (twice) and
-// F + E*C + 1 FMAs of accumulation in pass B.  At 512^2 x 256 that is
-// 6.7e7 pairs and ~7e9 FP32 instructions against ~13 MB of input: compute /
-// SFU bound like K1, at roughly three times K1's work.
+// pair: two maha recomputations (2F FMAs), two expf, the dpi and dq'
+// accumulation (F + 2 FMAs) in pass B; the divisions and the dw dots only
+// where the pair may survive.  At 512^2 x 256 that is 6.7e7 pairs against
+// ~14 MB of input: compute / SFU bound like K1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gate_expert_common.cuh"
+
 namespace {
 
-constexpr int TPB = 256;    // pass A: pixels (threads) per CTA
-constexpr int KC = 256;     // pass A: kernels staged in shared memory
-constexpr int TK = 128;     // pass B: kernels (threads) per CTA
+using smoe::KC;
+using smoe::TPB;            // pass A: pixels (threads) per CTA
+constexpr int KPT = 2;      // pass B: kernels per thread
+constexpr int TK = 64;      // pass B: threads per CTA
+constexpr int KB = TK * KPT;   // pass B: kernels per CTA
 constexpr int TP = 128;     // pass B: pixels per staged tile
 constexpr int TARGET_CTAS = 132 * 8;
 constexpr int MAX_SPLITS = 512;
 
-template <int F>
-__device__ __forceinline__ float maha_raw(const float* __restrict__ ph,
-                                          const float* __restrict__ qk) {
-  // phi . q' in K1's FMA order; q' carries the -0.5 * mask scale
-  float mh = 0.f;
-#pragma unroll
-  for (int j = 0; j < F; ++j) mh = fmaf(ph[j], qk[j], mh);
-  return mh;
-}
-
 int num_splits(int n, int k) {
   const int n_tiles = (n + TP - 1) / TP;
-  const int kb = (k + TK - 1) / TK;
+  const int kb = (k + KB - 1) / KB;
   int s = (TARGET_CTAS + kb - 1) / kb;
   if (s > MAX_SPLITS) s = MAX_SPLITS;
   if (s > n_tiles) s = n_tiles;
   return s < 1 ? 1 : s;
 }
 
-// ---- A: per-pixel denominator and s_n ------------------------------------
+// ---- A: per-pixel denominator, s_n and the culled pairs' dn_w -----------
 template <int F, int E, int C>
 __global__ void __launch_bounds__(TPB)
 bwd_pixel_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
                  const float* __restrict__ qs, const float* __restrict__ G,
                  const float* __restrict__ pi_det,
-                 const float* __restrict__ g, float* __restrict__ pix,
-                 int n, int k, float thr, float floor_) {
+                 const float* __restrict__ g,
+                 const float* __restrict__ den_in,   // (N,) K1's
+                 float4* __restrict__ pix, int n, int k, float thr,
+                 float floor_) {
   constexpr int EC = E * C;
-  __shared__ float s_q[KC * F];
+  constexpr int FP = smoe::pad4(F);
+  __shared__ __align__(16) float s_q[KC * FP];
   __shared__ float s_G[KC * EC];
   __shared__ float s_pi[KC];
 
@@ -107,18 +111,8 @@ bwd_pixel_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
 #pragma unroll
   for (int j = 0; j < F; ++j) ph[j] = valid ? phi[(size_t)row * F + j] : 0.f;
 
-  // pass 1: the denominator, in K1's order
-  float raw = 0.f;
-  for (int k0 = 0; k0 < k; k0 += KC) {
-    const int kc = min(KC, k - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kc * F; i += TPB) s_q[i] = qs[(size_t)k0 * F + i];
-    for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
-    __syncthreads();
-    for (int kk = 0; kk < kc; ++kk)
-      raw += expf(fminf(maha_raw<F>(ph, s_q + kk * F), 0.f)) * s_pi[kk];
-  }
-  const float denom = fmaxf(floor_, raw);
+  const float denom = valid ? den_in[row] : floor_;
+  const float cut = smoe::cull_cut(thr, denom);
 
   float dwg[EC];
 #pragma unroll
@@ -126,22 +120,24 @@ bwd_pixel_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
     const float x = valid ? xe[(size_t)row * E + j] : 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      dwg[j * C + c] = x * (valid ? g[(size_t)row * C + c] : 0.f);
+      dwg[j * C + c] = __fmul_rn(x, valid ? g[(size_t)row * C + c] : 0.f);
   }
 
-  // pass 2: s_n = sum_k cull * (dwg . G_k) * w~
+  // s_n = sum_k cull * (dwg . G_k) * w~
   float s = 0.f;
   for (int k0 = 0; k0 < k; k0 += KC) {
     const int kc = min(KC, k - k0);
     __syncthreads();
-    for (int i = threadIdx.x; i < kc * F; i += TPB) s_q[i] = qs[(size_t)k0 * F + i];
+    smoe::stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
     for (int i = threadIdx.x; i < kc * EC; i += TPB) s_G[i] = G[(size_t)k0 * EC + i];
     for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
     __syncthreads();
     for (int kk = 0; kk < kc; ++kk) {
-      const float wt =
-          expf(fminf(maha_raw<F>(ph, s_q + kk * F), 0.f)) * s_pi[kk] / denom;
-      if (wt > thr) {      // culled pairs add exact zeros
+      const float n_w = __fmul_rn(
+          expf(fminf(smoe::dot_padded<F>(ph, s_q + kk * FP), 0.f)), s_pi[kk]);
+      if (n_w < cut) continue;    // certainly culled: adds an exact zero
+      const float wt = __fdiv_rn(n_w, denom);
+      if (wt > thr) {             // culled pairs add exact zeros
         const float* gk = s_G + kk * EC;
         float dw = 0.f;
 #pragma unroll
@@ -151,8 +147,9 @@ bwd_pixel_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
     }
   }
   if (valid) {
-    pix[(size_t)row * 2] = denom;
-    pix[(size_t)row * 2 + 1] = raw > floor_ ? s : 0.f;
+    const float sl = denom > floor_ ? s : 0.f;
+    pix[row] = make_float4(denom, cut, sl,
+                           __fdiv_rn(__fsub_rn(0.f, sl), denom));
   }
 }
 
@@ -162,82 +159,108 @@ __global__ void __launch_bounds__(TK)
 bwd_accum_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
                  const float* __restrict__ qs, const float* __restrict__ G,
                  const float* __restrict__ pi_det,
-                 const float* __restrict__ g, const float* __restrict__ pix,
+                 const float* __restrict__ g, const float4* __restrict__ pix,
                  float* __restrict__ part, int n, int k, float thr) {
   constexpr int EC = E * C;
+  constexpr int FP = smoe::pad4(F);
   constexpr int V = F + EC + 1;
-  __shared__ float s_phi[TP * F];
+  __shared__ __align__(16) float s_phi[TP * FP];
   __shared__ float s_dwg[TP * EC];
-  __shared__ float s_den[TP];
-  __shared__ float s_sl[TP];
+  __shared__ float4 s_px[TP];     // (denom, cut, s_n * live, dn0)
 
-  const int kid = blockIdx.y * TK + threadIdx.x;
-  const bool active = kid < k;
-  float qk[F], gk[EC], aq[F], aG[EC];
-  float pk = 0.f, ap = 0.f;
+  int kid[KPT];
+  bool act[KPT];
+  float qk[KPT][F], gk[KPT][EC], aq[KPT][F], aG[KPT][EC], pk[KPT], ap[KPT];
 #pragma unroll
-  for (int j = 0; j < F; ++j) {
-    qk[j] = active ? qs[(size_t)kid * F + j] : 0.f;
-    aq[j] = 0.f;
-  }
+  for (int r = 0; r < KPT; ++r) {
+    kid[r] = blockIdx.y * KB + r * TK + threadIdx.x;
+    act[r] = kid[r] < k;
 #pragma unroll
-  for (int j = 0; j < EC; ++j) {
-    gk[j] = active ? G[(size_t)kid * EC + j] : 0.f;
-    aG[j] = 0.f;
+    for (int j = 0; j < F; ++j) {
+      qk[r][j] = act[r] ? qs[(size_t)kid[r] * F + j] : 0.f;
+      aq[r][j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < EC; ++j) {
+      gk[r][j] = act[r] ? G[(size_t)kid[r] * EC + j] : 0.f;
+      aG[r][j] = 0.f;
+    }
+    pk[r] = act[r] ? pi_det[kid[r]] : 0.f;
+    ap[r] = 0.f;
   }
-  if (active) pk = pi_det[kid];
 
   const int n_tiles = (n + TP - 1) / TP;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int r0 = t * TP;
     const int rows = min(TP, n - r0);
     __syncthreads();
-    for (int i = threadIdx.x; i < rows * F; i += TK)
-      s_phi[i] = phi[(size_t)r0 * F + i];
+    for (int i = threadIdx.x; i < rows * FP; i += TK) {
+      const int p = i / FP, j = i - p * FP;
+      s_phi[i] = j < F ? phi[(size_t)(r0 + p) * F + j] : 0.f;
+    }
     for (int i = threadIdx.x; i < rows * EC; i += TK) {
       const int p = i / EC, jc = i - p * EC;
       const int j = jc / C, c = jc - j * C;
-      s_dwg[i] = xe[(size_t)(r0 + p) * E + j] * g[(size_t)(r0 + p) * C + c];
+      s_dwg[i] = __fmul_rn(xe[(size_t)(r0 + p) * E + j],
+                           g[(size_t)(r0 + p) * C + c]);
     }
-    for (int i = threadIdx.x; i < rows; i += TK) {
-      s_den[i] = pix[(size_t)(r0 + i) * 2];
-      s_sl[i] = pix[(size_t)(r0 + i) * 2 + 1];
-    }
+    for (int i = threadIdx.x; i < rows; i += TK) s_px[i] = pix[r0 + i];
     __syncthreads();
-    if (!active) continue;
+    if (!act[0]) continue;      // act[0] is false only if every act[r] is
     for (int p = 0; p < rows; ++p) {
-      const float* ph = s_phi + p * F;
-      const float mh = maha_raw<F>(ph, qk);
-      const float e = expf(fminf(mh, 0.f));
-      if (e == 0.f) continue;    // every contribution is an exact zero
-      const float den = s_den[p];
-      const float n_w = e * pk;
-      const float wt = n_w / den;
-      const float* dg = s_dwg + p * EC;
-      float dwt = 0.f;
-      if (wt > thr) {
-        float dw = 0.f;
+      float ph[FP];
+      const float4* ph4 = reinterpret_cast<const float4*>(s_phi + p * FP);
 #pragma unroll
-        for (int j = 0; j < EC; ++j) dw = fmaf(dg[j], gk[j], dw);
-        dwt = dw;
-#pragma unroll
-        for (int j = 0; j < EC; ++j) aG[j] = fmaf(wt, dg[j], aG[j]);
+      for (int i = 0; i < FP / 4; ++i) {
+        const float4 v = ph4[i];
+        ph[4 * i] = v.x;
+        ph[4 * i + 1] = v.y;
+        ph[4 * i + 2] = v.z;
+        ph[4 * i + 3] = v.w;
       }
-      const float dn = (dwt - s_sl[p]) / den;
-      ap = fmaf(dn, e, ap);
-      const float cf = mh < 0.f ? 1.f : (mh == 0.f ? 0.5f : 0.f);
-      const float tq = dn * n_w * cf;
+      const float4 px = s_px[p];
 #pragma unroll
-      for (int j = 0; j < F; ++j) aq[j] = fmaf(tq, ph[j], aq[j]);
+      for (int r = 0; r < KPT; ++r) {
+        if (!act[r]) continue;
+        float mh = 0.f;
+#pragma unroll
+        for (int j = 0; j < F; ++j) mh = fmaf(ph[j], qk[r][j], mh);
+        const float e = expf(fminf(mh, 0.f));
+        if (e == 0.f) continue;    // every contribution is an exact zero
+        const float n_w = __fmul_rn(e, pk[r]);
+        float dn = px.w;           // certainly culled: dn0
+        if (!(n_w < px.y)) {
+          const float wt = __fdiv_rn(n_w, px.x);
+          float dwt = 0.f;
+          if (wt > thr) {
+            const float* dg = s_dwg + p * EC;
+            float dw = 0.f;
+#pragma unroll
+            for (int j = 0; j < EC; ++j) dw = fmaf(dg[j], gk[r][j], dw);
+            dwt = dw;
+#pragma unroll
+            for (int j = 0; j < EC; ++j) aG[r][j] = fmaf(wt, dg[j], aG[r][j]);
+          }
+          dn = __fdiv_rn(__fsub_rn(dwt, px.z), px.x);
+        }
+        ap[r] = fmaf(dn, e, ap[r]);
+        const float cf = mh < 0.f ? 1.f : (mh == 0.f ? 0.5f : 0.f);
+        const float tq = __fmul_rn(__fmul_rn(dn, n_w), cf);
+#pragma unroll
+        for (int j = 0; j < F; ++j) aq[r][j] = fmaf(tq, ph[j], aq[r][j]);
+      }
     }
   }
-  if (!active) return;
-  float* out = part + (size_t)blockIdx.x * V * k + kid;
 #pragma unroll
-  for (int j = 0; j < F; ++j) out[(size_t)j * k] = aq[j];
+  for (int r = 0; r < KPT; ++r) {
+    if (!act[r]) continue;
+    float* out = part + (size_t)blockIdx.x * V * k + kid[r];
 #pragma unroll
-  for (int j = 0; j < EC; ++j) out[(size_t)(F + j) * k] = aG[j];
-  out[(size_t)(F + EC) * k] = ap;
+    for (int j = 0; j < F; ++j) out[(size_t)j * k] = aq[r][j];
+#pragma unroll
+    for (int j = 0; j < EC; ++j) out[(size_t)(F + j) * k] = aG[r][j];
+    out[(size_t)(F + EC) * k] = ap[r];
+  }
 }
 
 // ---- C: fixed-order reduce over the pixel splits -------------------------
@@ -264,17 +287,18 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ part,
 template <int F, int E, int C>
 cudaError_t launch(const float* phi, const float* xe, const float* qs,
                    const float* G, const float* pi_det, const float* g,
-                   float* dq, float* dG, float* dpi, int n, int k, float thr,
-                   float floor_, float* ws, cudaStream_t stream) {
+                   const float* den_in, float* dq, float* dG, float* dpi,
+                   int n, int k, float thr, float floor_, float* ws,
+                   cudaStream_t stream) {
   constexpr int EC = E * C;
-  float* pix = ws;
-  float* part = ws + (size_t)n * 2;
+  float4* pix = reinterpret_cast<float4*>(ws);
+  float* part = ws + (size_t)n * 4;
   const int splits = num_splits(n, k);
   bwd_pixel_kernel<F, E, C><<<(n + TPB - 1) / TPB, TPB, 0, stream>>>(
-      phi, xe, qs, G, pi_det, g, pix, n, k, thr, floor_);
+      phi, xe, qs, G, pi_det, g, den_in, pix, n, k, thr, floor_);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid_b(splits, (k + TK - 1) / TK);
+  dim3 grid_b(splits, (k + KB - 1) / KB);
   bwd_accum_kernel<F, E, C><<<grid_b, TK, 0, stream>>>(
       phi, xe, qs, G, pi_det, g, pix, part, n, k, thr);
   err = cudaGetLastError();
@@ -295,23 +319,26 @@ int smoe_gate_expert_bwd_supported(int f, int e, int c) {
   return d && (e == 1 || e == d + 1) && (c == 1 || c == 3);
 }
 
-// Floats of scratch the caller allocates and passes as `ws`: (N, 2) per-pixel
-// values, then the (S, V, K) partial sums.
+// Floats of scratch the caller allocates and passes as `ws` (16-byte
+// aligned): (N, 4) per-pixel values, then the (S, V, K) partial sums.
 long long smoe_gate_expert_bwd_workspace(int n, int f, int e, int c, int k) {
   if (n <= 0 || k <= 0) return 1;
   const long long v = f + (long long)e * c + 1;
-  return 2LL * n + (long long)num_splits(n, k) * v * k;
+  return 4LL * n + (long long)num_splits(n, k) * v * k;
 }
 
-// dq (K, F), dG (K, E*C), dpi (K,) are written whole.  Launches on `stream`
-// and does not synchronise.  Returns cudaGetLastError() after the launches
-// (cudaErrorInvalidValue for a width this build lacks).
+// dq (K, F), dG (K, E*C), dpi (K,) are written whole.  den (N,) is the
+// forward's denominator (gate_expert_fwd.cu's den_out) for the same phi, q'
+// and pi_det.  Launches on `stream` and does not synchronise.  Returns
+// cudaGetLastError() after the launches (cudaErrorInvalidValue for a width
+// this build lacks or a null den).
 int smoe_gate_expert_bwd(const float* phi, const float* xe, const float* qs,
                          const float* G, const float* pi_det, const float* g,
-                         float* dq, float* dG, float* dpi, int n, int f, int e,
-                         int c, int k, float thr, float floor_, float* ws,
-                         void* stream_ptr) {
-  if (!smoe_gate_expert_bwd_supported(f, e, c) || n < 0 || k < 0)
+                         const float* den, float* dq, float* dG, float* dpi,
+                         int n, int f, int e, int c, int k, float thr,
+                         float floor_, float* ws, void* stream_ptr) {
+  if (!smoe_gate_expert_bwd_supported(f, e, c) || n < 0 || k < 0 ||
+      (n > 0 && !den))
     return (int)cudaErrorInvalidValue;
   if (k == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
@@ -323,8 +350,8 @@ int smoe_gate_expert_bwd(const float* phi, const float* xe, const float* qs,
   }
 #define SMOE_CASE(F_, E_, C_)                                                \
   if (f == F_ && e == E_ && c == C_)                                         \
-    return (int)launch<F_, E_, C_>(phi, xe, qs, G, pi_det, g, dq, dG, dpi,   \
-                                   n, k, thr, floor_, ws, s);
+    return (int)launch<F_, E_, C_>(phi, xe, qs, G, pi_det, g, den, dq, dG,   \
+                                   dpi, n, k, thr, floor_, ws, s);
   SMOE_CASE(7, 3, 3) SMOE_CASE(7, 1, 3) SMOE_CASE(7, 3, 1) SMOE_CASE(7, 1, 1)
   SMOE_CASE(13, 4, 3) SMOE_CASE(13, 1, 3) SMOE_CASE(13, 4, 1) SMOE_CASE(13, 1, 1)
   SMOE_CASE(21, 5, 3) SMOE_CASE(21, 1, 3) SMOE_CASE(21, 5, 1) SMOE_CASE(21, 1, 1)

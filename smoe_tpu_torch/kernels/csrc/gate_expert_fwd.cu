@@ -14,30 +14,51 @@
 //
 // Design.  One thread per pixel, TPB pixels per CTA; rows are bounds-checked
 // here, so N needs no padding.  q', G and pi_det are staged through shared
-// memory KC kernels at a time, so any K works and the stage stays small
-// (KC*(F + E*C + 2)*4 bytes: 18 KB at F=7, E*C=9; 38 KB at F=21, E*C=15).
-// Pass 1 over K accumulates the denominator; pass 2 recomputes n_w (cheaper
-// than keeping a (TPB, K) tile), applies the normalisation and the cull, and
-// accumulates wg = w @ G in registers; res is formed from wg and xe at the
-// end, the TPU kernel's order.  Every product is an fp32 FMA: no tensor
-// cores, no TF32 — the quadratic-feature maha cancels A^2-scale terms and
-// needs exact fp32.  Built without --use_fast_math: expf, IEEE division.
+// memory KC kernels at a time, q' rows padded to whole float4s.
 //
-// Survivors.  The TPU kernel carried the max across its sequential grid in
-// one output block.  CTAs here run in parallel, so each warp reduces w per
-// kernel with one redux.sync (on the float bits: w >= 0, so the unsigned
-// order is the float order), the winner lane merges it into a per-CTA max in
-// shared memory, and the CTA merges that into the global max with atomicMax
-// on the bit pattern.  max is order-free, so the result is deterministic.
+//   Pass 1 sums the denominator over every kernel and records, per kernel,
+//   the CTA's largest n_w: each warp takes it with one redux.sync on the
+//   float bits (n_w > 0, so the unsigned order is the float order) into
+//   shared memory, and at the end of each chunk one thread per kernel
+//   folds the warps' maxima into s_cand[k] (K words of dynamic shared
+//   memory; no atomics).
+//   Then the CTA takes dmin = min of its valid pixels' denominators and
+//   compacts, in increasing k and in place, the kernels whose CTA max is
+//   not below cull_cut(thr, dmin).  Every other kernel has, for every pixel
+//   of the CTA, n_w < cull_cut(thr, dmin) <= cull_cut(thr, denom_n), so it
+//   is culled everywhere here (gate_expert_common.cuh: CULL_MARGIN).
+//   Pass 2 stages and visits those candidates only, in k order, recomputes
+//   n_w, skips the division where n_w < cull_cut(thr, denom_n) (certainly
+//   culled), and accumulates wg = w @ G in registers; res is formed from wg
+//   and xe at the end, the TPU kernel's order.
 //
-// What bounds it (a reckoning, not a measurement).  Per (pixel, kernel)
-// pair: 2F FMAs for the two maha passes, two expf (SFU plus range-reduction
-// FMAs), one IEEE division, and E*C FMAs only where w survives the cull.
-// At the 512^2 x 256-kernel flagship that is 6.7e7 pairs, ~2e9 FP32
-// instructions, against ~10 MB of input (N*(F+E)*4 bytes): far above the
-// card's ~20 flop/byte balance, so it is compute/SFU-bound, not memory-bound.
-// The staged q'/G are read as shared-memory broadcasts (every thread of a
-// warp reads the same word), which costs no bank conflicts.
+// A skipped pair added an exact zero and never raised a maximum in the loop
+// it replaces (gate_expert_variants.cu keeps that loop), so res and surv keep
+// its bits: the denominator is the same FMA chain, n_w and w the same
+// roundings.  Survivors: each warp reduces w per kernel with redux.sync, the
+// winner lane merges it into a per-CTA max in shared memory, and the CTA
+// merges that into the global max with atomicMax on the bit pattern; max is
+// order-free, so the result is deterministic.  Every product is an fp32 FMA
+// or an explicitly rounded fp32 op: no tensor cores, no TF32 (the
+// quadratic-feature maha cancels A^2-scale terms and needs exact fp32).
+// Built without --use_fast_math: expf, IEEE division.
+//
+// Optional outputs: den_out (N,) receives each pixel's max(floor, sum n_w)
+// for the backward K2 (gate_expert_bwd.cu), which then skips its own
+// denominator pass; raw > floor is den_out > floor.  stats (2,) receives
+// += (pairs visited in pass 2, surviving pairs).  Null pointers skip both.
+//
+// What bounds it (a reckoning, not a measurement).  Every (pixel, kernel)
+// pair pays pass 1: F maha FMAs, one expf (SFU plus range-reduction FMAs),
+// the denominator FMA, the n_w multiply and a warp max.  Pass 2 repeats the
+// maha and expf for the candidates only, and the division and E*C mixing
+// FMAs where the pair may survive.  At the 512^2 x 256-kernel flagship that
+// is 6.7e7 pairs against ~14 MB of input and output: compute/SFU bound, not
+// memory bound.  On raster-ordered pixels a CTA covers a short run of one
+// row and only the kernels near it are candidates; on randomly ordered
+// pixels nearly every kernel is, and pass 2 costs what it did before.
+// Staged q'/G are read as shared-memory broadcasts (every thread of a warp
+// reads the same word), which costs no bank conflicts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,7 +70,8 @@ namespace {
 using smoe::FULL;
 using smoe::KC;
 using smoe::TPB;
-using smoe::maha_term;
+
+constexpr int NW = TPB / 32;    // warps per CTA
 
 template <int F, int E, int C>
 __global__ void __launch_bounds__(TPB)
@@ -60,64 +82,133 @@ gate_expert_fwd_kernel(const float* __restrict__ phi,     // (N, F)
                        const float* __restrict__ pi_det,  // (K,)
                        float* __restrict__ res,           // (N, C)
                        unsigned* __restrict__ surv,       // (K,) float bits
+                       float* __restrict__ den_out,       // (N,) or null
+                       unsigned long long* __restrict__ stats,  // (2,) or null
                        int n, int k, float thr, float floor_) {
   constexpr int EC = E * C;
-  __shared__ float s_q[KC * F];
-  __shared__ float s_G[KC * EC];
+  constexpr int FP = smoe::pad4(F);
+  constexpr int GW = EC > NW ? EC : NW;
+  __shared__ __align__(16) float s_q[KC * FP];
+  __shared__ float s_gw[KC * GW];    // pass 1: (NW, KC) warp maxima; pass 2: G
   __shared__ float s_pi[KC];
   __shared__ unsigned s_surv[KC];
+  __shared__ unsigned s_dmin[NW];
+  __shared__ int s_ncand;
+  // (K,): the CTA's max n_w bits per kernel, then the candidate list
+  extern __shared__ unsigned s_cand[];
+  unsigned* s_wmax = reinterpret_cast<unsigned*>(s_gw);
+  const int* cand = reinterpret_cast<const int*>(s_cand);
 
   const int row = blockIdx.x * TPB + threadIdx.x;
   const bool valid = row < n;
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
   float ph[F];
 #pragma unroll
   for (int j = 0; j < F; ++j) ph[j] = valid ? phi[(size_t)row * F + j] : 0.f;
 
-  // pass 1: the gating denominator
+  // pass 1: the gating denominator and each kernel's largest n_w in the CTA
   float denom = 0.f;
   for (int k0 = 0; k0 < k; k0 += KC) {
     const int kc = min(KC, k - k0);
     __syncthreads();
-    for (int i = threadIdx.x; i < kc * F; i += TPB) s_q[i] = qs[(size_t)k0 * F + i];
+    smoe::stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
     for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
     __syncthreads();
-    for (int kk = 0; kk < kc; ++kk)
-      denom += expf(maha_term<F>(ph, s_q + kk * F)) * s_pi[kk];
+    for (int kk = 0; kk < kc; ++kk) {
+      const float e = expf(fminf(smoe::dot_padded<F>(ph, s_q + kk * FP), 0.f));
+      denom = fmaf(e, s_pi[kk], denom);
+      const float n_w = __fmul_rn(e, s_pi[kk]);
+      // the loop over kk is uniform across the CTA, so every lane is here
+      const unsigned m = __reduce_max_sync(
+          FULL, valid && n_w > 0.f ? __float_as_uint(n_w) : 0u);
+      if (lane == 0) s_wmax[warp * KC + kk] = m;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kc; i += TPB) {
+      unsigned m = s_wmax[i];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) m = max(m, s_wmax[w * KC + i]);
+      s_cand[k0 + i] = m;
+    }
   }
   denom = fmaxf(floor_, denom);
+  if (valid && den_out) den_out[row] = denom;
+
+  // the candidates: kernels that may survive at some pixel of the CTA
+  // (denom >= floor_ > 0, so the unsigned order of the bits is the float
+  // order)
+  const unsigned db = __reduce_min_sync(
+      FULL, valid ? __float_as_uint(denom) : 0xffffffffu);
+  if (lane == 0) s_dmin[warp] = db;
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned dm =
+        __reduce_min_sync(FULL, lane < NW ? s_dmin[lane] : 0xffffffffu);
+    const float cut = smoe::cull_cut(thr, __uint_as_float(dm));
+    int count = 0;
+    for (int base = 0; base < k; base += 32) {
+      const int kk = base + lane;
+      const bool keep = kk < k && !(__uint_as_float(s_cand[kk]) < cut);
+      const unsigned bal = __ballot_sync(FULL, keep);
+      __syncwarp();
+      // in place: every write lands at or below an index this warp has read
+      if (keep) s_cand[count + __popc(bal & ((1u << lane) - 1u))] = kk;
+      count += __popc(bal);
+    }
+    if (lane == 0) s_ncand = count;
+  }
+  __syncthreads();
+  const int ncand = s_ncand;
+  if (stats && threadIdx.x == 0)
+    atomicAdd(&stats[0], (unsigned long long)ncand *
+                             (unsigned long long)min(TPB, n - blockIdx.x * TPB));
 
   // pass 2: normalise, cull, mix the experts, track survivors
+  const float cut = smoe::cull_cut(thr, denom);
   float wg[EC];
 #pragma unroll
   for (int j = 0; j < EC; ++j) wg[j] = 0.f;
-  for (int k0 = 0; k0 < k; k0 += KC) {
-    const int kc = min(KC, k - k0);
+  unsigned kept = 0;
+  for (int c0 = 0; c0 < ncand; c0 += KC) {
+    const int kc = min(KC, ncand - c0);
     __syncthreads();
-    for (int i = threadIdx.x; i < kc * F; i += TPB) s_q[i] = qs[(size_t)k0 * F + i];
-    for (int i = threadIdx.x; i < kc * EC; i += TPB) s_G[i] = G[(size_t)k0 * EC + i];
+    smoe::stage_padded<F, TPB>(s_q, qs, c0, kc, cand);
+    for (int i = threadIdx.x; i < kc * EC; i += TPB) {
+      const int r = i / EC, j = i - r * EC;
+      s_gw[i] = G[(size_t)cand[c0 + r] * EC + j];
+    }
     for (int i = threadIdx.x; i < kc; i += TPB) {
-      s_pi[i] = pi_det[k0 + i];
+      s_pi[i] = pi_det[cand[c0 + i]];
       s_surv[i] = 0u;
     }
     __syncthreads();
     for (int kk = 0; kk < kc; ++kk) {
-      float w = expf(maha_term<F>(ph, s_q + kk * F)) * s_pi[kk] / denom;
-      if (!(w > thr) || !valid) w = 0.f;
-      // the loop over kk is uniform across the CTA, so every lane is here
+      const float n_w = __fmul_rn(
+          expf(fminf(smoe::dot_padded<F>(ph, s_q + kk * FP), 0.f)), s_pi[kk]);
+      float w = 0.f;
+      if (valid && !(n_w < cut)) {    // else certainly culled: no division
+        w = __fdiv_rn(n_w, denom);
+        if (!(w > thr)) w = 0.f;
+      }
       const unsigned m = __reduce_max_sync(FULL, __float_as_uint(w));
       if (lane == 0 && m) atomicMax(&s_surv[kk], m);
       if (w > 0.f) {
         // skipping culled pairs adds exact zeros only
-        const float* g = s_G + kk * EC;
+        const float* g = s_gw + kk * EC;
 #pragma unroll
         for (int j = 0; j < EC; ++j) wg[j] = fmaf(w, g[j], wg[j]);
+        ++kept;
       }
     }
     __syncthreads();
     for (int i = threadIdx.x; i < kc; i += TPB)
-      if (s_surv[i]) atomicMax(&surv[k0 + i], s_surv[i]);
+      if (s_surv[i]) atomicMax(&surv[cand[c0 + i]], s_surv[i]);
+  }
+  if (stats) {
+    const unsigned kw = __reduce_add_sync(FULL, kept);
+    if (lane == 0 && kw) atomicAdd(&stats[1], (unsigned long long)kw);
   }
 
   if (!valid) return;
@@ -133,19 +224,44 @@ gate_expert_fwd_kernel(const float* __restrict__ phi,     // (N, F)
   }
 }
 
+// A cudaError_t, or -limit (bytes) when K kernels need more shared memory per
+// block than the card has.
 template <int F, int E, int C>
-cudaError_t launch(const float* phi, const float* xe, const float* qs,
-                   const float* G, const float* pi_det, float* res,
-                   float* surv, int n, int k, float thr, float floor_,
-                   cudaStream_t stream) {
+int launch(const float* phi, const float* xe, const float* qs, const float* G,
+           const float* pi_det, float* res, float* surv, float* den_out,
+           unsigned long long* stats, int n, int k, float thr, float floor_,
+           cudaStream_t stream) {
+  // the CTA keeps one word per kernel in dynamic shared memory: past the
+  // card's limit per block it cannot run, and the caller gets -limit; past
+  // the default 48 KB it needs the opt-in, set on every launch
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, gate_expert_fwd_kernel<F, E, C>);
+  if (err != cudaSuccess) return err;
+  int dev = 0, limit = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  const long long dyn = 4LL * k;
+  if ((long long)attr.sharedSizeBytes + dyn > limit) return -limit;
+  err = cudaFuncSetAttribute(gate_expert_fwd_kernel<F, E, C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dyn);
+  if (err != cudaSuccess) return err;
   const int grid = (n + TPB - 1) / TPB;
-  gate_expert_fwd_kernel<F, E, C><<<grid, TPB, 0, stream>>>(
-      phi, xe, qs, G, pi_det, res, reinterpret_cast<unsigned*>(surv), n, k,
-      thr, floor_);
-  return cudaGetLastError();
+  gate_expert_fwd_kernel<F, E, C><<<grid, TPB, (size_t)dyn, stream>>>(
+      phi, xe, qs, G, pi_det, res, reinterpret_cast<unsigned*>(surv), den_out,
+      stats, n, k, thr, floor_);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+#define SMOE_WIDTHS(X)                                                     \
+  X(7, 3, 3) X(7, 1, 3) X(7, 3, 1) X(7, 1, 1)                              \
+  X(13, 4, 3) X(13, 1, 3) X(13, 4, 1) X(13, 1, 1)                          \
+  X(21, 5, 3) X(21, 1, 3) X(21, 5, 1) X(21, 1, 1)
 
 extern "C" {
 
@@ -156,24 +272,27 @@ int smoe_gate_expert_fwd_supported(int f, int e, int c) {
   return d && (e == 1 || e == d + 1) && (c == 1 || c == 3);
 }
 
-// res (N, C) and surv (K,) are written; surv must arrive zeroed.  Launches
-// on `stream` and does not synchronise.  Returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for a width this build lacks).
+// res (N, C) and surv (K,) are written; surv must arrive zeroed.  den_out
+// (N,) and stats (2,) may be null.  Launches on `stream` and does not
+// synchronise.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a width this build lacks), or -limit, the
+// card's shared memory per block in bytes, when K needs more: the CTA keeps
+// 4 bytes per kernel there beside its static arrays.
 int smoe_gate_expert_fwd(const float* phi, const float* xe, const float* qs,
                          const float* G, const float* pi_det, float* res,
-                         float* surv, int n, int f, int e, int c, int k,
-                         float thr, float floor_, void* stream_ptr) {
+                         float* surv, float* den_out,
+                         unsigned long long* stats, int n, int f, int e,
+                         int c, int k, float thr, float floor_,
+                         void* stream_ptr) {
   if (!smoe_gate_expert_fwd_supported(f, e, c) || n < 0 || k < 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-#define SMOE_CASE(F_, E_, C_)                                              \
-  if (f == F_ && e == E_ && c == C_)                                       \
-    return (int)launch<F_, E_, C_>(phi, xe, qs, G, pi_det, res, surv, n, k, \
-                                   thr, floor_, s);
-  SMOE_CASE(7, 3, 3) SMOE_CASE(7, 1, 3) SMOE_CASE(7, 3, 1) SMOE_CASE(7, 1, 1)
-  SMOE_CASE(13, 4, 3) SMOE_CASE(13, 1, 3) SMOE_CASE(13, 4, 1) SMOE_CASE(13, 1, 1)
-  SMOE_CASE(21, 5, 3) SMOE_CASE(21, 1, 3) SMOE_CASE(21, 5, 1) SMOE_CASE(21, 1, 1)
+#define SMOE_CASE(F_, E_, C_)                                             \
+  if (f == F_ && e == E_ && c == C_)                                      \
+    return launch<F_, E_, C_>(phi, xe, qs, G, pi_det, res, surv, den_out, \
+                              stats, n, k, thr, floor_, s);
+  SMOE_WIDTHS(SMOE_CASE)
 #undef SMOE_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -16,12 +16,14 @@
 //   res_n[c] = sum_j (sum_k w G_k)[j*C + c],  C = 3: the TPU variant folds
 //              the xe mix into a fixed sum, so every mode has the same tail.
 //
-// Design.  The mode is a template parameter of K1's own loop
-// (gate_expert_fwd.cu): one thread per pixel, q', G and pi_det staged
-// through shared memory KC kernels at a time, pass 1 for the denominator,
-// pass 2 to normalise, cull and mix with fp32 FMAs.  The maha product and
-// the staging constants come from gate_expert_common.cuh, shared with K1,
-// so `full` gives K1's bits (xe = 1, mask = 1).  A mode drops only what it
+// Design.  The mode is a template parameter of K1's plain two-pass loop:
+// one thread per pixel, q', G and pi_det staged through shared memory KC
+// kernels at a time, pass 1 for the denominator, pass 2 to normalise, cull
+// and mix with fp32 FMAs over every kernel.  (K1 itself, gate_expert_fwd.cu,
+// now visits in pass 2 only its CTA's candidate kernels and skips certain
+// culls, which keeps this loop's bits.)  The maha product and the staging
+// constants come from gate_expert_common.cuh, shared with K1, so `full`
+// gives K1's bits (xe = 1, mask = 1).  A mode drops only what it
 // drops: no_norm and no_exp skip pass 1 and the division, no_exp also
 // skips expf, exp2 calls exp2f.  Survivor tracking and the xe mix are left
 // out, as the TPU variant does, so K1 - full measures K1's survivor merge

@@ -58,6 +58,6 @@ def test_every_header_of_the_repo_is_watched():
     """The shared header exists and is among the build's dependencies."""
     hdr = os.path.join(build.SRC_DIR, "gate_expert_common.cuh")
     assert os.path.exists(hdr)
-    for name in ("gate_expert_fwd", "gate_expert_variants"):
+    for name in ("gate_expert_fwd", "gate_expert_bwd", "gate_expert_variants"):
         src = open(os.path.join(build.SRC_DIR, name + ".cu")).read()
         assert '#include "gate_expert_common.cuh"' in src
