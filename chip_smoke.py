@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port's serving decode, trainer, forward
-ablation variants and encode CLI on one NVIDIA GPU.
+ablation variants, encode CLI and fit CLI on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,8 +16,11 @@ no result line) on any fault:
      res <= 1e-5 absolute, surv <= 1e-6, cull flips counted; K1's
      candidate fraction (pairs its second pass visits over N * K) and
      surviving pairs, each kernel's time beside its bound; then K1 at
-     K = 16384 (64 KB of dynamic shared memory) against plain, and a K past
-     the card's shared memory per block, which must raise;
+     K = 16384 and K = 60000 (two and eight segments of 8192 kernels; 40009
+     random pixels at K = 60000) against plain, as above, and bit for bit
+     against K3 `full`, and K2 at K = 60000 fed K1's denominator against
+     its plain version (<= 1e-4 relative), the K = 60000 times beside their
+     bounds;
   4. holds K2, fed the denominator K1 wrote for the same inputs (as the
      trainer feeds it), against its plain version at the same shapes:
      max |dq', dG, dpi error| / max |plain| <= 1e-4 each, reruns
@@ -68,18 +71,47 @@ no result line) on any fault:
  12. fits 1080p RGB with 24x24 = 576 kernels in 16 blocks
      (scripts/bench_1080p.py:40) for 20 sweeps on the kernel path, capped
      below K_pad = 640, with one K1 and one K2 launch per block per sweep
-     and one host sync per chunk, against 20 sweeps on the plain path.
+     and one host sync per chunk, against 20 sweeps on the plain path;
+ 13. K1 past one segment's reach: a seeded 1920x1080 RGB model with
+     240x240 = 57,600 kernels written by the port's own init, quantizer and
+     bitstream writer, read once and decoded through K1, within 1 LSB of
+     the plain decode on every 40th row (>= 99.9 % identical); K1's time,
+     bound and candidate fraction on it;
+ 14. the least-squares expert solves (fit/lsinit.py) on the flagship
+     against the JAX package's recorded ones
+     (tests/data/bench512_lsinit_ref.npz, scripts/make_torch_ls_fixture.py),
+     coupled ("auto", 768 columns) and per kernel, to LS_*_XTOL of max and
+     LS_*_MSE_RTOL in the blend mse; each solve's accumulate / solve /
+     line-search time by CUDA events;
+ 15. the fit CLI's headline recipe at full width: cli.fit -k 16 -n 500
+     -v 100 -qm 1 -lsinit auto -lsri 100 -iukl 1 on a PNG of the flagship
+     image, and the same without -lsinit / -lsri: one K1 and one K2 launch
+     per sweep, the LS run's first validation mse at or below the sample
+     run's, both runs' best PSNR, s/iter and wall time; then cli.reconstruct
+     (the automatic encode) of its params_best.pkl and cli.decode of the
+     model.smoe through K1 within 1 LSB of the reconstruction, and the
+     fit's model_best.smoe through K1 within 1 LSB of its plain decode;
+ 16. cli.fit's inc loop (-is 2 -ni 50 -na 50 -n 100 -qm 1: the kernel count
+     grows by 256 per step to a capacity of 1,024, the model_best.smoe
+     decodes within 1 LSB), QAT mode 3 and the SSIM loss (-qm 3 / -ssim 1,
+     -n 100: one K1 and one K2 launch per sweep), each of the last two also
+     fitted in-process for 100 sweeps on the kernel path, every sweep also
+     taken by the plain path from the same state, both updates within
+     TRAJ_RTOL in the exact eval's mse; the free-running pair's trajectories
+     are reported.
 Launch counts are zeroed before each path and read after it; the launches
 made to compare a kernel with its plain version are not counted.  Then
 prints the card line, one JSON line of kernel results (each with its
 launches, error, time, plain time, bound, what binds it and library_ms,
 null: no single PyTorch call computes these functions; K1's and K2's
-raster-ordered times and K1's candidate fractions beside them), and
+raster-ordered and K = 60000 times and K1's candidate fractions beside
+them), and
 {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -95,6 +127,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "tests", "data", "bench512_k256.smoe")
 FIXTURE_REF = os.path.join(HERE, "tests", "data", "bench512_k256_ref.npz")
 TRAIN_REF = os.path.join(HERE, "tests", "data", "bench512_train20_ref.npz")
+LS_REF = os.path.join(HERE, "tests", "data", "bench512_lsinit_ref.npz")
+CLI_SWEEPS = 500
 FIT_SWEEPS = 20
 RECIPE_MAX_ITERS = 2000
 DEVICE = "cuda"
@@ -117,8 +151,22 @@ VAR_REPLACES = "scripts/bench_contraction.py:50"
 # normalised (res is O(1)); relative to max |plain| for no_norm (weights
 # pi*det, up to ~1e2 here) and no_exp (weights -maha/2, up to ~1e4)
 VAR_ABS_TOL, VAR_REL_TOL = 1e-5, 1e-5
-# rows per call of a plain version on inputs too large for one (N, K) map
+# the LS solves against the recorded JAX ones, as a share of max |expert|
+# and relative in the blend mse.  The per-kernel (3x3) solves agree to
+# ~1e-3 of max, which moves some 60 of the 786,432 output values across a
+# step of the 8-bit output quantizer: ~6e-5 of the mse (measured on an
+# H100).  The coupled (768-column) system's conditioning lets two fp32
+# solves part by ~3e-2 of max (the JAX solve itself sits 1.9e-2 from the
+# float64 one), while the objective they reach agreed to 8.6e-6.
+LS_KERNEL_XTOL, LS_KERNEL_MSE_RTOL = 2e-3, 1e-4
+LS_COUPLED_XTOL, LS_COUPLED_MSE_RTOL = 0.1, 1e-4
+# rows per call of a plain version on inputs too large for one (N, K) map:
+# PLAIN_ROWS, fewer where K is large (about 1 GB per (rows, K) map)
 PLAIN_ROWS = 32768
+
+
+def plain_rows(k: int) -> int:
+    return min(PLAIN_ROWS, max(256, (1 << 28) // max(k, 1)))
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): fp32
 # outside the tensor cores and HBM3 bandwidth; the bounds below use them
 FP32_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -224,8 +272,9 @@ def fwd_vs_plain(args, res_k, surv_k, thr, floor, name):
     surv_p = torch.zeros_like(surv_k)
     near_k = torch.zeros((k,), dtype=torch.bool, device=phi.device)
     max_res, bad_rows, flips, unexplained = 0.0, 0, 0, 0
-    for i in range(0, n, PLAIN_ROWS):
-        sl = slice(i, i + PLAIN_ROWS)
+    rows = plain_rows(k)
+    for i in range(0, n, rows):
+        sl = slice(i, i + rows)
         res_p, s_p = gate_expert_reference(phi[sl], xe[sl], q, G, pi_det,
                                            mask, thr, floor)
         surv_p = torch.maximum(surv_p, s_p)
@@ -309,7 +358,9 @@ def compare_kernel(name, n, k, d, e, c, seed, thr, floor, time_it):
     out["candidate_fraction"], out["survivors"] = k1_stats(args, thr, floor)
     out["bound_ms"], out["bound_by"] = k1_bound(
         n, k, out["f"], e, c, out["survivors"])
-    if time_it:
+    if time_it == "kernel":
+        out["ms"] = cuda_ms(lambda: gate_expert_fwd(*args, thr, floor), 5)
+    elif time_it:
         # as many launches as the attribution's timer makes, after a
         # warm-up that lets the clocks settle: phase 5 holds the two
         # readings within 3 % of each other
@@ -365,8 +416,9 @@ def bwd_vs_plain(fargs, seed, thr, floor, name):
     torch.cuda.synchronize()
     out_p = [torch.zeros(t.shape, dtype=torch.float64, device="cuda")
              for t in out_k]
-    for i in range(0, n, PLAIN_ROWS):
-        sl = slice(i, i + PLAIN_ROWS)
+    rows = plain_rows(k)
+    for i in range(0, n, rows):
+        sl = slice(i, i + rows)
         for acc, t in zip(out_p, gate_expert_bwd_reference(
                 phi[sl], xe[sl], q_s, G, pi_det, g[sl], thr, floor)):
             acc += t.double()
@@ -424,21 +476,43 @@ def compare_raster(name, fargs, thr, floor, seed):
     return {"k1": fwd, "k2": bwd}
 
 
-def compare_smem_edge(thr, floor):
-    """Phase 3, last case: K1 at a K whose list of per-kernel maxima needs
-    more than 48 KB of dynamic shared memory, against its plain version;
-    and a K past the card's shared memory per block, which must raise."""
-    from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
-    out = compare_kernel("smem K16384 d2", 2053, 16384, 2, 3, 3, 5, thr,
-                         floor, time_it=False)
-    big = random_case(256, 60000, 2, 3, 3, 6, "cuda")
-    try:
-        gate_expert_fwd(*big, thr, floor)
-    except ValueError as err:
-        out["k60000_raises"] = str(err)
-    print(f"shared-memory edge: {json.dumps(out)}", flush=True)
-    check("limit" in out.get("k60000_raises", ""),
-          "K1 at K = 60000 did not raise on the shared-memory limit")
+def compare_large_k(thr, floor):
+    """Phase 3, last cases: K1 takes its kernels in segments of 8192, so
+    any K runs.  K1 at K = 16384 (two segments) and K = 60000 (eight; past
+    the 53,236 kernels whose per-kernel maxima would fill the card's shared
+    memory per block) against its plain version, and bit for bit against
+    K3 `full` (xe = 1, mask = 1), which streams every K in one loop; K2 at
+    K = 60000, fed K1's denominator, against its plain version.  The
+    K = 60000 times beside their bounds."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
+                                                    gate_expert_fwd)
+    from smoe_tpu_torch.kernels.gate_expert_variants import \
+        gate_expert_variant
+    out = {}
+    for name, n, k, seed, time_it in (("K16384 d2", 2053, 16384, 5, False),
+                                      ("K60000 d2", 40009, 60000, 6,
+                                       "kernel")):
+        o = compare_kernel(name, n, k, 2, 3, 3, seed, thr, floor, time_it)
+        phi, _, q, G, pi_det, _ = random_case(n, k, 2, 1, 3, seed, "cuda")
+        k1, _ = gate_expert_fwd(phi, torch.ones_like(phi[:, :1]), q, G,
+                                pi_det, torch.ones_like(pi_det), thr, floor)
+        k3 = gate_expert_variant(phi, q, G, pi_det, "full", thr, floor)
+        o["k3_full_bit_identical"] = bool(torch.equal(k1, k3))
+        check(o["k3_full_bit_identical"],
+              f"{name}: K1 is not bit-identical to K3 full")
+        del phi, q, G, pi_det, k1, k3
+        out[name] = o
+    fargs = random_case(40009, 60000, 2, 3, 3, 6, "cuda")
+    bwd, args, den = bwd_vs_plain(fargs, 6, thr, floor, "K60000 d2")
+    _, survivors = k1_stats(fargs, thr, floor)
+    bwd["bound_ms"], bwd["bound_by"] = k2_bound(40009, 60000, 7, 3, 3,
+                                                survivors, True)
+    bwd["ms"] = cuda_ms(lambda: gate_expert_bwd(*args, denom=den), 3)
+    out["K2 K60000 d2"] = bwd
+    del fargs, args, den
+    torch.cuda.empty_cache()
+    print(f"large K: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -533,40 +607,47 @@ def build_4k_image(h=2160, w=3840, seed=0):
     return np.clip(img, 0, 1).astype(np.float32)
 
 
-def write_uhd_model(path: str) -> int:
-    """Phase 7's model, written to `path`: a seeded 3840x2160 RGB image,
-    48x48 = 2304 kernels from the port's own init (steering and experts
-    perturbed from a seed), its quantizer and bitstream writer.  Returns the
+def write_seeded_model(path: str, h: int, w: int, kpd: int, img_seed: int,
+                       rng_seed: int, corr_sd: float) -> int:
+    """A seeded h x w RGB image (build_4k_image's recipe), kpd x kpd kernels
+    from the port's own init (steering and experts perturbed from a seed),
+    its quantizer and bitstream writer, written to `path`.  Returns the
     payload bits."""
     from smoe_tpu_torch.codec.bitstream import write_bitstream
     from smoe_tpu_torch.codec.quantize import quantize_params
     from smoe_tpu_torch.config import SmoeConfig
     from smoe_tpu_torch.core.init import init_params
-    img4k = build_4k_image()
-    cfg4k = SmoeConfig(kernels_per_dim=(48, 48), use_yuv=True,
-                       use_determinant=True)
-    p = init_params(img4k, cfg4k)
-    rng = np.random.default_rng(4)
+    img = build_4k_image(h, w, img_seed)
+    cfg = SmoeConfig(kernels_per_dim=(kpd, kpd), use_yuv=True,
+                     use_determinant=True)
+    p = init_params(img, cfg)
+    rng = np.random.default_rng(rng_seed)
     pdict = {"pis": p.pis, "musX": p.musX, "A_diagonal": p.a_diag,
              "A_corr": p.a_corr + np.tril(rng.normal(
-                 0, 10.0, p.a_corr.shape), -1).astype(np.float32),
+                 0, corr_sd, p.a_corr.shape), -1).astype(np.float32),
              "nu_e": p.nu_e,
              "gamma_e": rng.normal(0, 0.1, p.gamma_e.shape).astype(
                  np.float32)}
-    qp = quantize_params(pdict, cfg4k)
-    return write_bitstream(path, qp, cfg4k, extra={
-        "shape_of_img": [2160, 3840], "dim_of_output": 3,
+    qp = quantize_params(pdict, cfg)
+    return write_bitstream(path, qp, cfg, extra={
+        "shape_of_img": [h, w], "dim_of_output": 3,
         "use_yuv": True, "use_determinant": True, "train_gammas": True})
 
 
-def decode_kernel_args(path: str):
+def write_uhd_model(path: str) -> int:
+    """Phase 7's model: 3840x2160, 48x48 = 2304 kernels."""
+    return write_seeded_model(path, 2160, 3840, 48, 0, 4, 10.0)
+
+
+def decode_kernel_args(path: str, model=None):
     """K1's operands in the decode of the .smoe file `path` at its native
     raster (one launch over every pixel, as codec/serve.py:make_decoder
-    makes it): (phi, xe, q, G, pi_det, mask, thr, floor) on the card."""
+    makes it): (phi, xe, q, G, pi_det, mask, thr, floor) on the card.
+    model: read_model(path)'s result, when the caller has it."""
     import torch
     from smoe_tpu_torch.codec.serve import pad_decoded_params, read_model
     from smoe_tpu_torch.core.model import fused_op_inputs
-    cfg, rp, header = read_model(path)
+    cfg, rp, header = read_model(path) if model is None else model
     shape = tuple(int(v) for v in np.ravel(header["shape_of_img"]))
     pad = pad_decoded_params(rp, int(rp["pis"].shape[0]), 2, 3)
     A, musX, nu_e, gamma_e, pis = (torch.as_tensor(pad[n], device="cuda")
@@ -832,11 +913,8 @@ def encode_cli(img, launches, sweeps=200):
     cli.decode: the pickle on the trainer's exact plain path, model.smoe
     through K1.  A RuntimeWarning is an error here, so kernel_importance
     cannot fall back to its analytic ordering silently."""
-    import contextlib
-    import io
     import re
     import warnings
-    import torch
     from smoe_tpu_torch.cli import decode, reconstruct
     from smoe_tpu_torch.codec.container import save_model
     from smoe_tpu_torch.fit import trainer
@@ -848,15 +926,6 @@ def encode_cli(img, launches, sweeps=200):
     def counted(self, *a, **kw):
         evals[0] += bool(kw.get("with_quantized_params"))
         return real_run(self, *a, **kw)
-
-    def cli(main, args):
-        buf = io.StringIO()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rec = main(args)
-        torch.cuda.synchronize()
-        return np.asarray(rec), buf.getvalue(), time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
         png = write_image(img, os.path.join(tmp, "img"), 2, yuv=True)
@@ -881,9 +950,9 @@ def encode_cli(img, launches, sweeps=200):
                     d = os.path.join(tmp, name)
                     evals[0] = 0
                     reset_counts()
-                    rec, log, secs = cli(reconstruct.main,
-                                         ["-i", png, "-p", pkl, "-r", d,
-                                          "--device", DEVICE] + extra)
+                    rec, log, secs = _cli(reconstruct.main,
+                                          ["-i", png, "-p", pkl, "-r", d,
+                                           "--device", DEVICE] + extra)
                     arms[name] = {
                         "rec": rec, "log": log, "seconds": secs,
                         "quantized_evals": evals[0],
@@ -903,10 +972,10 @@ def encode_cli(img, launches, sweeps=200):
         reset_counts()
         dec = {}
         for name in ("qparams.pkl", "model.smoe"):
-            rec, _, secs = cli(decode.main,
-                               ["-p", os.path.join(tmp, "auto", name), "-r",
-                                os.path.join(tmp, "dec_" + name), "--device",
-                                DEVICE])
+            rec, _, secs = _cli(decode.main,
+                                ["-p", os.path.join(tmp, "auto", name), "-r",
+                                 os.path.join(tmp, "dec_" + name), "--device",
+                                 DEVICE])
             lsb, same = lsb_stats(rec, a["rec"])
             dec[name] = {"seconds": secs, "max_lsb": lsb,
                          "identical_share": same, "shape": list(rec.shape)}
@@ -1031,6 +1100,9 @@ def contraction_phase(flagship, launches):
     args = random_case(512 * 512, 256, 2, 3, 3, 1, "cuda")
     thr, floor = 0.5 / 2 ** 8, 1e-11
     k1 = lambda: gate_expert_fwd(*args, thr, floor)         # noqa: E731
+    # one discarded reading first: after the attribution's plain runs the
+    # card's clocks are still settling (a first reading 9 % slow was seen)
+    cuda_ms(k1, 50, warmup=10)
     phase3, tool = in_turns(
         lambda: cuda_ms(k1, 50, warmup=10),
         lambda: contraction.time_launches(k1, 50, 5) * 1e3)
@@ -1048,6 +1120,367 @@ def contraction_phase(flagship, launches):
         tol = var_tol(mode, m["max_abs_plain"])
         check(m["max_abs_err"] <= tol, f"attribution {mode}: kernel off its "
               f"plain version by {m['max_abs_err']} > {tol}")
+    return out
+
+
+def large_k_decode(launches):
+    """Phase 13: a seeded 1920x1080 RGB model with 240x240 = 57,600
+    kernels (past the 53,236 a one-segment K1 could hold), written by the
+    port's own init, quantizer and bitstream writer, decoded through K1
+    and held against the plain decode on strided rows; K1's time, bound
+    and candidate fraction on the decode's operands."""
+    import torch
+    from smoe_tpu_torch.codec.serve import (make_decoder, pad_decoded_params,
+                                            read_model)
+    from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
+    kpd, h, w = 240, 1080, 1920
+    k = kpd * kpd
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fhd_k57600.smoe")
+        t0 = time.perf_counter()
+        bits = write_seeded_model(path, h, w, kpd, 1, 5, 50.0)
+        encode_s = time.perf_counter() - t0
+        # decode_bitstream's two steps, so the file is read once: the
+        # entropy decoder's neighbour search is quadratic in K
+        t0 = time.perf_counter()
+        model = read_model(path)
+        read_s = time.perf_counter() - t0
+        cfg, rp, _ = model
+        check(int(rp["pis"].shape[0]) == k, "1080p model lost kernels")
+        pad = pad_decoded_params(rp, k, 2, 3)
+        args = [pad[n] for n in ("A", "musX", "nu_e", "gamma_e", "pis")]
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = make_decoder((h, w), 3, cfg, k, device="cuda")(
+            *args).cpu().numpy()
+        decode_s = time.perf_counter() - t0
+        n_dec = gate_expert_fwd.launches
+        launches[0] += n_dec
+        rows = np.linspace(0, 1, h, dtype=np.float32)[::40]
+        cols = np.linspace(0, 1, w, dtype=np.float32)
+        plain = make_decoder(None, 3, cfg, k, sample_points=(rows, cols),
+                             device="cuda", reference=True)(*args)
+        lsb, same = lsb_stats(rec[::40], plain.cpu().numpy())
+        del plain
+        *fargs, thr, floor = decode_kernel_args(path, model)
+        frac, survivors = k1_stats(fargs, thr, floor)
+        n = fargs[0].shape[0]
+        b_ms, b_by = k1_bound(n, k, fargs[0].shape[1], fargs[1].shape[1], 3,
+                              survivors)
+        ms = cuda_ms(lambda: gate_expert_fwd(*fargs, thr, floor), 3,
+                     warmup=1)
+        del fargs
+        torch.cuda.empty_cache()
+    out = {"shape": [h, w], "kernels": k, "payload_bits": bits,
+           "encode_s": encode_s, "read_model_s": read_s,
+           "decode_first_device_s": decode_s,
+           "k1_launches": n_dec, "strided_rows": int(rows.size),
+           "max_lsb_vs_plain": lsb, "identical_share": same,
+           "k1_ms": ms, "k1_bound_ms": b_ms, "k1_bound_by": b_by,
+           "candidate_fraction": frac, "survivors": survivors}
+    print(f"large-K decode: {json.dumps(out)}", flush=True)
+    check(n_dec == 1, f"1080p K=57600 decode launched K1 {n_dec} times")
+    check(rec.shape == (h, w, 3) and np.isfinite(rec).all(),
+          f"1080p K=57600 decode: bad output {rec.shape}")
+    check(lsb <= 1 and same >= 0.999,
+          f"1080p K=57600 decode vs plain: {lsb} LSB, {same:.5f} identical")
+    return out
+
+
+def ls_phase(img):
+    """Phase 14: the least-squares expert solves on the bench flagship
+    against the JAX package's recorded ones (tests/data/
+    bench512_lsinit_ref.npz, scripts/make_torch_ls_fixture.py), in mode
+    "auto" (the coupled solve, 768 columns) and "kernel"; each solve's
+    accumulate / solve / line-search time by CUDA events; the blend mse
+    after the solve by the exact (plain) eval.  The coupled system is ill-
+    conditioned: the JAX package's own fp32 solve sits ~2e-2 of max from
+    the float64 solve of its normal equations (recorded beside it), so two
+    fp32 solves agree only that far; the objective they reach agrees to
+    LS_COUPLED_MSE_RTOL."""
+    ref = np.load(LS_REF)
+    out = {"init_mse_jax": float(ref["init_mse"])}
+    for mode in ("auto", "kernel"):
+        s = flagship_smoe(img, KERNEL_MODE)
+        t = {}
+        s.ls_init_experts(mode=mode, timings=t)       # warm (allocations)
+        s = flagship_smoe(img, KERNEL_MODE)
+        t = {}
+        s.ls_init_experts(mode=mode, timings=t)
+        _, mse, _, _ = s.run_batched(train=False, update_reconstruction=True)
+        m = {"ms": {k: v * 1e3 for k, v in t.items()}, "mse": float(mse),
+             "mse_jax": float(ref[f"{mode}_mse"])}
+        m["mse_rel"] = abs(m["mse"] - m["mse_jax"]) / m["mse_jax"]
+        for f in ("nu_e", "gamma_e"):
+            got = getattr(s.params, f).detach().cpu().numpy()
+            r = ref[f"{mode}_{f}"]
+            m[f"{f}_err_of_max"] = float(np.abs(got - r).max()
+                                         / np.abs(r).max())
+            if mode == "auto":
+                r64 = ref[f"auto_f64_{f}"]
+                m[f"{f}_f64_err_of_max"] = float(
+                    np.abs(got - r64).max() / np.abs(r64).max())
+                m[f"{f}_jax_f64_err_of_max"] = float(
+                    np.abs(r - r64).max() / np.abs(r64).max())
+        out[mode] = m
+        del s
+    print(f"LS vs JAX: {json.dumps(out)}", flush=True)
+    for mode, xtol, mtol in (("auto", LS_COUPLED_XTOL, LS_COUPLED_MSE_RTOL),
+                             ("kernel", LS_KERNEL_XTOL, LS_KERNEL_MSE_RTOL)):
+        m = out[mode]
+        check(max(m["nu_e_err_of_max"], m["gamma_e_err_of_max"]) <= xtol,
+              f"LS {mode}: experts off the JAX solve by "
+              f"{m['nu_e_err_of_max']:.2e} / {m['gamma_e_err_of_max']:.2e} "
+              f"of max > {xtol}")
+        check(m["mse_rel"] <= mtol, f"LS {mode}: mse {m['mse']} vs JAX "
+              f"{m['mse_jax']} ({m['mse_rel']:.2e} > {mtol})")
+        check(m["mse"] < out["init_mse_jax"], f"LS {mode} did not improve "
+              "on the init")
+    return out
+
+
+def _cli(main, args):
+    """(main's result, its stdout, wall seconds) of a CLI run, the card
+    idle before and after."""
+    import contextlib
+    import io
+    import torch
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(args)
+    torch.cuda.synchronize()
+    return res, buf.getvalue(), time.perf_counter() - t0
+
+
+def _metrics(d):
+    with open(os.path.join(d, "metrics.jsonl")) as fd:
+        return [json.loads(line) for line in fd]
+
+
+def _fit_run(png, d, flags, launches):
+    """One cli.fit run on the card: its trainer, metrics, launches and
+    times."""
+    from smoe_tpu_torch.cli import fit
+    reset_counts()
+    smoe, log, wall = _cli(fit.main, ["-i", png, "-r", d, "-k", "16",
+                                      "--device", DEVICE] + flags)
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    rows = _metrics(d)
+    sweeps = smoe.phase_timer.as_dict()["train_sweeps"]
+    return smoe, {"flags": flags, "wall_s": wall, "k1_k2": [n1, n2],
+                  "iters": smoe.iter, "s_per_iter": sweeps["total_s"]
+                  / max(smoe.iter, 1),
+                  "first_mse": rows[0]["mse"],
+                  "best_psnr_db": max(r["psnr_db"] for r in rows),
+                  "validations": len(rows), "log_tail": log[-300:]}
+
+
+def decode_vs_plain(path):
+    """The .smoe file `path` decoded through K1 against its plain decode:
+    (rec, max LSB, identical share)."""
+    from smoe_tpu_torch.codec.serve import decode_bitstream
+    rec = decode_bitstream(path, device="cuda")
+    plain = decode_bitstream(path, device="cuda", reference=True)
+    return (rec,) + lsb_stats(rec, plain)
+
+
+def fit_cli_recipe(img, launches):
+    """Phase 15: the fit CLI's headline recipe at the flagship's full width
+    (cli.fit -k 16 -n 500 -v 100 -qm 1 -lsinit auto -lsri 100 -iukl 1 on a
+    PNG of the flagship image) and the same without -lsinit / -lsri: one K1
+    and one K2 launch per sweep (the validations are plain evals), the LS
+    run's first validation mse at or below the sample-init run's (the line
+    search holds t = 0); then the automatic encode (cli.reconstruct) of the
+    LS run's params_best.pkl and cli.decode of its model.smoe through K1,
+    within 1 LSB of the reconstruction, and the fit's own model_best.smoe
+    through K1 against its plain decode."""
+    from smoe_tpu_torch.cli import decode, reconstruct
+    from smoe_tpu_torch.io.images import write_image
+    n = CLI_SWEEPS
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        png = write_image(img, os.path.join(tmp, "img"), 2, yuv=True)
+        common = ["-n", str(n), "-v", "100", "-qm", "1", "-iukl", "1"]
+        for name, extra in (("ls", ["-lsinit", "auto", "-lsri", "100"]),
+                            ("sample", [])):
+            _, out[name] = _fit_run(png, os.path.join(tmp, name),
+                                    common + extra, launches)
+        d = os.path.join(tmp, "ls")
+        reset_counts()
+        rec, _, enc_s = _cli(reconstruct.main, [
+            "-i", png, "-p", os.path.join(d, "params_best.pkl"), "-r",
+            os.path.join(tmp, "enc"), "--device", DEVICE])
+        dec, _, dec_s = _cli(decode.main, [
+            "-p", os.path.join(tmp, "enc", "model.smoe"), "-r",
+            os.path.join(tmp, "dec"), "--device", DEVICE])
+        lsb, same = lsb_stats(np.asarray(dec), np.asarray(rec))
+        _, lsb_b, same_b = decode_vs_plain(os.path.join(d,
+                                                        "model_best.smoe"))
+        n1, _ = read_counts()
+        launches[0] += n1
+    out["encode"] = {"reconstruct_s": enc_s, "decode_s": dec_s,
+                     "decode_vs_reconstruction_max_lsb": lsb,
+                     "identical_share": same,
+                     "model_best_k1_vs_plain_max_lsb": lsb_b,
+                     "model_best_identical_share": same_b,
+                     "k1_launches": n1}
+    print(f"fit CLI recipe: {json.dumps(out)}", flush=True)
+    for name in ("ls", "sample"):
+        check(out[name]["k1_k2"] == [n, n], f"cli.fit {name}: K1 / K2 "
+              f"launched {out[name]['k1_k2']} times in {n} sweeps")
+        check(out[name]["iters"] == n, f"cli.fit {name} stopped early")
+    check(out["ls"]["first_mse"] <= out["sample"]["first_mse"],
+          f"LS init's first mse {out['ls']['first_mse']} above the sample "
+          f"init's {out['sample']['first_mse']}")
+    check(lsb <= 1 and same >= 0.999, f"model.smoe decode vs the "
+          f"reconstruction: {lsb} LSB, {same:.5f} identical")
+    check(lsb_b <= 1 and same_b >= 0.999, f"model_best.smoe K1 vs plain: "
+          f"{lsb_b} LSB, {same_b:.5f} identical")
+    check(n1 == 2, f"the encode and two decodes launched K1 {n1} times, "
+          "expected 2 (the encode's evals are plain)")
+    return out
+
+
+def stepped_from_kernel_path(s_k, s_p, n):
+    """n sweeps of the kernel-path trainer s_k, each also taken by the
+    plain-path trainer s_p from the very state s_k starts it from (params,
+    Adam moments, kernel lists copied over first); after each, both
+    updated models are evaluated on the exact path.  Returns the per-sweep
+    relative difference of those two mse values: the kernel path's step
+    against the plain path's, without the chaos a free-running pair of
+    trajectories through a quantizer accumulates."""
+    from smoe_tpu_torch.core.params import adam_state_from_numpy
+    from smoe_tpu_torch.fit.trainer import PARAM_FIELDS
+    rel = []
+    for _ in range(n):
+        s_p.set_params({f: getattr(s_k.params, f).detach().cpu().numpy()
+                        for f in PARAM_FIELDS})
+        st = s_k.adam_state_numpy()
+        if st["count"]:
+            s_p.load_adam_state(adam_state_from_numpy(
+                st["mu"], st["nu"], st["count"], device=s_p.device))
+        s_p.kernel_lists = s_k.kernel_lists.clone()
+        s_k.run_batched_chunk(1)
+        s_p.run_batched_chunk(1)
+        lists = s_k.kernel_lists.clone()
+        mk = s_k.run_batched(train=False, update_reconstruction=True)[1]
+        mp = s_p.run_batched(train=False, update_reconstruction=True)[1]
+        s_k.kernel_lists = lists         # the eval leaves the fit's lists
+        rel.append(abs(mk - mp) / mp)
+    return rel
+
+
+def fit_cli_variants(img, launches):
+    """Phase 16: cli.fit's incremental loop, QAT mode 3 and the SSIM loss
+    at 512^2 x 256 kernels.  -is 2 -ni 50 -na 50 -n 100 -qm 1: the kernel
+    count grows by 256 per inc step to a capacity of 1,024, one K1 and one
+    K2 launch per sweep at the width of the listed kernels (each
+    insertion's first eval shrinks the all-on lists to the survivors
+    before K1 runs, so with no kernel pruned K1 stays at 256), and
+    model_best.smoe decodes through K1 within 1 LSB of its plain decode.
+    -qm 3 -n 100 and -ssim 1 -n 100: one K1 and one K2 launch per sweep;
+    each configuration also fitted in-process for 100 sweeps on the kernel
+    path, every sweep also taken by the plain path from the same state
+    (`stepped_from_kernel_path`), within TRAJ_RTOL; and the two paths run
+    free from the same init for 100 sweeps, their trajectories reported
+    (6-bit experts and quantized pis make them part)."""
+    from smoe_tpu_torch.fit.trainer import Smoe
+    from smoe_tpu_torch.io.images import read_image, write_image
+    from smoe_tpu_torch.kernels import gate_expert as ge
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        png = write_image(img, os.path.join(tmp, "img"), 2, yuv=True)
+        orig, _, _ = read_image(png)
+        widths = []
+        real_fwd = ge.gate_expert_fwd
+
+        # the wrapper takes the launch count while it stands in the module:
+        # the kernel's wrapper adds to the module's `gate_expert_fwd`
+        @functools.wraps(real_fwd)
+        def recording_fwd(phi, xe, q, *a, **kw):
+            widths.append(int(q.shape[0]))
+            return real_fwd(phi, xe, q, *a, **kw)
+
+        ge.gate_expert_fwd = recording_fwd
+        try:
+            smoe, out["inc"] = _fit_run(
+                png, os.path.join(tmp, "inc"),
+                ["-is", "2", "-ni", "50", "-na", "50", "-n", "100", "-qm",
+                 "1"], launches)
+        finally:
+            ge.gate_expert_fwd = real_fwd
+        out["inc"].update({"kernel_count": smoe.kernel_count,
+                           "capacity": smoe.cfg.capacity,
+                           "k1_widths": sorted(set(widths)),
+                           "num_pi_last": smoe.get_num_pis()[-1][1]})
+        reset_counts()
+        _, lsb, same = decode_vs_plain(os.path.join(tmp, "inc",
+                                                    "model_best.smoe"))
+        launches[0] += read_counts()[0]
+        out["inc"]["model_best_max_lsb"], out["inc"]["identical_share"] = \
+            lsb, same
+        for name, flags, cfg_kw in (
+                ("qm3", ["-qm", "3"], dict(quantization_mode=3)),
+                ("ssim", ["-ssim", "1"], dict(ssim_opt=True))):
+            _, out[name] = _fit_run(png, os.path.join(tmp, name),
+                                    flags + ["-n", "100"], launches)
+
+            def trainer(mode):
+                return Smoe(orig, kernels_per_dim=[16], use_yuv=True,
+                            quantize_pis=True, use_pallas=mode,
+                            device=DEVICE, **cfg_kw)
+
+            s_k, s_p = trainer(KERNEL_MODE), trainer("off")
+            s_k.set_optimizer()
+            s_p.set_optimizer()
+            reset_counts()
+            rel = stepped_from_kernel_path(s_k, s_p, 100)
+            n1, n2 = read_counts()
+            launches[0] += n1
+            launches[1] += n2
+            out[name]["stepped_k1_k2"] = [n1, n2]
+            out[name]["stepped_mse_max_rel"] = max(rel)
+            traj = {}
+            for path, mode in (("kernel", KERNEL_MODE), ("plain", "off")):
+                s = trainer(mode)
+                reset_counts()
+                traj[path] = s.run_batched_chunk(100)[1]
+                n1, n2 = read_counts()
+                launches[0] += n1
+                launches[1] += n2
+                del s
+            r = np.abs(traj["kernel"] - traj["plain"]) / traj["plain"]
+            out[name]["free_run_mse_max_rel"] = float(r.max())
+            out[name]["free_run_sweeps_within_tol"] = int(
+                np.argmax(r > TRAJ_RTOL)) if (r > TRAJ_RTOL).any() \
+                else int(r.size)
+            out[name]["free_run_mse_last_kernel_plain"] = [
+                float(traj["kernel"][-1]), float(traj["plain"][-1])]
+    print(f"fit CLI variants: {json.dumps(out)}", flush=True)
+    inc = out["inc"]
+    check(inc["kernel_count"] == 256 + 2 * 256 and inc["capacity"] == 1024,
+          f"inc: kernel_count {inc['kernel_count']}, capacity "
+          f"{inc['capacity']}")
+    check(inc["k1_widths"] and max(inc["k1_widths"]) <= 1024,
+          f"inc: K1 widths {inc['k1_widths']}")
+    check(inc["k1_k2"] == [300, 300], f"inc: K1 / K2 launched "
+          f"{inc['k1_k2']} times in 300 sweeps")
+    check(inc["model_best_max_lsb"] <= 1 and inc["identical_share"] >= 0.999,
+          f"inc model_best.smoe K1 vs plain: {inc['model_best_max_lsb']} "
+          "LSB")
+    for name in ("qm3", "ssim"):
+        m = out[name]
+        check(m["k1_k2"] == [100, 100], f"{name}: K1 / K2 launched "
+              f"{m['k1_k2']} times in 100 sweeps")
+        check(m["stepped_k1_k2"][1] == 100, f"{name}: the stepped run "
+              f"launched K2 {m['stepped_k1_k2'][1]} times in 100 sweeps")
+        check(m["stepped_mse_max_rel"] <= TRAJ_RTOL,
+              f"{name}: the kernel path's step off the plain path's by "
+              f"{m['stepped_mse_max_rel']:.2e}")
     return out
 
 
@@ -1102,9 +1535,10 @@ def main() -> int:
                         time_it=False)
     k2304 = compare_kernel("K2304 d2", 3840 * 17 + 5, 2304, 2, 3, 3, 3, thr,
                            floor, time_it=True)
-    smem_edge = compare_smem_edge(thr, floor)
+    large_k = compare_large_k(thr, floor)
     max_err = max(o["max_abs_err_res"]
-                  for o in (flagship, d4, k2304, smem_edge))
+                  for o in (flagship, d4, k2304, large_k["K16384 d2"],
+                            large_k["K60000 d2"]))
 
     # phase 4: K2 against plain at the same three shapes
     bwd = [compare_bwd("flagship 512^2 x K256 d2", 512 * 512, 256, 2, 3, 3,
@@ -1246,6 +1680,15 @@ def main() -> int:
     del s_k, s_p
     torch.cuda.empty_cache()
     trainer_1080p(load_1080p(), launches)
+    torch.cuda.empty_cache()
+
+    # phases 13-16: K1 past the one-segment limit, the LS solves, and the
+    # fit CLI (its headline recipe, the inc loop, QAT 3, SSIM)
+    big = large_k_decode(launches)
+    torch.cuda.empty_cache()
+    ls_phase(img)
+    fit_cli_recipe(img, launches)
+    fit_cli_variants(img, launches)
     check(all(n > 0 for n in launches),
           f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
           f"{launches[2]} times")
@@ -1262,14 +1705,24 @@ def main() -> int:
          "candidate_fraction": flagship["candidate_fraction"],
          "raster_ms": {k: v["k1"]["ms"] for k, v in raster.items()},
          "raster_candidate_fraction": {
-             k: v["k1"]["candidate_fraction"] for k, v in raster.items()}},
+             k: v["k1"]["candidate_fraction"] for k, v in raster.items()},
+         "k60000_ms": large_k["K60000 d2"]["ms"],
+         "k60000_bound_ms": large_k["K60000 d2"]["bound_ms"],
+         "k60000_candidate_fraction":
+             large_k["K60000 d2"]["candidate_fraction"],
+         "decode_1080p_k57600_ms": big["k1_ms"],
+         "decode_1080p_k57600_bound_ms": big["k1_bound_ms"],
+         "decode_1080p_k57600_candidate_fraction":
+             big["candidate_fraction"]},
         {"name": "gate_expert_bwd", "route": "cuda", "source": BWD_SRC,
          "replaces": BWD_REPLACES, "launches": launches[1],
          "max_abs_err": max_err_bwd, "max_rel_err": max_rel_bwd,
          "ms": bwd[0]["ms"], "plain_ms": bwd[0]["plain_ms"],
          "bound_ms": bwd[0]["bound_ms"], "bound_by": bwd[0]["bound_by"],
          "library_ms": None,
-         "raster_ms": {k: v["k2"]["ms"] for k, v in raster.items()}},
+         "raster_ms": {k: v["k2"]["ms"] for k, v in raster.items()},
+         "k60000_ms": large_k["K2 K60000 d2"]["ms"],
+         "k60000_bound_ms": large_k["K2 K60000 d2"]["bound_ms"]},
         {"name": "gate_expert_variants", "route": "cuda", "source": VAR_SRC,
          "replaces": VAR_REPLACES, "launches": launches[2],
          "max_abs_err": max_err_var, "max_rel_err": max_rel_var,

@@ -1,12 +1,16 @@
 """Quantization-aware training: TF-semantics fake-quant with a straight-
-through gradient (from smoe_tpu/core/quant.py:24-42, 79-96).
+through gradient, and the mode-2/3 parameter wrapping (from
+smoe_tpu/core/quant.py:24-136; reference smoe.py:473-538).
 
 Modes (reference smoe_test.py:298-301):
   0: none
   1: post-hoc quantize/rescale each validation (codec/quantize.py)
-  2, 3: in-graph fake-quant of every parameter group — not ported yet
-     (ROADMAP.md Queue 1 item 9); `apply_qat` raises for them.
-  `quantize_pis` fake-quantizes the pis in any mode.
+  2: in-graph fake-quant with FIXED bounds per group
+  3: in-graph fake-quant with bounds derived from the active (pis > 0)
+     kernels
+  pis are always fake-quantized for modes >= 2 (smoe_test.py:36-37), and
+  `quantize_pis` fake-quantizes them in any mode.  The motion rows of the
+  video fit (quant.py:126-135) wait for the video slice.
 """
 
 from __future__ import annotations
@@ -44,18 +48,65 @@ def fake_quant(x: torch.Tensor, min_val, max_val, bits: int) -> torch.Tensor:
     return clamped + (q - clamped).detach()
 
 
+def _masked_min_max(x: torch.Tensor, mask: torch.Tensor):
+    """min / max of x over the rows where mask holds, detached
+    (quant.py:45-76): the bounds carry no gradient, a documented deviation
+    of the JAX package from the reference.  With no row active the
+    sentinel bounds come back inverted (+big, -big) and collapse to the
+    degenerate range [0, 0], which fake_quant passes through."""
+    big = 3.4e38
+    m = mask.reshape((-1,) + (1,) * (x.ndim - 1))
+    x = x.detach()
+    mn = torch.min(torch.where(m, x, torch.full_like(x, big)))
+    mx = torch.max(torch.where(m, x, torch.full_like(x, -big)))
+    empty = mn > mx
+    zero = torch.zeros_like(mn)
+    return torch.where(empty, zero, mn), torch.where(empty, zero, mx)
+
+
 def apply_qat(params: SmoeParams, cfg: SmoeConfig) -> SmoeParams:
     """The effective (fake-quantized) params the forward pass sees
-    (quant.py:79-96).  Modes 0 and 1 leave every group as it is, apart
+    (quant.py:79-136).  Modes 0 and 1 leave every group as it is, apart
     from the pis under `quantize_pis`."""
-    qm = cfg.quantization_mode
-    if qm >= 2:
-        raise NotImplementedError(
-            f"quantization_mode {qm} (in-graph QAT) is not ported yet "
-            "(ROADMAP.md Queue 1 item 9)")
-    if not cfg.quantize_pis:
-        return params
     lb, ub, bd = cfg.lower_bounds, cfg.upper_bounds, cfg.bit_depths
-    return dataclasses.replace(
-        params, pis=fake_quant(params.pis, lb[3], ub[3], bd[3]))
+    qm = cfg.quantization_mode
+    pis = params.pis
+    if qm >= 2 or cfg.quantize_pis:
+        pis = fake_quant(pis, lb[3], ub[3], bd[3])
+    if qm < 2:
+        return params if pis is params.pis else dataclasses.replace(
+            params, pis=pis)
+    if params.motion is not None:
+        raise NotImplementedError(
+            "in-graph QAT of the video motion rows is not ported yet "
+            "(ROADMAP.md Queue 1 item 10)")
+
+    if qm == 2:
+        a_diag = fake_quant(params.a_diag, lb[0], ub[0], bd[0])
+        a_corr = fake_quant(params.a_corr, lb[0], ub[0], bd[0])
+        musX = fake_quant(params.musX, lb[1], ub[1], bd[1])
+        nu_e = fake_quant(params.nu_e, lb[2], ub[2], bd[2])
+        gamma_e = fake_quant(params.gamma_e, lb[4], ub[4], bd[4])
+    elif qm == 3:
+        active = pis > 0
+        diag_vals = params.a_diag if cfg.radial_as else torch.diagonal(
+            params.a_diag, dim1=1, dim2=2)
+        mn, mx = _masked_min_max(diag_vals, active)
+        # shift-to-zero trick (reference smoe.py:497-511)
+        a_diag = fake_quant(params.a_diag - mn, 0.0, mx - mn, bd[0]) + mn
+        mn, mx = _masked_min_max(params.a_corr, active)
+        a_corr = fake_quant(params.a_corr, mn, mx, bd[0])
+        if cfg.train_musx:
+            mn, mx = _masked_min_max(params.musX, active)
+            musX = fake_quant(params.musX, mn, mx, bd[1])
+        else:
+            musX = params.musX
+        mn, mx = _masked_min_max(params.nu_e, active)
+        nu_e = fake_quant(params.nu_e - mn, 0.0, mx - mn, bd[2]) + mn
+        mn, mx = _masked_min_max(params.gamma_e, active)
+        gamma_e = fake_quant(params.gamma_e, mn, mx, bd[4])
+    else:
+        raise ValueError(f"unknown quantization mode {qm}")
+    return dataclasses.replace(params, pis=pis, a_diag=a_diag, a_corr=a_corr,
+                               musX=musX, nu_e=nu_e, gamma_e=gamma_e)
 

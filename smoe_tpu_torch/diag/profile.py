@@ -1,12 +1,14 @@
-"""Named wall-clock phases for the fit loop (from
-smoe_tpu/diag/profile.py:41-76).
+"""Tracing and named wall-clock phases for the fit loop (from
+smoe_tpu/diag/profile.py).
 
-`PhaseTimer` is what `Smoe.train()` uses.  It reads the host clock, so a
-phase that launches work on the card measures its enqueue plus whatever
-host syncs the phase makes (the trainer pulls its metrics once per chunk,
-which waits for the card).  The `torch.profiler` trace that would replace
-the JAX package's `trace` / `annotate` is not ported yet (ROADMAP.md
-Queue 1 item 7).
+  * `trace(log_dir)`: a context manager around `torch.profiler` (CPU and,
+    where there is a card, CUDA activity) that writes a Chrome trace of
+    everything inside, the counterpart of the JAX package's jax.profiler
+    trace (the fit CLI's --profile_dir);
+  * `PhaseTimer`: what `Smoe.train()` uses.  It reads the host clock, so a
+    phase that launches work on the card measures its enqueue plus
+    whatever host syncs the phase makes (the trainer pulls its metrics once
+    per chunk, which waits for the card).
 """
 
 from __future__ import annotations
@@ -15,6 +17,23 @@ import contextlib
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Profile the enclosed block with torch.profiler and write its Chrome
+    trace to log_dir/trace.json."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class PhaseTimer:

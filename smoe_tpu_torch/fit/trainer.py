@@ -14,11 +14,15 @@ The JAX package compiles a chunk into one XLA program; PyTorch runs
 eagerly, and the launches of a chunk are queued on the card without a
 host sync in between.
 
+Beside Adam, the fit can re-solve the experts in closed form
+(`ls_init_experts`, `train(ls_refresh_iter=N)`; fit/lsinit.py), train on
+the SSIM loss (`ssim_opt`), fake-quantize in the graph (QAT modes 2 and 3)
+and insert kernels incrementally (`add_kernel_slots`, `reinit_inc`,
+`train_inc`, `apply_inc`; fit/incremental.py), as the JAX package does.
+
 Not ported yet, and raising NotImplementedError with their ROADMAP.md
-Queue 1 item: `mesh=` (14), `train_inc` and incremental slots (13),
-`sampling_percentage < 100` and `train_svs` (12), `ssim_opt` (8), video
-motion / dual model / `affines=` (10), `ls_init_experts` (6), in-graph QAT
-modes 2 and 3 (9).
+Queue 1 item: `mesh=` (14), `sampling_percentage < 100` and `train_svs`
+(12), video motion / dual model / `affines=` (10).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from smoe_tpu_torch.core.model import (ForwardOut, clip_unit,
 from smoe_tpu_torch.core.params import (SmoeParams, adam_state_from_numpy,
                                         assemble_A, params_from_numpy)
 from smoe_tpu_torch.core.quant import apply_qat
+from smoe_tpu_torch.core.ssim import ssim_loss
 from smoe_tpu_torch.diag.profile import PhaseTimer
 from smoe_tpu_torch.fit.blocks import (_block_view, build_blockset,
                                        initialize_kernel_lists, row_chunks,
@@ -133,20 +138,43 @@ def _with_reg(loss_pix: torch.Tensor, eff: EffParams, cfg: SmoeConfig,
         num_active
 
 
+def _pixel_term(res: torch.Tensor, targets: torch.Tensor, cfg: SmoeConfig,
+                loss_w: Optional[torch.Tensor], valid: Optional[torch.Tensor],
+                block_padded: Tuple[int, ...]):
+    """(the block's data term, its LossAux): the eps-insensitive loss, or
+    under ssim_opt 1 - SSIM of the block reshaped to its padded shape with
+    the overlap cropped, beside the mse of pixel_loss without loss weights
+    (trainer.py:213-229, 774-786)."""
+    if not cfg.ssim_opt:
+        la = L.pixel_loss(res, targets, cfg, loss_w, valid)
+        return la.loss_pixel, la
+    c = targets.shape[-1]
+    res_img = res.reshape(tuple(block_padded) + (c,))
+    tgt_img = targets.reshape(tuple(block_padded) + (c,))
+    ov = cfg.overlap
+    if ov > 0:
+        sl = tuple(slice(ov, n - ov) for n in block_padded)
+        res_img, tgt_img = res_img[sl], tgt_img[sl]
+    loss_pix = ssim_loss(res_img, tgt_img, cfg.use_yuv, ndim=cfg.dim_domain)
+    return loss_pix, L.pixel_loss(res, targets, cfg, None, valid)
+
+
 def _block_loss(params: SmoeParams, cfg: SmoeConfig, coords: torch.Tensor,
                 targets: torch.Tensor, kernel_mask: torch.Tensor,
                 valid: Optional[torch.Tensor],
                 loss_w: Optional[torch.Tensor], reg: RegWeights,
-                musX_grid: Optional[torch.Tensor], fused: bool = False,
+                musX_grid: Optional[torch.Tensor],
+                block_padded: Tuple[int, ...], fused: bool = False,
                 k_cap: Optional[int] = None):
     """Loss of one block, differentiable in the raw params (trainer.py:
-    186-250 without the SSIM and SV branches).
+    186-250 without the SV branch).
     Returns (loss, (mse, survivors, err_map, num_active))."""
     eff = effective_params(params, cfg, musX_grid)
     out = _forward_eff(eff, cfg, coords, kernel_mask, fused=fused,
                        k_cap=k_cap)
-    la = L.pixel_loss(out.res, targets, cfg, loss_w, valid)
-    loss, num_active = _with_reg(la.loss_pixel, eff, cfg, kernel_mask, reg)
+    loss_pix, la = _pixel_term(out.res, targets, cfg, loss_w, valid,
+                               block_padded)
+    loss, num_active = _with_reg(loss_pix, eff, cfg, kernel_mask, reg)
     return loss, (la.mse, out.survivors, la.err_map, num_active)
 
 
@@ -181,10 +209,7 @@ def _check_ported(cfg: SmoeConfig) -> None:
             (cfg.dim_domain == 3 and (cfg.train_trafo or cfg.num_frames > 0),
              "video motion", 10),
             (cfg.dual_model, "the dual-model video fit", 10),
-            (cfg.train_svs, "the SV residual (train_svs)", 12),
-            (cfg.ssim_opt, "the SSIM loss (ssim_opt)", 8),
-            (cfg.add_kernel_slots > 0, "incremental kernel slots", 13),
-            (cfg.quantization_mode >= 2, "in-graph QAT (modes 2, 3)", 9)):
+            (cfg.train_svs, "the SV residual (train_svs)", 12)):
         if flag:
             _not_ported(what, item)
 
@@ -303,6 +328,15 @@ class Smoe:
         self.rparams = None
         self.iter = int(iter_offset)
         self.kernel_count = cfg.start_pis
+        self.num_inc_kernels = cfg.start_pis if cfg.add_kernel_slots else 0
+        # the main rows; the last num_inc_kernels rows are the inc block,
+        # trained by the inc optimizer (trainer.py:388-396)
+        main = torch.ones((cfg.capacity,), dtype=torch.bool,
+                          device=self.device)
+        if self.num_inc_kernels:
+            main[cfg.capacity - self.num_inc_kernels:] = False
+        self._main_rows = main
+        self.inc_optimizer: Optional[torch.optim.Adam] = None
         self.phase_timer = PhaseTimer()
 
     # ---------------- parameters ----------------
@@ -346,40 +380,51 @@ class Smoe:
     # ---------------- optimizer ----------------
 
     def set_optimizer(self, opt_cfg: Optional[OptConfig] = None, **kw):
-        """(Re)build the optimizer with fresh state (trainer.py:1159-1169)."""
+        """(Re)build the main and the inc optimizer with fresh state
+        (trainer.py:1159-1169)."""
         if opt_cfg is None:
             opt_cfg = dataclasses.replace(self.opt_cfg, **kw) if kw \
                 else self.opt_cfg
         self.opt_cfg = opt_cfg
         self.optimizer = make_optimizer(self.params, self.cfg, opt_cfg)
+        self.inc_optimizer = make_optimizer(self.params, self.cfg, opt_cfg)
 
-    def _opt_params(self):
-        return [p for g in self.optimizer.param_groups for p in g["params"]]
+    def set_inc_optimizer(self, reset: bool = False):
+        """The inc rows' optimizer: the main rig's learning-rate groups with
+        state of its own (trainer.py:1171-1175, reference smoe_test.py:
+        93-97); reset=True starts it afresh (apply_inc)."""
+        if self.inc_optimizer is None or reset:
+            self.inc_optimizer = make_optimizer(self.params, self.cfg,
+                                                self.opt_cfg)
 
-    def adam_state_numpy(self) -> Optional[dict]:
-        """The optimizer's moments as numpy: {"count", "mu": {field: array},
-        "nu": {field: array}}, the form `adam_state_from_numpy` takes."""
-        if self.optimizer is None:
+    def adam_state_numpy(self, optimizer=None) -> Optional[dict]:
+        """An optimizer's moments as numpy (the main one by default):
+        {"count", "mu": {field: array}, "nu": {field: array}}, the form
+        `adam_state_from_numpy` takes."""
+        opt = self.optimizer if optimizer is None else optimizer
+        if opt is None:
             return None
         mu, nu, count = {}, {}, 0
-        for g in self.optimizer.param_groups:
+        for g in opt.param_groups:
             for f, p in zip(g["fields"], g["params"]):
-                st = self.optimizer.state.get(p)
+                st = opt.state.get(p)
                 if st:
                     mu[f] = st["exp_avg"].detach().cpu().numpy()
                     nu[f] = st["exp_avg_sq"].detach().cpu().numpy()
                     count = int(st["step"])
         return {"count": count, "mu": mu, "nu": nu}
 
-    def load_adam_state(self, state: Dict[str, dict]) -> None:
+    def load_adam_state(self, state: Dict[str, dict], inc: bool = False
+                        ) -> None:
         """Install per-field Adam state (from `adam_state_from_numpy`) for
-        the tensors the optimizer holds."""
+        the tensors the main (or, with inc=True, the inc) optimizer holds."""
         if self.optimizer is None:
             self.set_optimizer()
-        for g in self.optimizer.param_groups:
+        opt = self.inc_optimizer if inc else self.optimizer
+        for g in opt.param_groups:
             for f, p in zip(g["fields"], g["params"]):
                 if f in state:
-                    self.optimizer.state[p] = {
+                    opt.state[p] = {
                         k: v.to(p.device) if k != "step" else v
                         for k, v in state[f].items()}
 
@@ -457,24 +502,40 @@ class Smoe:
                 self.params, self.cfg, self.bset.coords[b],
                 self.bset.targets[b], lists[b], self._valid(b),
                 None if loss_w is None else loss_w[b], reg, self.musX_grid,
-                fused=self.fused, k_cap=k_cap)
+                self.bset.block_padded, fused=self.fused, k_cap=k_cap)
             loss.backward()
             loss_acc = loss_acc + bw * loss.detach()
             mse_acc = mse_acc + bw * mse.detach()
             survivors.append(surv)
         return loss_acc, mse_acc, torch.stack(survivors)
 
-    def _step(self) -> None:
+    def _step(self, train_orig: bool = True, train_inc: bool = False) -> None:
+        """One Adam step of the main optimizer on the main rows' gradients
+        and, with train_inc, one of the inc optimizer on the inc rows'
+        (trainer.py:602-617); without inc slots every row is a main row."""
         clip = self.opt_cfg.grad_clip_value_abs
+        params = [getattr(self.params, f) for f in PARAM_FIELDS]
         if clip is not None:
             # optax.clip: elementwise, before the Adam transform
-            for p in self._opt_params():
+            for p in params:
                 p.grad.clamp_(-clip, clip)
-        self.optimizer.step()
+        if not self.num_inc_kernels and not train_inc:
+            if train_orig:
+                self.optimizer.step()
+            return
+        grads = [p.grad for p in params]
+        for opt, rows, on in ((self.optimizer, self._main_rows, train_orig),
+                              (self.inc_optimizer, ~self._main_rows,
+                               train_inc)):
+            if not on:
+                continue
+            for p, g in zip(params, grads):
+                p.grad = g * rows.reshape((-1,) + (1,) * (g.ndim - 1))
+            opt.step()
+        for p, g in zip(params, grads):
+            p.grad = g
 
-    def _check_sweep(self, sampling_percentage, train_inc) -> None:
-        if train_inc:
-            _not_ported("train_inc (incremental kernels)", 13)
+    def _check_sweep(self, sampling_percentage) -> None:
         if sampling_percentage < 100:
             _not_ported("sampling_percentage < 100 (subsampling)", 12)
 
@@ -486,7 +547,7 @@ class Smoe:
         (trainer.py:1240-1294).  Returns per-step numpy arrays (loss, mse,
         num_pi, num_sv); each step's metrics describe the params before
         that step's update."""
-        self._check_sweep(sampling_percentage, train_inc)
+        self._check_sweep(sampling_percentage)
         if self.optimizer is None:
             self.set_optimizer()
         reg = RegWeights(float(pis_l1), float(u_l1), float(sv_l1_sub_l2))
@@ -502,12 +563,14 @@ class Smoe:
                 m = SweepMetrics(loss=loss, mse=mse, num_pi=torch.sum(
                     apply_qat(self.params, self.cfg).pis > 0), num_sv=zero,
                     survivors=survivors)
-                if train_orig:
-                    self._step()
+                if train_orig or train_inc:
+                    self._step(train_orig, train_inc)
                 lists = m.survivors
-                if self.cfg.in_graph_ukl:
+                if self.cfg.in_graph_ukl and not train_inc:
                     # survivors | probe-near under the updated params
-                    # (trainer.py:631-654)
+                    # (trainer.py:631-654); not while the inc rows train:
+                    # their pis are 0 until apply_inc, so a refresh would
+                    # drop them from every list and cut their gradients
                     eff = effective_params(self.params, self.cfg,
                                            self.musX_grid)
                     lists = update_kernel_lists(eff.A, eff.musX, eff.pis,
@@ -569,7 +632,8 @@ class Smoe:
                     _block_loss(self.params, self.cfg, self.bset.coords[b],
                                 self.bset.targets[b], lists[b],
                                 self._valid(b), None, reg, self.musX_grid,
-                                fused=self.fused, k_cap=kcap)
+                                self.bset.block_padded, fused=self.fused,
+                                k_cap=kcap)
 
         def fwd_bwd():
             for _ in range(n_steps):
@@ -615,10 +679,11 @@ class Smoe:
             else:
                 out = _forward_eff(eff, cfg, coords, kmask, fused=self.fused)
                 res, surv = out.res, out.survivors
-            la = L.pixel_loss(res, self.bset.targets[b], cfg,
-                              None if loss_w is None else loss_w[b],
-                              self._valid(b))
-            loss, _ = _with_reg(la.loss_pixel, eff, cfg, kmask, reg)
+            loss_pix, la = _pixel_term(
+                res, self.bset.targets[b], cfg,
+                None if loss_w is None else loss_w[b], self._valid(b),
+                self.bset.block_padded)
+            loss, _ = _with_reg(loss_pix, eff, cfg, kmask, reg)
             loss_acc = loss_acc + bw * loss
             mse_acc = mse_acc + bw * la.mse
             surv_l.append(surv)
@@ -719,8 +784,14 @@ class Smoe:
         return EffParams(A=t(A), musX=t(musX), nu_e=t(nu), gamma_e=t(gam),
                          pis=t(pis), motion=None)
 
-    def ls_init_experts(self, *a, **kw):
-        _not_ported("the least-squares expert init (ls_init_experts)", 6)
+    def ls_init_experts(self, mode: str = "auto", ridge: float = 1e-6,
+                        damp: float = 0.0, timings: Optional[dict] = None):
+        """Closed-form least-squares (re)fit of the expert surfaces under
+        the current gating (trainer.py:1722-1731, fit/lsinit.py).  Returns
+        the gated pixel mass."""
+        from smoe_tpu_torch.fit.lsinit import ls_refresh_experts
+        return ls_refresh_experts(self, mode=mode, ridge=ridge, damp=damp,
+                                  timings=timings)
 
     # ---------------- training loop ----------------
 
@@ -743,10 +814,10 @@ class Smoe:
         """Outer fit loop (trainer.py:1496-1652, reference smoe.py:
         1485-1603): initial eval, chunks of sweeps up to each validation /
         kernel-list boundary, kernel-list refresh, divergence guard,
-        best-loss snapshot, callbacks."""
-        if ls_refresh_iter:
-            _not_ported("ls_refresh_iter (least-squares expert refresh)", 6)
-        self._check_sweep(sampling_percentage, train_inc)
+        best-loss snapshot, callbacks.  ls_refresh_iter: every N iterations
+        re-solve the experts in closed form (mode "kernel", line-searched,
+        so the blend mse cannot rise)."""
+        self._check_sweep(sampling_percentage)
         if ukl_iter is None:
             ukl_iter = val_iter
         if grad_clip_value_abs is not None and \
@@ -785,6 +856,9 @@ class Smoe:
         while i < num_iter:
             boundary = min(((i // val_iter) + 1) * val_iter,
                            ((i // ukl_iter) + 1) * ukl_iter, num_iter)
+            if ls_refresh_iter:
+                boundary = min(boundary,
+                               ((i // ls_refresh_iter) + 1) * ls_refresh_iter)
             chunk = boundary - i
             try:
                 with self.phase_timer.phase("train_sweeps"):
@@ -812,6 +886,15 @@ class Smoe:
                     if not validate:
                         loss_val, mse_val, num_pi, num_sv = self.run_batched(
                             pis_l1, u_l1, train=False)
+
+                if ls_refresh_iter and i % ls_refresh_iter == 0:
+                    # before the validation, so the snapshot sees the
+                    # refreshed (non-regressing) experts
+                    self.ls_init_experts(mode="kernel")
+                    if not validate:
+                        loss_val, mse_val, num_pi, num_sv = self.run_batched(
+                            pis_l1, u_l1, train=False,
+                            use_loss_mask=use_loss_mask)
 
                 if validate:
                     if qm >= 1:
@@ -931,6 +1014,7 @@ class Smoe:
             "params": {f: getattr(self.params, f).detach().cpu().numpy()
                        for f in PARAM_FIELDS},
             "opt_state": self.adam_state_numpy(),
+            "inc_opt_state": self.adam_state_numpy(self.inc_optimizer),
             "iter": self.iter, "losses": self.losses, "mses": self.mses,
             "num_pis": self.num_pis, "best_loss": self.best_loss,
             "best_mse": self.best_mse, "best_params": self.best_params,
@@ -955,6 +1039,11 @@ class Smoe:
             self.set_optimizer()
             self.load_adam_state(adam_state_from_numpy(
                 opt["mu"], opt["nu"], opt["count"], device=self.device))
+        inc = state.get("inc_opt_state")
+        if inc is not None:
+            self.load_adam_state(adam_state_from_numpy(
+                inc["mu"], inc["nu"], inc["count"], device=self.device),
+                inc=True)
         self.iter = state["iter"]
         self.losses = state["losses"]
         self.mses = state["mses"]
@@ -983,3 +1072,56 @@ class Smoe:
         self.iter = 0
         self.losses, self.mses, self.num_pis, self.num_svs = [], [], [], []
         self.best_loss = self.best_mse = self.best_params = None
+
+    @torch.no_grad()
+    def re_normalize_pis(self):
+        """pis /= the sum of the listed, active pis, after a restore
+        (trainer.py:1837-1845, reference smoe.py:774-775)."""
+        pis = self.params.pis
+        mask = torch.any(self.kernel_lists, dim=0) & (pis > 0)
+        total = torch.sum(torch.where(mask, pis, torch.zeros_like(pis)))
+        pis.copy_(pis / torch.clamp(total, min=1e-30))
+
+    # ---------------- incremental kernels ----------------
+
+    @torch.no_grad()
+    def get_weight_matrix(self) -> np.ndarray:
+        """The full (K, *spatial) gating map on the plain path, computed on
+        demand (trainer.py:1733-1744)."""
+        eff = effective_params(self.params, self.cfg, self.musX_grid)
+        w = torch.stack([_forward_eff(eff, self.cfg, self.bset.coords[b],
+                                      self.kernel_lists[b]).w_e
+                         for b in range(self.start_batches)])
+        full = stitch_blocks(w, self.bset).cpu().numpy()
+        return np.moveaxis(full, -1, 0)
+
+    def reinit_nu_from_argmax(self, rows: Optional[np.ndarray] = None):
+        """nu_k <- mean image value over kernel k's argmax-gating region,
+        0.5 where a kernel never wins (trainer.py:1848-1871, reference
+        smoe.py:320-329).  `rows`: restrict the update to these rows."""
+        c = self.image.shape[-1]
+        cap = self.params.capacity
+        w = np.asarray(self.get_weight_matrix_argmax()).reshape(-1)
+        w = w.astype(np.int64)
+        imgf = self.image.reshape(-1, c).astype(np.float64)
+        sums = np.zeros((cap, c))
+        np.add.at(sums, w, imgf)
+        counts = np.bincount(w, minlength=cap).astype(np.float64)
+        means = np.divide(sums, counts[:, None], out=np.full((cap, c), 0.5),
+                          where=counts[:, None] > 0)
+        nu = self.params.nu_e.detach().cpu().numpy().copy()
+        if rows is None:
+            nu[:] = means
+        else:
+            nu[rows] = means[rows]
+        with torch.no_grad():
+            self.params.nu_e.copy_(torch.as_tensor(nu.astype(np.float32)))
+        self.valid = False
+
+    def reinit_inc(self, plot_dir=None, threshold_rel=0.2):
+        from smoe_tpu_torch.fit.incremental import reinit_inc as _reinit
+        _reinit(self, plot_dir=plot_dir, threshold_rel=threshold_rel)
+
+    def apply_inc(self):
+        from smoe_tpu_torch.fit.incremental import apply_inc as _apply
+        _apply(self)

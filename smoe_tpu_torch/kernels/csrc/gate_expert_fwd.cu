@@ -16,21 +16,29 @@
 // here, so N needs no padding.  q', G and pi_det are staged through shared
 // memory KC kernels at a time, q' rows padded to whole float4s.
 //
-//   Pass 1 sums the denominator over every kernel and records, per kernel,
-//   the CTA's largest n_w: each warp takes it with one redux.sync on the
-//   float bits (n_w > 0, so the unsigned order is the float order) into
-//   shared memory, and at the end of each chunk one thread per kernel
-//   folds the warps' maxima into s_cand[k] (K words of dynamic shared
-//   memory; no atomics).
-//   Then the CTA takes dmin = min of its valid pixels' denominators and
-//   compacts, in increasing k and in place, the kernels whose CTA max is
-//   not below cull_cut(thr, dmin).  Every other kernel has, for every pixel
-//   of the CTA, n_w < cull_cut(thr, dmin) <= cull_cut(thr, denom_n), so it
-//   is culled everywhere here (gate_expert_common.cuh: CULL_MARGIN).
-//   Pass 2 stages and visits those candidates only, in k order, recomputes
-//   n_w, skips the division where n_w < cull_cut(thr, denom_n) (certainly
-//   culled), and accumulates wg = w @ G in registers; res is formed from wg
-//   and xe at the end, the TPU kernel's order.
+//   Pass 1 sums the denominator over every kernel.  The kernels are then
+//   taken in segments of up to SEG, in increasing k; per segment, each
+//   kernel's largest n_w in the CTA is recorded: each warp takes it with one
+//   redux.sync on the float bits (n_w > 0, so the unsigned order is the float
+//   order) into shared memory, and at the end of each chunk one thread per
+//   kernel folds the warps' maxima into s_cand[k - s0] (SEG words of dynamic
+//   shared memory; no atomics).  The first segment's maxima are recorded
+//   during pass 1 itself, so a K <= SEG costs no extra pass; a later
+//   segment recomputes n_w for its kernels, the same roundings.
+//   Before the first segment the CTA takes dmin = min of its valid pixels'
+//   denominators; per segment it compacts, in increasing k and in place, the
+//   kernels whose CTA max is not below cull_cut(thr, dmin).  Every other
+//   kernel has, for every pixel of the CTA, n_w < cull_cut(thr, dmin) <=
+//   cull_cut(thr, denom_n), so it is culled everywhere here
+//   (gate_expert_common.cuh: CULL_MARGIN).
+//   Pass 2 stages and visits that segment's candidates only, in k order,
+//   recomputes n_w, skips the division where n_w < cull_cut(thr, denom_n)
+//   (certainly culled), and accumulates wg = w @ G in registers across the
+//   segments; res is formed from wg and xe at the end, the TPU kernel's
+//   order.  The candidate set and the order of the accumulation do not
+//   depend on SEG, so every K gives the bits a CTA holding all K maxima at
+//   once would (as K3 `full`, which keeps the loop of one pass over all K,
+//   matches bit for bit), and shared memory stays bounded for any K.
 //
 // A skipped pair added an exact zero and never raised a maximum in the loop
 // it replaces (gate_expert_variants.cu keeps that loop), so res and surv keep
@@ -72,6 +80,32 @@ using smoe::KC;
 using smoe::TPB;
 
 constexpr int NW = TPB / 32;    // warps per CTA
+// kernels per segment: SEG words of dynamic shared memory per CTA (32 KB);
+// a multiple of KC, so a segment is whole staging chunks
+constexpr int SEG = 8192;
+static_assert(SEG % KC == 0, "a segment is whole staging chunks");
+
+// Fold the warps' maxima of one staged chunk (s_wmax, (NW, KC)) into
+// dst[0, kc): one thread per kernel.
+__device__ __forceinline__ void fold_maxima(const unsigned* s_wmax,
+                                            unsigned* dst, int kc) {
+  for (int i = threadIdx.x; i < kc; i += TPB) {
+    unsigned m = s_wmax[i];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) m = max(m, s_wmax[w * KC + i]);
+    dst[i] = m;
+  }
+}
+
+// One warp's share of a CTA-wide max of n_w for the staged kernel kk.
+__device__ __forceinline__ void record_max(unsigned* s_wmax, float n_w,
+                                           bool valid, int lane, int warp,
+                                           int kk) {
+  // the loop over kk is uniform across the CTA, so every lane is here
+  const unsigned m = __reduce_max_sync(
+      smoe::FULL, valid && n_w > 0.f ? __float_as_uint(n_w) : 0u);
+  if (lane == 0) s_wmax[warp * KC + kk] = m;
+}
 
 template <int F, int E, int C>
 __global__ void __launch_bounds__(TPB)
@@ -89,12 +123,13 @@ gate_expert_fwd_kernel(const float* __restrict__ phi,     // (N, F)
   constexpr int FP = smoe::pad4(F);
   constexpr int GW = EC > NW ? EC : NW;
   __shared__ __align__(16) float s_q[KC * FP];
-  __shared__ float s_gw[KC * GW];    // pass 1: (NW, KC) warp maxima; pass 2: G
+  __shared__ float s_gw[KC * GW];    // maxima passes: (NW, KC); pass 2: G
   __shared__ float s_pi[KC];
   __shared__ unsigned s_surv[KC];
   __shared__ unsigned s_dmin[NW];
   __shared__ int s_ncand;
-  // (K,): the CTA's max n_w bits per kernel, then the candidate list
+  // (min(K, SEG),): a segment's CTA max n_w bits per kernel, then its
+  // candidate list (absolute kernel indices)
   extern __shared__ unsigned s_cand[];
   unsigned* s_wmax = reinterpret_cast<unsigned*>(s_gw);
   const int* cand = reinterpret_cast<const int*>(s_cand);
@@ -108,9 +143,25 @@ gate_expert_fwd_kernel(const float* __restrict__ phi,     // (N, F)
 #pragma unroll
   for (int j = 0; j < F; ++j) ph[j] = valid ? phi[(size_t)row * F + j] : 0.f;
 
-  // pass 1: the gating denominator and each kernel's largest n_w in the CTA
+  // pass 1: the gating denominator, with the first segment's maxima, then
+  // (past SEG kernels) the rest of the denominator: one FMA chain in k order
+  const int seg0 = min(k, SEG);
   float denom = 0.f;
-  for (int k0 = 0; k0 < k; k0 += KC) {
+  for (int k0 = 0; k0 < seg0; k0 += KC) {
+    const int kc = min(KC, seg0 - k0);
+    __syncthreads();
+    smoe::stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
+    for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
+    __syncthreads();
+    for (int kk = 0; kk < kc; ++kk) {
+      const float e = expf(fminf(smoe::dot_padded<F>(ph, s_q + kk * FP), 0.f));
+      denom = fmaf(e, s_pi[kk], denom);
+      record_max(s_wmax, __fmul_rn(e, s_pi[kk]), valid, lane, warp, kk);
+    }
+    __syncthreads();
+    fold_maxima(s_wmax, s_cand + k0, kc);
+  }
+  for (int k0 = seg0; k0 < k; k0 += KC) {
     const int kc = min(KC, k - k0);
     __syncthreads();
     smoe::stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
@@ -119,92 +170,110 @@ gate_expert_fwd_kernel(const float* __restrict__ phi,     // (N, F)
     for (int kk = 0; kk < kc; ++kk) {
       const float e = expf(fminf(smoe::dot_padded<F>(ph, s_q + kk * FP), 0.f));
       denom = fmaf(e, s_pi[kk], denom);
-      const float n_w = __fmul_rn(e, s_pi[kk]);
-      // the loop over kk is uniform across the CTA, so every lane is here
-      const unsigned m = __reduce_max_sync(
-          FULL, valid && n_w > 0.f ? __float_as_uint(n_w) : 0u);
-      if (lane == 0) s_wmax[warp * KC + kk] = m;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kc; i += TPB) {
-      unsigned m = s_wmax[i];
-#pragma unroll
-      for (int w = 1; w < NW; ++w) m = max(m, s_wmax[w * KC + i]);
-      s_cand[k0 + i] = m;
     }
   }
   denom = fmaxf(floor_, denom);
   if (valid && den_out) den_out[row] = denom;
 
-  // the candidates: kernels that may survive at some pixel of the CTA
-  // (denom >= floor_ > 0, so the unsigned order of the bits is the float
-  // order)
+  // the CTA's least denominator (denom >= floor_ > 0, so the unsigned order
+  // of the bits is the float order); warp 0 compacts with its cut
   const unsigned db = __reduce_min_sync(
       FULL, valid ? __float_as_uint(denom) : 0xffffffffu);
   if (lane == 0) s_dmin[warp] = db;
   __syncthreads();
+  float cta_cut = 0.f;
   if (warp == 0) {
     const unsigned dm =
         __reduce_min_sync(FULL, lane < NW ? s_dmin[lane] : 0xffffffffu);
-    const float cut = smoe::cull_cut(thr, __uint_as_float(dm));
-    int count = 0;
-    for (int base = 0; base < k; base += 32) {
-      const int kk = base + lane;
-      const bool keep = kk < k && !(__uint_as_float(s_cand[kk]) < cut);
-      const unsigned bal = __ballot_sync(FULL, keep);
-      __syncwarp();
-      // in place: every write lands at or below an index this warp has read
-      if (keep) s_cand[count + __popc(bal & ((1u << lane) - 1u))] = kk;
-      count += __popc(bal);
-    }
-    if (lane == 0) s_ncand = count;
+    cta_cut = smoe::cull_cut(thr, __uint_as_float(dm));
   }
-  __syncthreads();
-  const int ncand = s_ncand;
-  if (stats && threadIdx.x == 0)
-    atomicAdd(&stats[0], (unsigned long long)ncand *
-                             (unsigned long long)min(TPB, n - blockIdx.x * TPB));
 
-  // pass 2: normalise, cull, mix the experts, track survivors
   const float cut = smoe::cull_cut(thr, denom);
+  const int rows = min(TPB, n - (int)blockIdx.x * TPB);
   float wg[EC];
 #pragma unroll
   for (int j = 0; j < EC; ++j) wg[j] = 0.f;
   unsigned kept = 0;
-  for (int c0 = 0; c0 < ncand; c0 += KC) {
-    const int kc = min(KC, ncand - c0);
-    __syncthreads();
-    smoe::stage_padded<F, TPB>(s_q, qs, c0, kc, cand);
-    for (int i = threadIdx.x; i < kc * EC; i += TPB) {
-      const int r = i / EC, j = i - r * EC;
-      s_gw[i] = G[(size_t)cand[c0 + r] * EC + j];
-    }
-    for (int i = threadIdx.x; i < kc; i += TPB) {
-      s_pi[i] = pi_det[cand[c0 + i]];
-      s_surv[i] = 0u;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kc; ++kk) {
-      const float n_w = __fmul_rn(
-          expf(fminf(smoe::dot_padded<F>(ph, s_q + kk * FP), 0.f)), s_pi[kk]);
-      float w = 0.f;
-      if (valid && !(n_w < cut)) {    // else certainly culled: no division
-        w = __fdiv_rn(n_w, denom);
-        if (!(w > thr)) w = 0.f;
+  for (int s0 = 0; s0 < k; s0 += SEG) {
+    const int sk = min(SEG, k - s0);
+    if (s0 > 0) {
+      // this segment's maxima, n_w recomputed as pass 1 computed it
+      for (int k0 = s0; k0 < s0 + sk; k0 += KC) {
+        const int kc = min(KC, s0 + sk - k0);
+        __syncthreads();
+        smoe::stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
+        for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
+        __syncthreads();
+        for (int kk = 0; kk < kc; ++kk) {
+          const float e =
+              expf(fminf(smoe::dot_padded<F>(ph, s_q + kk * FP), 0.f));
+          record_max(s_wmax, __fmul_rn(e, s_pi[kk]), valid, lane, warp, kk);
+        }
+        __syncthreads();
+        fold_maxima(s_wmax, s_cand + (k0 - s0), kc);
       }
-      const unsigned m = __reduce_max_sync(FULL, __float_as_uint(w));
-      if (lane == 0 && m) atomicMax(&s_surv[kk], m);
-      if (w > 0.f) {
-        // skipping culled pairs adds exact zeros only
-        const float* g = s_gw + kk * EC;
+    }
+    __syncthreads();
+    // the candidates: kernels of the segment that may survive at some
+    // pixel of the CTA
+    if (warp == 0) {
+      int count = 0;
+      for (int base = 0; base < sk; base += 32) {
+        const int kk = base + lane;
+        const bool keep = kk < sk && !(__uint_as_float(s_cand[kk]) < cta_cut);
+        const unsigned bal = __ballot_sync(FULL, keep);
+        __syncwarp();
+        // in place: every write lands at or below an index this warp has
+        // read
+        if (keep)
+          s_cand[count + __popc(bal & ((1u << lane) - 1u))] = s0 + kk;
+        count += __popc(bal);
+      }
+      if (lane == 0) s_ncand = count;
+    }
+    __syncthreads();
+    const int ncand = s_ncand;
+    if (stats && threadIdx.x == 0)
+      atomicAdd(&stats[0],
+                (unsigned long long)ncand * (unsigned long long)rows);
+
+    // pass 2: normalise, cull, mix the experts, track survivors
+    for (int c0 = 0; c0 < ncand; c0 += KC) {
+      const int kc = min(KC, ncand - c0);
+      __syncthreads();
+      smoe::stage_padded<F, TPB>(s_q, qs, c0, kc, cand);
+      for (int i = threadIdx.x; i < kc * EC; i += TPB) {
+        const int r = i / EC, j = i - r * EC;
+        s_gw[i] = G[(size_t)cand[c0 + r] * EC + j];
+      }
+      for (int i = threadIdx.x; i < kc; i += TPB) {
+        s_pi[i] = pi_det[cand[c0 + i]];
+        s_surv[i] = 0u;
+      }
+      __syncthreads();
+      for (int kk = 0; kk < kc; ++kk) {
+        const float n_w = __fmul_rn(
+            expf(fminf(smoe::dot_padded<F>(ph, s_q + kk * FP), 0.f)),
+            s_pi[kk]);
+        float w = 0.f;
+        if (valid && !(n_w < cut)) {    // else certainly culled: no division
+          w = __fdiv_rn(n_w, denom);
+          if (!(w > thr)) w = 0.f;
+        }
+        const unsigned m = __reduce_max_sync(FULL, __float_as_uint(w));
+        if (lane == 0 && m) atomicMax(&s_surv[kk], m);
+        if (w > 0.f) {
+          // skipping culled pairs adds exact zeros only
+          const float* g = s_gw + kk * EC;
 #pragma unroll
-        for (int j = 0; j < EC; ++j) wg[j] = fmaf(w, g[j], wg[j]);
-        ++kept;
+          for (int j = 0; j < EC; ++j) wg[j] = fmaf(w, g[j], wg[j]);
+          ++kept;
+        }
       }
+      __syncthreads();
+      for (int i = threadIdx.x; i < kc; i += TPB)
+        if (s_surv[i]) atomicMax(&surv[cand[c0 + i]], s_surv[i]);
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kc; i += TPB)
-      if (s_surv[i]) atomicMax(&surv[cand[c0 + i]], s_surv[i]);
   }
   if (stats) {
     const unsigned kw = __reduce_add_sync(FULL, kept);
@@ -224,30 +293,17 @@ gate_expert_fwd_kernel(const float* __restrict__ phi,     // (N, F)
   }
 }
 
-// A cudaError_t, or -limit (bytes) when K kernels need more shared memory per
-// block than the card has.
+// A cudaError_t.  The CTA keeps min(K, SEG) words in dynamic shared memory;
+// past the default 48 KB per block it needs the opt-in, set on every launch.
 template <int F, int E, int C>
 int launch(const float* phi, const float* xe, const float* qs, const float* G,
            const float* pi_det, float* res, float* surv, float* den_out,
            unsigned long long* stats, int n, int k, float thr, float floor_,
            cudaStream_t stream) {
-  // the CTA keeps one word per kernel in dynamic shared memory: past the
-  // card's limit per block it cannot run, and the caller gets -limit; past
-  // the default 48 KB it needs the opt-in, set on every launch
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, gate_expert_fwd_kernel<F, E, C>);
-  if (err != cudaSuccess) return err;
-  int dev = 0, limit = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return err;
-  const long long dyn = 4LL * k;
-  if ((long long)attr.sharedSizeBytes + dyn > limit) return -limit;
-  err = cudaFuncSetAttribute(gate_expert_fwd_kernel<F, E, C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dyn);
+  const int dyn = 4 * (k < SEG ? k : SEG);
+  cudaError_t err = cudaFuncSetAttribute(
+      gate_expert_fwd_kernel<F, E, C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return err;
   const int grid = (n + TPB - 1) / TPB;
   gate_expert_fwd_kernel<F, E, C><<<grid, TPB, (size_t)dyn, stream>>>(
@@ -273,11 +329,9 @@ int smoe_gate_expert_fwd_supported(int f, int e, int c) {
 }
 
 // res (N, C) and surv (K,) are written; surv must arrive zeroed.  den_out
-// (N,) and stats (2,) may be null.  Launches on `stream` and does not
-// synchronise.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a width this build lacks), or -limit, the
-// card's shared memory per block in bytes, when K needs more: the CTA keeps
-// 4 bytes per kernel there beside its static arrays.
+// (N,) and stats (2,) may be null.  Any K.  Launches on `stream` and does
+// not synchronise.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a width this build lacks).
 int smoe_gate_expert_fwd(const float* phi, const float* xe, const float* qs,
                          const float* G, const float* pi_det, float* res,
                          float* surv, float* den_out,

@@ -122,8 +122,7 @@ def gate_expert_fwd(phi, xe, q, G, pi_det, mask, thr: float, floor: float,
     receives each pixel's gating denominator max(floor, sum_k n_w), for
     `gate_expert_bwd`'s `denom`; stats, an int64 (2,) tensor to which the
     kernel adds (pairs its second pass visited, pairs that survived the
-    cull).  A K whose shared memory exceeds the card's limit per block
-    raises."""
+    cull).  Any K: the kernel takes the kernels in segments of 8192."""
     if phi.device.type == "cpu":
         if stats is not None or denom_out is not None:
             raise ValueError("gate_expert_fwd: denom_out and stats are the "
@@ -167,12 +166,6 @@ def gate_expert_fwd(phi, xe, q, G, pi_det, mask, thr: float, floor: float,
         None if denom_out is None else denom_out.data_ptr(),
         None if stats is None else stats.data_ptr(),
         n, f, e, c, k, thr, floor, stream)
-    if err < 0:
-        # the CTA keeps one word per kernel in shared memory
-        raise ValueError(
-            f"gate_expert_fwd: K={k} kernels need {4 * k} bytes of shared "
-            f"memory per block beside the CTA's static arrays, past the "
-            f"card's limit of {-err} bytes ({-err // 1024} KB)")
     if err:
         raise RuntimeError("gate_expert_fwd launch failed: "
                            + lib.smoe_cuda_error_string(err).decode())

@@ -131,15 +131,6 @@ def test_apply_qat_modes_0_and_1(qm, qpis):
                                       np.asarray(getattr(j, f)), err_msg=f)
 
 
-def test_apply_qat_modes_2_3_not_ported():
-    img = _img((12, 12, 3))
-    cfg = SmoeConfig(kernels_per_dim=(4, 4), quantization_mode=2)
-    p = params_from_numpy(init_params(img, JConfig(
-        kernels_per_dim=(4, 4))).to_numpy())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TQ.apply_qat(p, cfg)
-
-
 @pytest.mark.parametrize("desired,shape", [(1, (512, 512, 5)),
                                            (16, (1080, 1920, 5)),
                                            (5, (32, 48, 5)),

@@ -258,16 +258,13 @@ def test_phase_breakdown_on_cpu():
     assert ph["step"] > 0 and ph["fwd"] > 0 and ph["k_cap"] == 128.0
 
 
-@pytest.mark.parametrize("what", ["mesh", "affines", "train_svs", "ssim_opt",
-                                  "qm2", "train_inc", "sampling",
-                                  "ls_init", "ls_refresh", "bf16"])
+@pytest.mark.parametrize("what", ["mesh", "affines", "train_svs", "sampling",
+                                  "bf16"])
 def test_unported_options_raise(what):
     img = _toy(16)
     kw = {"mesh": dict(mesh=object()),
           "affines": dict(affines=np.zeros((4, 6), np.float32)),
-          "train_svs": dict(train_svs=True),
-          "ssim_opt": dict(ssim_opt=True),
-          "qm2": dict(quantization_mode=2)}.get(what)
+          "train_svs": dict(train_svs=True)}.get(what)
     if what == "bf16":
         with pytest.raises(ValueError, match="float32"):
             Smoe(img, kernels_per_dim=[2], device="cpu",
@@ -278,11 +275,8 @@ def test_unported_options_raise(what):
             Smoe(img, kernels_per_dim=[2], device="cpu", **kw)
         return
     s = Smoe(img, kernels_per_dim=[2], device="cpu")
-    call = {"train_inc": lambda: s.run_batched_chunk(1, train_inc=True),
-            "sampling": lambda: s.run_batched_chunk(
-                1, sampling_percentage=50),
-            "ls_init": lambda: s.ls_init_experts(),
-            "ls_refresh": lambda: s.train(2, ls_refresh_iter=1)}[what]
+    call = {"sampling": lambda: s.run_batched_chunk(
+        1, sampling_percentage=50)}[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
 
