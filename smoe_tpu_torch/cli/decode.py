@@ -13,7 +13,9 @@ On a CUDA device the `.smoe` decode runs the Hopper gate+expert kernel;
 the pickle decode runs the trainer's exact quantized eval (plain torch
 ops, as the JAX package keeps it outside its Pallas kernel).  With
 `--device cuda` (the default) and no GPU present it fails rather than
-carry on on the CPU.
+carry on on the CPU.  A video file (d = 3, with its motion rows and
+dual-model mask in the header) decodes to a raw I420 `output.yuv`; a
+pickle carries no motion, so video models decode from their `.smoe`.
 """
 
 from __future__ import annotations

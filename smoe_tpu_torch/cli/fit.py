@@ -5,19 +5,22 @@ Usage:
     python -m smoe_tpu_torch.cli.fit -i image.png -r results/ \
         [-n 10000 -k 12 ...] [--device cuda]
 
-The JAX CLI's 2D image path: the fit (K1 forward and K2 backward on the
-card), the least-squares expert init and refresh (-lsinit, -lsri), the
+The JAX CLI's image and video paths: the fit (K1 forward and K2 backward on
+the card), the least-squares expert init and refresh (-lsinit, -lsri), the
 incremental kernel loop (-is), the SSIM loss (-ssim), QAT modes 1-3
-(-qm), resume (-c, -orfc, -hpc, -cis), and the outputs: metrics.jsonl,
+(-qm), resume (-c, -orfc, -hpc, -cis); for a video (an .npz bundle of
+frames and per-frame affines) the motion-compensated dual-model fit and
+the per-time-slab reseed loop (-rsi); and the outputs: metrics.jsonl,
 params/ and reconstructions/ per validation, checkpoints/ every 100
 iterations, params_best.pkl / params_last.pkl and, with -qm != 0,
 model_last.smoe and model_best.smoe (the global best), which
 smoe_tpu_torch.cli.reconstruct and smoe_tpu_torch.cli.decode read.  With
 `--device cuda` (the default) and no GPU present it fails rather than
-carry on on the CPU.  The input is a PNG.
+carry on on the CPU.  The input is a PNG, or an .npz video bundle (cv2's
+containers need OpenCV's decoder: convert them to .npz).
 
 Not ported, raising NotImplementedError with their ROADMAP.md Queue 1
-item: video / light-field inputs (10, 11), SVs and subsampling (-tvs,
+item: light-field inputs (11), SVs and subsampling (-tvs,
 -svg, -sp < 100: 12), the multi-host flags (14), the loss and image plots
 and -lsrs (7).
 """
@@ -215,7 +218,7 @@ def main(args=None):
     from smoe_tpu_torch.fit.trainer import Smoe
     from smoe_tpu_torch.io.images import read_image, write_image
 
-    orig, precision, _ = read_image(args.image_path, args.use_yuv)
+    orig, precision, affines = read_image(args.image_path, args.use_yuv)
     use_yuv = args.use_yuv and orig.shape[-1] == 3
     init_params_dict = load_params(args.params_file) \
         if args.params_file else None
@@ -230,9 +233,19 @@ def main(args=None):
     kpd = args.kernels_per_dim
     if len(kpd) == 1:
         kpd = kpd * (orig.ndim - 1)
+    dim = orig.ndim - 1
+    if dim >= 3 and not args.in_graph_ukl:
+        # at d >= 3 the A learning rate sharpens kernels faster than
+        # host-cadence list refreshes heal (cli/fit.py:250-261)
+        print("WARNING: video/light-field fit without -iukl 1 — "
+              "host-cadence kernel lists measurably degrade DECODED "
+              "quality (list-drift pathology, see ROADMAP.md); "
+              "-iukl 1 is strongly recommended", flush=True)
+
     smoe = Smoe(
         orig, kernels_per_dim=kpd, init_params_dict=init_params_dict,
-        init_flag=args.init_flag, start_batches=args.batches,
+        affines=affines, init_flag=args.init_flag,
+        start_batches=args.batches,
         batch_size=tuple(args.batch_size) if args.batch_size else None,
         loss_mask=loss_mask,
         opt_cfg=OptConfig(base_lr=args.base_lr, lr_div=args.lr_div,
@@ -291,7 +304,8 @@ def main(args=None):
         print(f"LS expert init ({args.ls_init}): gated mass {mass:.1f}",
               flush=True)
 
-    # -lsri cadence per phase: the inc retrains drop it under -lsrip initial
+    # -lsri cadence per phase: the video reseed and inc retrains drop it
+    # under -lsrip initial
     lsri_first = args.ls_refresh_iter or None
     lsri_later = lsri_first if args.ls_refresh_phases == "all" else None
     callbacks = [ModelLogger(path=args.results_path).log,
@@ -309,6 +323,32 @@ def main(args=None):
                        sampling_percentage=args.sampling_percentage,
                        use_loss_mask=loss_mask is not None,
                        callbacks=callbacks, ls_refresh_iter=lsri_first)
+
+        # video: per-time-slab kernel reseeding and retrain, the pis
+        # learning rate x 10 for the refits (cli/fit.py:384-410, reference
+        # smoe_test.py:123-207)
+        if dim == 3 and affines is not None:
+            smoe.set_optimizer(OptConfig(
+                base_lr=args.base_lr, lr_div=args.lr_div / 10,
+                lr_mult=args.lr_mult, lr_mult_sv=args.lr_mult_sv))
+            for kk in range(kpd[2]):
+                try:
+                    smoe.reseed_time_slab(kk, rng=kk)
+                except ValueError as e:
+                    print(f"reseed stopped: {e}")
+                    break
+                if args.ls_init:
+                    # refit all experts under the post-reseed gating (the
+                    # reseeded slab's are sample-initialized); the exact
+                    # line search cannot regress the blend mse
+                    smoe.ls_init_experts(mode=args.ls_init)
+                its = args.reseed_iterations * (5 if kk == kpd[2] - 1 else 1)
+                # as in the reference, the retrains thread no loss mask
+                smoe.train(its, val_iter=args.validation_iterations,
+                           ukl_iter=args.update_kernel_list_iterations,
+                           pis_l1=args.l1reg, sv_l1_sub_l2=args.svreg,
+                           sampling_percentage=args.sampling_percentage,
+                           ls_refresh_iter=lsri_later, callbacks=callbacks)
 
     # incremental kernel loop (reference smoe_test.py:221-245)
     if args.inc_steps and (not args.hpc_mode or args.iterations == 0):
@@ -337,10 +377,12 @@ def _write_results(smoe, args, orig) -> None:
     """params_best.pkl (the global best across train phases) and
     params_last.pkl; with quantization also model_last.smoe and
     model_best.smoe (cli/fit.py:434-496)."""
+    from smoe_tpu_torch.codec.alloc import mask_numpy
     from smoe_tpu_torch.codec.container import save_model
     from smoe_tpu_torch.codec.quantize import quantize_params
     quant = args.quantization_mode != 0
     grid = None if smoe.musX_grid is None else smoe.musX_grid.cpu().numpy()
+    mask = mask_numpy(smoe)
     if quant and smoe.qparams is None:
         smoe.qparams = quantize_params(smoe.get_params(), smoe.cfg,
                                        musX_grid=grid)
@@ -349,23 +391,46 @@ def _write_results(smoe, args, orig) -> None:
         save_model(os.path.join(args.results_path, name), params, smoe.cfg,
                    qparams=smoe.qparams if quant else None,
                    losses=smoe.get_losses(), mses=smoe.get_mses(),
-                   num_pis=smoe.get_num_pis(), musX_grid=grid)
+                   num_pis=smoe.get_num_pis(), musX_grid=grid,
+                   model_mask=mask)
     if not quant:
         return
     n_pix = int(np.prod(orig.shape[:-1]))
     for name, params, qparams in (
-            ("model_last.smoe", None, smoe.qparams),
+            ("model_last.smoe", smoe.get_params(), smoe.qparams),
             ("model_best.smoe", smoe.get_global_best_params(), None)):
         bits = write_model(os.path.join(args.results_path, name), params,
-                           smoe.cfg, orig.shape, qparams=qparams)
+                           smoe.cfg, orig.shape, qparams=qparams,
+                           model_mask=mask)
         print(f"{name}: {bits} bits, bpp {bits / n_pix:.4f}")
 
 
-def write_model(path: str, params, cfg, image_shape, qparams=None) -> int:
+def video_extra(params, cfg, qparams, model_mask) -> dict:
+    """The video fields of a .smoe header (cli/fit.py:473-486): the motion
+    rows h11..h32 of the `params` snapshot (get_params applies their 8-bit
+    fake-quant), the motion model and frame count, and the dual model's
+    mask over the used kernels.  Empty for a model without motion."""
+    if params is None or "h11" not in params:
+        return {}
+    extra = {"motion": np.stack([np.asarray(params[r], np.float32) for r in
+                                 ("h11", "h12", "h13", "h21", "h22", "h23",
+                                  "h31", "h32")]).tolist(),
+             "num_params_model": int(cfg.num_params_model),
+             "num_frames": int(cfg.num_frames)}
+    if model_mask is not None:
+        used = np.asarray(qparams["used_kernels"], bool)
+        extra["model_mask"] = np.asarray(model_mask)[used].astype(
+            int).tolist()
+    return extra
+
+
+def write_model(path: str, params, cfg, image_shape, qparams=None,
+                model_mask=None) -> int:
     """The .smoe bitstream of `params` (a get_params() dict) for an image
-    of `image_shape` (H, W, C): `qparams`, or quantize_params(params, cfg)
-    without a grid, as the JAX CLI writes model_best.smoe.  Returns the
-    payload bits."""
+    or video of `image_shape` (*spatial, C): `qparams`, or
+    quantize_params(params, cfg) without a grid, as the JAX CLI writes
+    model_best.smoe; a video model's header carries `video_extra`.  Returns
+    the payload bits."""
     from smoe_tpu_torch.codec.bitstream import write_bitstream
     from smoe_tpu_torch.codec.quantize import quantize_params
     if qparams is None:
@@ -374,6 +439,7 @@ def write_model(path: str, params, cfg, image_shape, qparams=None) -> int:
              "dim_of_output": image_shape[-1], "use_yuv": cfg.use_yuv,
              "use_determinant": cfg.use_determinant,
              "train_gammas": cfg.train_gammas}
+    extra.update(video_extra(params, cfg, qparams, model_mask))
     return write_bitstream(path, qparams, cfg, extra=extra)
 
 

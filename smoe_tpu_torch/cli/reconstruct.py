@@ -11,8 +11,10 @@ With no allocation flag it runs the automatic encode (--auto-bd 0.05
 --prune 0).  Its quantized evals run on the trainer's exact plain path
 (torch ops); the .smoe it writes decodes through the Hopper kernel K1
 (smoe_tpu_torch.cli.decode).  With `--device cuda` (the default) and no
-GPU present it fails rather than carry on on the CPU.  The image is a PNG
-(d = 2); video and light-field inputs raise NotImplementedError.
+GPU present it fails rather than carry on on the CPU.  The input is a PNG
+(d = 2) or an .npz video bundle (d = 3; the output is a raw I420 .yuv, and
+the .smoe carries the motion rows and the dual model's mask); light-field
+inputs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -152,7 +154,8 @@ def main(args=None):
         raise SystemExit(f"--device {a.device}: no CUDA device is available "
                          "(pass --device cpu to encode on the CPU)")
 
-    from smoe_tpu_torch.codec.alloc import grid_numpy
+    from smoe_tpu_torch.cli.fit import video_extra
+    from smoe_tpu_torch.codec.alloc import grid_numpy, mask_numpy
     from smoe_tpu_torch.codec.container import load_model
     from smoe_tpu_torch.codec.quantize import quantize_params, rescaler
     from smoe_tpu_torch.fit.trainer import Smoe
@@ -240,10 +243,11 @@ def main(args=None):
                   "use_yuv": smoe.cfg.use_yuv,
                   "use_determinant": smoe.cfg.use_determinant,
                   "train_gammas": smoe.cfg.train_gammas}
-            # the video extras (motion, dual-model mask;
-            # smoe_tpu/cli/reconstruct.py:223-235) wait for video input
-            # (ROADMAP.md Queue 1 item 10): read_image and the trainer
-            # refuse video before this point
+            # video: ship the (8-bit fake-quantized) per-frame motion rows
+            # and the dual-model domain of the used kernels, so the .smoe
+            # decodes without the original (cli/reconstruct.py:223-235)
+            ex.update(video_extra(smoe.get_params(), smoe.cfg, qp,
+                                  mask_numpy(smoe)))
             return ex
 
         if a.prune is not None or a.prune_bpp is not None:

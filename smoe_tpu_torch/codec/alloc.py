@@ -40,6 +40,13 @@ def grid_numpy(smoe) -> Optional[np.ndarray]:
     return None if g is None else g.detach().cpu().numpy()
 
 
+def mask_numpy(smoe) -> Optional[np.ndarray]:
+    """The trainer's dual-model mask (a device tensor over the capacity) as
+    a numpy bool array, or None."""
+    m = getattr(smoe, "model_mask", None)
+    return None if m is None else m.detach().cpu().numpy().astype(bool)
+
+
 def _quantized_psnr(smoe, bit_depths: Tuple[int, ...]) -> float:
     """Decoded PSNR of the CURRENT params coded at bit_depths (real
     quantize -> rescale -> compiled dense eval; same path rd_curve and

@@ -43,7 +43,7 @@ def prune_search(smoe, tol_db=None, target_bits=None, extra_fn=None):
     used-kernel model_mask); bits are measured with the same header
     fields the final file will carry.
     """
-    from smoe_tpu_torch.codec.alloc import grid_numpy
+    from smoe_tpu_torch.codec.alloc import grid_numpy, mask_numpy
     from smoe_tpu_torch.codec.bitstream import (_bit_reversed_rank,
                                                 kernel_importance)
     from smoe_tpu_torch.codec.quantize import rescaler, subset_qparams
@@ -58,9 +58,9 @@ def prune_search(smoe, tol_db=None, target_bits=None, extra_fn=None):
     k = int(np.count_nonzero(used))
     musX_grid = grid_numpy(smoe)
     grid = None if musX_grid is None else musX_grid[used]
-    mm = getattr(smoe, "model_mask", None)
+    mm = mask_numpy(smoe)
     if mm is not None:
-        mm = np.asarray(mm, bool)[used]    # same slot indexing as the
+        mm = mm[used]                      # same slot indexing as the
         # dual-model extra in cli/reconstruct (capacity-length mask)
     imp = -np.asarray(kernel_importance(full, smoe.cfg, musX_grid=grid,
                                         model_mask=mm), np.float64)

@@ -11,8 +11,12 @@ decoder's op order (maha_from_A -> gating -> expert_regression); it
 materialises (chunk, K) maps and so runs in pixel chunks.  It is the
 parity reference the kernel path is checked against.
 
-Video motion, dual-model masks and multi-device meshes are not ported
-yet (ROADMAP.md, Queue 1) and raise NotImplementedError.
+A video model (d = 3 with `motion`) transforms the raster by its per-frame
+motion rows on every call, exactly as training does (video/motion.py); with
+a dual-model `model_mask` the kernel path runs K1 at the 2F = 26 dual-domain
+width and the reference path takes the plain maha on the same features.
+Multi-device meshes are not ported yet (ROADMAP.md, Queue 1) and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from smoe_tpu_torch.config import SmoeConfig
 from smoe_tpu_torch.core.model import (expert_regression, fake_quant_unit,
                                        forward_fused, gating, maha_from_A)
+from smoe_tpu_torch.video.motion import transform_coords
 
 
 def _round_up(x: int, m: int) -> int:
@@ -34,7 +39,7 @@ def _round_up(x: int, m: int) -> int:
 def _not_ported(what: str):
     raise NotImplementedError(
         f"{what} is not ported to smoe_tpu_torch yet (ROADMAP.md, Queue 1: "
-        f"video / multi-GPU decode); decode it with smoe_tpu")
+        f"multi-GPU decode); decode it with smoe_tpu")
 
 
 def pad_decoded_params(rp: dict, capacity: int, d: int, c: int) -> dict:
@@ -72,6 +77,10 @@ def make_decoder(img_shape: Tuple[int, ...], channels: int,
     `device`; the arguments may be numpy arrays or tensors (K <= capacity,
     see `pad_decoded_params`).
 
+    motion: (8, T) per-frame global-motion rows of a d = 3 video model: the
+    raster is motion-transformed on every call as in training.
+    model_mask: (<= capacity,) bool of a dual-model video (False kernels
+    gate on the raw raster), padded with True to the capacity.
     sample_points: per-dim 1D coordinate vectors in [0,1] overriding the
     native raster (gen_domain's linspace(0,1,n)) — the ROI/zoom/SR hook;
     the output raster is their outer product and img_shape is ignored.
@@ -82,8 +91,6 @@ def make_decoder(img_shape: Tuple[int, ...], channels: int,
     reference: evaluate with the plain torch ops in the JAX decoder's op
     order instead of the fused op (the parity reference).
     """
-    if motion is not None or model_mask is not None:
-        _not_ported("video motion / dual-model decode")
     if mesh is not None:
         _not_ported("multi-device decode")
     device = torch.device(device)
@@ -105,6 +112,13 @@ def make_decoder(img_shape: Tuple[int, ...], channels: int,
     coords = torch.stack(torch.meshgrid(
         *[torch.as_tensor(v, device=device) for v in axes], indexing="ij"),
         dim=-1).reshape(n, d)
+    motion_t = None if motion is None or d != 3 else torch.as_tensor(
+        np.asarray(motion, np.float32), device=device)
+    mm = None
+    if model_mask is not None and motion_t is not None:
+        m = np.ones((capacity,), bool)
+        m[:len(model_mask)] = np.asarray(model_mask, bool)
+        mm = torch.as_tensor(m, device=device)
     chunked = reference or device.type == "cpu"
     if not chunked:
         chunk_pixels = max(n, 1)
@@ -114,13 +128,19 @@ def make_decoder(img_shape: Tuple[int, ...], channels: int,
             max(1024, min(n, budget // (4 * max(capacity, 1)))), 256)
 
     def chunk_fn(c_blk, A, musX, nu_e, gamma_e, pis, mask):
+        c_in, c_raw, mk = c_blk, None, None
+        if motion_t is not None:
+            c_in = transform_coords(c_blk, motion_t, cfg.num_params_model,
+                                    cfg.num_frames)
+            if mm is not None:
+                c_raw, mk = c_blk, mm[:pis.shape[0]]
         if not reference:
-            return forward_fused(A, musX, nu_e, gamma_e, pis, cfg, c_blk,
-                                 mask).res
-        maha = maha_from_A(A, musX, cfg, c_blk)
+            return forward_fused(A, musX, nu_e, gamma_e, pis, cfg, c_in,
+                                 mask, coords_raw=c_raw, model_mask=mk).res
+        maha = maha_from_A(A, musX, cfg, c_in, c_raw, mk)
         w_e = gating(maha, pis, torch.diagonal(A, dim1=1, dim2=2), cfg,
                      mask)
-        res = expert_regression(w_e, c_blk, nu_e, gamma_e, cfg)
+        res = expert_regression(w_e, c_in, nu_e, gamma_e, cfg)
         return fake_quant_unit(torch.clamp(res, 0.0, 1.0), cfg.precision)
 
     @torch.no_grad()
@@ -237,13 +257,18 @@ def decode_bitstream(path: str, chunk_pixels: Optional[int] = None,
     window; roi composes with scale.  `frames=(t0,t1)` (video) and
     `views=((u0,u1),(v0,v1))` (4D light field) decode a frame or view
     range.  `layers=m` decodes the first m tiers of a layered bitstream;
-    `max_bytes=n` the largest prefix fitting n bytes.  Video motion,
-    dual-model files and `mesh=` are not ported yet and raise.
+    `max_bytes=n` the largest prefix fitting n bytes.  A video file's
+    `motion` rows and dual-model `model_mask` come from its header; a frame
+    range keeps the native t of its frames, so each pixel still finds its
+    own frame's motion.  `mesh=` is not ported yet and raises.
     """
     cfg, rp, header = read_model(path, layers=layers, max_bytes=max_bytes)
-    if header.get("motion") is not None or \
-            header.get("model_mask") is not None:
-        _not_ported("video motion / dual-model decode")
+    motion = header.get("motion")
+    if motion is not None:
+        motion = np.asarray(motion, np.float32)
+    model_mask = header.get("model_mask")
+    if model_mask is not None:
+        model_mask = np.asarray(model_mask, bool)
     img_shape = tuple(int(v) for v in np.ravel(header["shape_of_img"]))
     c, d = cfg.num_channels, cfg.dim_domain
     k = int(np.asarray(rp["pis"]).shape[0])
@@ -253,8 +278,9 @@ def decode_bitstream(path: str, chunk_pixels: Optional[int] = None,
                               or frames is not None or views is not None):
         sample_points = sample_grid(img_shape, scale, roi, frames, views)
     dec = make_decoder(out_shape or img_shape, c, cfg, max(k, 1),
-                       chunk_pixels, sample_points=sample_points,
-                       mesh=mesh, device=device, reference=reference)
+                       chunk_pixels, motion=motion, model_mask=model_mask,
+                       sample_points=sample_points, mesh=mesh, device=device,
+                       reference=reference)
     rec = dec(padded["A"], padded["musX"], padded["nu_e"],
               padded["gamma_e"], padded["pis"]).cpu().numpy()
     return (rec, header) if return_header else rec

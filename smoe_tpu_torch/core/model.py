@@ -14,6 +14,9 @@ Two paths, as in the JAX package:
   * `forward_fused` (model.py:250-342) — the same function through the
     fused gate+expert op (kernels/gate_expert.py), which on a CUDA tensor
     runs the hand-written Hopper kernels: K1 forward, K2 backward.
+Both take the dual-model video form (model.py:65-77): kernels whose
+`model_mask` is False see the raw pixels, the others the motion-transformed
+ones, through one product over the concatenated 2F-wide features.
 
 Numerics: every maha contraction is exact fp32.  The quadratic-feature
 form cancels A^2-scale terms, so TF32 (like the TPU's one-pass bf16)
@@ -71,6 +74,22 @@ def quadratic_features(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([outer, x, ones], dim=-1)
 
 
+def dual_domain_features(coords_t: torch.Tensor, coords_raw: torch.Tensor,
+                         q: torch.Tensor, model_mask: torch.Tensor):
+    """Concatenated features for the dual-model video mode (model.py:65-77):
+    the per-kernel domain select folded into the quadratic-feature product.
+
+    Returns (phi2 (N, 2F), q2 (K, 2F)) with
+        phi2 @ q2^T == where(model_mask, phi_t @ q^T, phi_raw @ q^T):
+    half of every q2 row is exact zeros.
+    """
+    phi2 = torch.cat([quadratic_features(coords_t),
+                      quadratic_features(coords_raw)], dim=-1)
+    mm = model_mask.to(q.dtype)[:, None]
+    q2 = torch.cat([q * mm, q * (1.0 - mm)], dim=-1)
+    return phi2, q2
+
+
 def det_diag(diag_A: torch.Tensor) -> torch.Tensor:
     """prod(diag A) per kernel, (K, d) -> (K,), as a chain of multiplies:
     the backward of torch.prod looks for zeros with `nonzero`, which waits
@@ -95,18 +114,27 @@ def kernel_quadratics(B: torch.Tensor, musX: torch.Tensor) -> torch.Tensor:
 
 
 def maha_from_A(A: torch.Tensor, musX: torch.Tensor, cfg: SmoeConfig,
-                coords: torch.Tensor) -> torch.Tensor:
+                coords: torch.Tensor,
+                coords_raw: Optional[torch.Tensor] = None,
+                model_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, K) Mahalanobis distances given the assembled steering factor A
-    (model.py:102-144; single domain — the dual-model video form waits for
-    the video slice).
+    (model.py:102-144).
 
     train_inverse_cov: maha = x^T A x (A already symmetrized);
     otherwise:         maha = x^T A A^T x, clamped at 0 (the quadratic-
     feature form can go slightly negative under f32 cancellation).
+
+    Dual-model video: kernels with model_mask False are evaluated on
+    `coords_raw` instead of the motion-transformed `coords`, through one
+    product over the concatenated features (`dual_domain_features`).
     """
     B = A if cfg.train_inverse_cov else _aat(A)
     q = kernel_quadratics(B, musX)
-    maha = _exact_matmul(quadratic_features(coords), q.T)
+    if coords_raw is not None and model_mask is not None:
+        phi, q = dual_domain_features(coords, coords_raw, q, model_mask)
+    else:
+        phi = quadratic_features(coords)
+    maha = _exact_matmul(phi, q.T)
     if not cfg.train_inverse_cov:
         maha = torch.maximum(maha, maha.new_zeros(()))
     return maha
@@ -186,10 +214,14 @@ def resolve_fused(use_pallas: str, device) -> bool:
 
 def fused_op_inputs(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
                     gamma_e: torch.Tensor, pis: torch.Tensor, cfg: SmoeConfig,
-                    coords: torch.Tensor, kernel_mask: torch.Tensor):
+                    coords: torch.Tensor, kernel_mask: torch.Tensor,
+                    coords_raw: Optional[torch.Tensor] = None,
+                    model_mask: Optional[torch.Tensor] = None):
     """The fused op's operands at full width, built as model.py:284-316
     builds them: (phi (N, F), xe (N, E), q (K, F), G (K, E*C) contiguous,
-    pi_det (K,) float, mask (K,) float, thr, floor)."""
+    pi_det (K,) float, mask (K,) float, thr, floor).  With coords_raw and
+    model_mask (dual-model video) phi and q are the 2F-wide dual-domain
+    features; xe and G stay on `coords`, the transformed domain."""
     B = A if cfg.train_inverse_cov else _aat(A)
     q = kernel_quadratics(B, musX)
 
@@ -204,7 +236,10 @@ def fused_op_inputs(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
         pi_det = torch.where(mask, pis, zero)
 
     k, d, c = gamma_e.shape
-    phi = quadratic_features(coords)
+    if coords_raw is not None and model_mask is not None:
+        phi, q = dual_domain_features(coords, coords_raw, q, model_mask)
+    else:
+        phi = quadratic_features(coords)
     ones = torch.ones((coords.shape[0], 1), dtype=coords.dtype,
                       device=coords.device)
     if cfg.train_gammas:
@@ -221,13 +256,19 @@ def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
                   gamma_e: torch.Tensor, pis: torch.Tensor, cfg: SmoeConfig,
                   coords: torch.Tensor, kernel_mask: torch.Tensor,
                   sv_add: Optional[torch.Tensor] = None,
-                  k_cap: Optional[int] = None) -> ForwardOut:
+                  k_cap: Optional[int] = None,
+                  coords_raw: Optional[torch.Tensor] = None,
+                  model_mask: Optional[torch.Tensor] = None) -> ForwardOut:
     """Forward through the fused gate+expert op (model.py:250-342): builds
     q, pi_det, phi, xe and G as model.py:284-316 does (`fused_op_inputs`)
     and calls `kernels.gate_expert.GateExpert`, whose backward is the K2
     kernel.  Gradients flow to A, musX, nu_e, gamma_e and pis; coords carry
-    none (the motion-compensated video path, where they would, is not
-    ported).
+    none, so a video fit with trainable motion (`train_trafo`) takes the
+    plain path, as in the JAX package (trainer.py:159-160).
+
+    coords_raw, model_mask: dual-model video.  coords are then the motion-
+    transformed pixels, coords_raw the raw ones, and the op sees 2F-wide
+    features (`dual_domain_features`; F = 13, so K1 and K2 run at 26).
 
     k_cap: width cap of the capped-dense mode (model.py:318-329): the
     caller guarantees every kernel list holds at most k_cap active kernels;
@@ -241,10 +282,12 @@ def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
 
     if coords.requires_grad:
         raise NotImplementedError(
-            "forward_fused gives coords no gradient (video train_trafo, "
-            "ROADMAP.md Queue 1 item 10)")
+            "forward_fused gives coords no gradient: a train_trafo video "
+            "fit takes the plain path (maha_from_A, gating, "
+            "expert_regression)")
     phi, xe, q, G, pi_det, mask, thr, floor = fused_op_inputs(
-        A, musX, nu_e, gamma_e, pis, cfg, coords, kernel_mask)
+        A, musX, nu_e, gamma_e, pis, cfg, coords, kernel_mask,
+        coords_raw=coords_raw, model_mask=model_mask)
     k = q.shape[0]
     if k_cap and k_cap < k:
         order = torch.argsort((mask == 0).to(torch.int32), stable=True)[:k_cap]
@@ -266,18 +309,21 @@ def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
 def smoe_forward(params: SmoeParams, cfg: SmoeConfig,
                  coords: torch.Tensor,
                  kernel_mask: Optional[torch.Tensor] = None,
+                 coords_raw: Optional[torch.Tensor] = None,
+                 model_mask: Optional[torch.Tensor] = None,
                  A_override: Optional[torch.Tensor] = None) -> ForwardOut:
     """Full plain forward pass on a flat pixel set (model.py:345-367).
 
-    coords: (N, d) in [0,1]^d.  kernel_mask: (K,) bool per-block kernel
-    list (defaults to all-on).  A_override: explicit (K, d, d) steering
-    factor (decode path).
+    coords: (N, d) in [0,1]^d (already motion-transformed if applicable;
+    coords_raw and model_mask route dual-model kernels).  kernel_mask:
+    (K,) bool per-block kernel list (defaults to all-on).  A_override:
+    explicit (K, d, d) steering factor (decode path).
     """
     if kernel_mask is None:
         kernel_mask = torch.ones((params.capacity,), dtype=torch.bool,
                                  device=params.pis.device)
     A = A_override if A_override is not None else assemble_A(params, cfg)
-    maha = maha_from_A(A, params.musX, cfg, coords)
+    maha = maha_from_A(A, params.musX, cfg, coords, coords_raw, model_mask)
     diag_A = torch.diagonal(A, dim1=1, dim2=2)
     w_e = gating(maha, params.pis, diag_A, cfg, kernel_mask)
     res = expert_regression(w_e, coords, params.nu_e, params.gamma_e, cfg)

@@ -9,8 +9,9 @@ Modes (reference smoe_test.py:298-301):
   3: in-graph fake-quant with bounds derived from the active (pis > 0)
      kernels
   pis are always fake-quantized for modes >= 2 (smoe_test.py:36-37), and
-  `quantize_pis` fake-quantizes them in any mode.  The motion rows of the
-  video fit (quant.py:126-135) wait for the video slice.
+  `quantize_pis` fake-quantizes them in any mode.  The motion rows of a
+  video fit are fake-quantized to 8 bits with per-row bounds for modes >= 2
+  (quant.py:130-135).
 """
 
 from __future__ import annotations
@@ -76,11 +77,6 @@ def apply_qat(params: SmoeParams, cfg: SmoeConfig) -> SmoeParams:
     if qm < 2:
         return params if pis is params.pis else dataclasses.replace(
             params, pis=pis)
-    if params.motion is not None:
-        raise NotImplementedError(
-            "in-graph QAT of the video motion rows is not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
-
     if qm == 2:
         a_diag = fake_quant(params.a_diag, lb[0], ub[0], bd[0])
         a_corr = fake_quant(params.a_corr, lb[0], ub[0], bd[0])
@@ -107,6 +103,15 @@ def apply_qat(params: SmoeParams, cfg: SmoeConfig) -> SmoeParams:
         gamma_e = fake_quant(params.gamma_e, mn, mx, bd[4])
     else:
         raise ValueError(f"unknown quantization mode {qm}")
-    return dataclasses.replace(params, pis=pis, a_diag=a_diag, a_corr=a_corr,
-                               musX=musX, nu_e=nu_e, gamma_e=gamma_e)
+    out = dataclasses.replace(params, pis=pis, a_diag=a_diag, a_corr=a_corr,
+                              musX=musX, nu_e=nu_e, gamma_e=gamma_e)
+    if params.motion is not None:
+        # 8-bit fake-quant of the motion rows with per-row bounds that carry
+        # no gradient (quant.py:130-135, reference smoe.py:588-641)
+        m = params.motion.detach()
+        mn = torch.amin(m, dim=1, keepdim=True)
+        mx = torch.amax(m, dim=1, keepdim=True)
+        out = dataclasses.replace(out, motion=fake_quant(
+            params.motion - mn, 0.0, mx - mn, 8) + mn)
+    return out
 

@@ -8,8 +8,9 @@ them through per-block feed dicts, smoe.py:18-35, 1643-1702).
 Kernel locality ("kernel lists", reference smoe.py:2244-2365) is a (B, K)
 bool tensor: block-center assignment at init, then corner/edge probing with
 maha < 800 plus the influence-culling survivors fed back after each sweep
-(reference smoe.py:1763-1766).  The motion-compensated probes and the
-dual-model routing of the JAX package wait for the video slice.
+(reference smoe.py:1763-1766).  For motion-compensated video the caller
+passes probes on the transformed block extent; dual-model kernels are
+routed to their own domain's probes by the model mask.
 """
 
 from __future__ import annotations
@@ -208,22 +209,36 @@ def probe_points(mins, maxs, grid: int = 3):
 def update_kernel_lists(A: torch.Tensor, musX: torch.Tensor,
                         pis: torch.Tensor, cfg: SmoeConfig, bset: BlockSet,
                         lists: torch.Tensor,
-                        probes: Optional[torch.Tensor] = None
+                        probes: Optional[torch.Tensor] = None,
+                        probes_raw: Optional[torch.Tensor] = None,
+                        model_mask: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """OR in all active kernels whose maha to any block probe point is below
     the threshold, or whose center lies inside the block's probe box
-    (blocks.py:246-289, reference smoe.py:2287-2365)."""
+    (blocks.py:246-289, reference smoe.py:2287-2365).
+
+    probes: override probe points (the motion-transformed block extent for
+    video, reference smoe.py:2292-2317); probes_raw + model_mask route the
+    dual model's raw-domain kernels (mask False) to the raw probes, for the
+    maha and for the center-inside test."""
     pr = bset.probes if probes is None else probes
     B, P, d = pr.shape
-    maha = maha_from_A(A, musX, cfg, pr.reshape(B * P, d))
+    maha = maha_from_A(
+        A, musX, cfg, pr.reshape(B * P, d),
+        coords_raw=None if probes_raw is None
+        else probes_raw.reshape(B * P, d), model_mask=model_mask)
     maha = maha.reshape(B, P, A.shape[0])
     thr = getattr(cfg, "probe_maha_threshold", MAHA_PROBE_THRESHOLD)
     near = torch.any(maha < thr, dim=1)                    # (B, K)
     # center-inside-block: a sharp kernel deep inside a block can read
     # maha > thr at every probe yet dominate its neighbourhood
-    lo = pr.amin(dim=1)                                    # (B, d)
-    hi = pr.amax(dim=1)
-    inside = torch.all((musX[None, :, :] >= lo[:, None, :])
-                       & (musX[None, :, :] <= hi[:, None, :]), dim=-1)
+    def _inside(box):
+        lo = box.amin(dim=1)                               # (B, d)
+        hi = box.amax(dim=1)
+        return torch.all((musX[None, :, :] >= lo[:, None, :])
+                         & (musX[None, :, :] <= hi[:, None, :]), dim=-1)
+    inside = _inside(pr)
+    if probes_raw is not None and model_mask is not None:
+        inside = torch.where(model_mask[None, :], inside, _inside(probes_raw))
     near = near | inside
     return lists | (near & (pis > 0)[None, :])

@@ -36,6 +36,7 @@ import torch
 
 from smoe_tpu_torch.config import SmoeConfig
 from smoe_tpu_torch.core.model import _exact_matmul, gating, maha_from_A
+from smoe_tpu_torch.video.motion import transform_coords
 from smoe_tpu_torch.fit.blocks import row_chunks
 
 # mass below which a kernel keeps its experts (no pixels to fit)
@@ -50,13 +51,15 @@ def _refuse_tf32(t: torch.Tensor) -> None:
 
 
 def _design_coords(eff, cfg: SmoeConfig, coords: torch.Tensor):
-    """(coords for the maha, coords for the experts) (lsinit.py:68-75).
-    The motion-transformed design of the video fit waits for its slice."""
+    """(coords for the maha, raw coords for the dual model's raw-domain
+    kernels, coords for the experts), as the trainer's forward routes them
+    (lsinit.py:68-75): a motion-compensated video fit gates and regresses on
+    the transformed coordinates."""
     if eff.motion is not None and cfg.dim_domain == 3:
-        raise NotImplementedError(
-            "the least-squares solve of a motion-compensated video fit is "
-            "not ported yet (ROADMAP.md Queue 1 item 10)")
-    return coords, coords
+        coords_t = transform_coords(coords, eff.motion, cfg.num_params_model,
+                                    cfg.num_frames)
+        return coords_t, coords, coords_t
+    return coords, None, coords
 
 
 def _row_weights(coords_all: torch.Tensor, valid, train_mask, loss_w):
@@ -74,7 +77,7 @@ def _row_weights(coords_all: torch.Tensor, valid, train_mask, loss_w):
 
 
 def _chunks(eff, cfg, coords_all, targets_all, klists, valid, train_mask,
-            loss_w, width: int):
+            loss_w, model_mask, width: int):
     """Yield (w_e (m, K), row weights (m,), expert coords (m, d), targets
     (m, C)) over every block in row chunks, as lsinit.py:95-110 forms
     them."""
@@ -87,8 +90,8 @@ def _chunks(eff, cfg, coords_all, targets_all, klists, valid, train_mask,
     for b in range(coords_all.shape[0]):
         for i in range(s):
             sl = slice(i * m, (i + 1) * m)
-            cin, cexp = _design_coords(eff, cfg, coords_all[b, sl])
-            maha = maha_from_A(eff.A, eff.musX, cfg, cin)
+            cin, craw, cexp = _design_coords(eff, cfg, coords_all[b, sl])
+            maha = maha_from_A(eff.A, eff.musX, cfg, cin, craw, model_mask)
             w_e = gating(maha, eff.pis, diag_A, cfg, klists[b])
             rw = valid[sl] * loss_w[b, sl] * train_mask[b, sl]
             yield w_e, rw, cexp, targets_all[b, sl]
@@ -96,7 +99,7 @@ def _chunks(eff, cfg, coords_all, targets_all, klists, valid, train_mask,
 
 @torch.no_grad()
 def _accumulate(eff, cfg: SmoeConfig, coords_all, targets_all, klists,
-                valid, train_mask, loss_w, coupled: bool):
+                valid, train_mask, loss_w, coupled: bool, model_mask=None):
     """One pass over the blocks, accumulating the weighted normal equations
     (lsinit.py:78-147).  Returns (G, b): 'kernel' mode G (K, p, p), b
     (K, p, C); 'coupled' mode G (K*p, K*p), b (K*p, C)."""
@@ -114,7 +117,7 @@ def _accumulate(eff, cfg: SmoeConfig, coords_all, targets_all, klists,
         bvec = torch.zeros((k, p, c), device=dev)
     for w_e, rw, cexp, targets in _chunks(
             eff, cfg, coords_all, targets_all, klists, valid, train_mask,
-            loss_w, k * p if coupled else k):
+            loss_w, model_mask, k * p if coupled else k):
         wv = w_e * rw[:, None]                                   # (m, K)
         phi = torch.cat([torch.ones_like(cexp[:, :1]), cexp], dim=1)
         if coupled:
@@ -259,7 +262,8 @@ def _solve_coupled(G, bvec, nu0, gam0, cfg: SmoeConfig, ridge: float,
 
 @torch.no_grad()
 def _line_search_t(eff, cfg: SmoeConfig, coords_all, targets_all, klists,
-                   valid, train_mask, loss_w, nu0, gam0, d_nu, d_gam):
+                   valid, train_mask, loss_w, nu0, gam0, d_nu, d_gam,
+                   model_mask=None):
     """Exact step along (d_nu, d_gam) for the blend objective
     sum_n rw_n ||yhat_n + t u_n - y_n||^2: t* = -<r,u>/<u,u>, clipped to
     [0, 1] (lsinit.py:304-362).  yhat uses the float (pre-QAT) experts,
@@ -269,7 +273,7 @@ def _line_search_t(eff, cfg: SmoeConfig, coords_all, targets_all, klists,
     ru = torch.zeros((), device=coords_all.device)
     for w_e, rw, cexp, targets in _chunks(
             eff, cfg, coords_all, targets_all, klists, valid, train_mask,
-            loss_w, int(eff.pis.shape[0])):
+            loss_w, model_mask, int(eff.pis.shape[0])):
         yhat = torch.einsum("nk,kc->nc", w_e, nu0) + \
             torch.einsum("nk,nd,kdc->nc", w_e, cexp, gam0)
         u = torch.einsum("nk,kc->nc", w_e, d_nu) + \
@@ -318,7 +322,7 @@ def ls_refresh_experts(smoe, mode: str = "auto", ridge: float = 1e-6,
     clock = _Clock(smoe.device, timings)
     G, bvec = _accumulate(eff, cfg, bset.coords, bset.targets,
                           smoe.kernel_lists, bset.valid, bset.train_mask, lw,
-                          coupled)
+                          coupled, model_mask=smoe.model_mask)
     clock.lap("accumulate")
     nu0 = smoe.params.nu_e.detach()
     gam0 = smoe.params.gamma_e.detach()
@@ -330,7 +334,8 @@ def ls_refresh_experts(smoe, mode: str = "auto", ridge: float = 1e-6,
         # blend mse: never regresses
         t = _line_search_t(eff, cfg, bset.coords, bset.targets,
                            smoe.kernel_lists, bset.valid, bset.train_mask,
-                           lw, nu0, gam0, nu - nu0, gam - gam0)
+                           lw, nu0, gam0, nu - nu0, gam - gam0,
+                           model_mask=smoe.model_mask)
         nu = nu0 + t * (nu - nu0)
         gam = gam0 + t * (gam - gam0)
     clock.lap("line_search")

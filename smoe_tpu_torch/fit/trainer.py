@@ -20,9 +20,18 @@ the SSIM loss (`ssim_opt`), fake-quantize in the graph (QAT modes 2 and 3)
 and insert kernels incrementally (`add_kernel_slots`, `reinit_inc`,
 `train_inc`, `apply_inc`; fit/incremental.py), as the JAX package does.
 
+Video (d = 3): `Smoe(vid, affines=...)` places a motion-compensated kernel
+set on the t = -5 plane of the warped domain beside a disabled raw-domain
+set (the dual model, video/init_strategies.py); every forward transforms
+the pixels by the per-frame motion rows (video/motion.py) and the fused op
+runs at the dual-domain width 2F = 26.  `train_trafo=True` trains the
+motion rows (Adam group 5, frame 0 frozen) on the plain path, since the
+fused op gives coords no gradient.  `reseed_time_slab` activates spare
+raw-domain kernels where the error is.
+
 Not ported yet, and raising NotImplementedError with their ROADMAP.md
 Queue 1 item: `mesh=` (14), `sampling_percentage < 100` and `train_svs`
-(12), video motion / dual model / `affines=` (10).
+(12).
 """
 
 from __future__ import annotations
@@ -48,11 +57,15 @@ from smoe_tpu_torch.core.quant import apply_qat
 from smoe_tpu_torch.core.ssim import ssim_loss
 from smoe_tpu_torch.diag.profile import PhaseTimer
 from smoe_tpu_torch.fit.blocks import (_block_view, build_blockset,
-                                       initialize_kernel_lists, row_chunks,
-                                       stitch_blocks, update_kernel_lists)
+                                       initialize_kernel_lists, probe_points,
+                                       row_chunks, stitch_blocks,
+                                       update_kernel_lists)
+from smoe_tpu_torch.video.motion import transform_coords
 
-# the trained fields of SmoeParams (the video / SV fields are not ported)
+# the per-kernel fields of SmoeParams; a video fit also holds `motion`
+# (`Smoe._fields`); the SV fields are not ported
 PARAM_FIELDS = ("musX", "a_diag", "a_corr", "pis", "nu_e", "gamma_e")
+_MOTION_ROWS = ("h11", "h12", "h13", "h21", "h22", "h23", "h31", "h32")
 
 
 def _not_ported(what: str, item: int):
@@ -99,17 +112,30 @@ def effective_params(params: SmoeParams, cfg: SmoeConfig,
 def _forward_eff(eff: EffParams, cfg: SmoeConfig, coords: torch.Tensor,
                  kernel_mask: torch.Tensor, fused: bool = False,
                  sv_add: Optional[torch.Tensor] = None,
-                 k_cap: Optional[int] = None) -> ForwardOut:
+                 k_cap: Optional[int] = None,
+                 model_mask: Optional[torch.Tensor] = None) -> ForwardOut:
     """Forward from the effective view (trainer.py:127-179, without the
-    motion, dual-model and kernel-sharded branches).  fused: take the fused
-    op (capped to k_cap) where the config allows it."""
-    if eff.motion is not None:
-        _not_ported("the motion-compensated video forward", 10)
-    if fused and not cfg.train_inverse_cov:
+    kernel-sharded branch).  fused: take the fused op (capped to k_cap)
+    where the config allows it: not under train_inverse_cov, and not while
+    the motion rows train (the fused op gives coords no gradient).
+
+    A video model (eff.motion) gates and regresses on the motion-
+    transformed pixels; with a model mask (its presence is the dual-model
+    signal: a reloaded pickle carries the mask, not necessarily
+    cfg.dual_model) the mask's False kernels gate on the raw pixels."""
+    coords_raw = None
+    if eff.motion is not None and cfg.dim_domain == 3:
+        if model_mask is not None:
+            coords_raw = coords
+        coords = transform_coords(coords, eff.motion, cfg.num_params_model,
+                                  cfg.num_frames)
+    if fused and not cfg.train_inverse_cov and not (
+            eff.motion is not None and cfg.train_trafo):
         return forward_fused(eff.A, eff.musX, eff.nu_e, eff.gamma_e,
                              eff.pis, cfg, coords, kernel_mask,
-                             sv_add=sv_add, k_cap=k_cap)
-    maha = maha_from_A(eff.A, eff.musX, cfg, coords)
+                             sv_add=sv_add, k_cap=k_cap,
+                             coords_raw=coords_raw, model_mask=model_mask)
+    maha = maha_from_A(eff.A, eff.musX, cfg, coords, coords_raw, model_mask)
     diag_A = torch.diagonal(eff.A, dim1=1, dim2=2)
     w_e = gating(maha, eff.pis, diag_A, cfg, kernel_mask)
     res = expert_regression(w_e, coords, eff.nu_e, eff.gamma_e, cfg)
@@ -165,13 +191,14 @@ def _block_loss(params: SmoeParams, cfg: SmoeConfig, coords: torch.Tensor,
                 loss_w: Optional[torch.Tensor], reg: RegWeights,
                 musX_grid: Optional[torch.Tensor],
                 block_padded: Tuple[int, ...], fused: bool = False,
-                k_cap: Optional[int] = None):
+                k_cap: Optional[int] = None,
+                model_mask: Optional[torch.Tensor] = None):
     """Loss of one block, differentiable in the raw params (trainer.py:
     186-250 without the SV branch).
     Returns (loss, (mse, survivors, err_map, num_active))."""
     eff = effective_params(params, cfg, musX_grid)
     out = _forward_eff(eff, cfg, coords, kernel_mask, fused=fused,
-                       k_cap=k_cap)
+                       k_cap=k_cap, model_mask=model_mask)
     loss_pix, la = _pixel_term(out.res, targets, cfg, loss_w, valid,
                                block_padded)
     loss, num_active = _with_reg(loss_pix, eff, cfg, kernel_mask, reg)
@@ -179,13 +206,15 @@ def _block_loss(params: SmoeParams, cfg: SmoeConfig, coords: torch.Tensor,
 
 
 def make_optimizer(params: SmoeParams, cfg: SmoeConfig,
-                   opt_cfg: OptConfig) -> torch.optim.Adam:
+                   opt_cfg: OptConfig, inc: bool = False) -> torch.optim.Adam:
     """One torch.optim.Adam over the reference's learning-rate groups,
     counterpart of `make_tx` (trainer.py:253-286): {nu_e, gamma_e, musX}
     at base_lr, pis at base_lr / lr_div, A (a_diag, a_corr) at
-    base_lr * lr_mult.  A group optax sets to zero (disabled or lr 0) is
-    left out, so its tensors never move.  The gradient clip
-    (`grad_clip_value_abs`) is applied by the trainer before each step."""
+    base_lr * lr_mult, and under train_trafo the video motion rows at
+    base_lr (the main optimizer only, not the inc one).  A group optax sets
+    to zero (disabled or lr 0) is left out, so its tensors never move.  The
+    gradient clip (`grad_clip_value_abs`) is applied by the trainer before
+    each step."""
     oc = opt_cfg
     groups = []
     for name, fields, lr, enabled in (
@@ -193,7 +222,9 @@ def make_optimizer(params: SmoeParams, cfg: SmoeConfig,
             ("gamma", ("gamma_e",), oc.base_lr, cfg.train_gammas),
             ("musx", ("musX",), oc.base_lr, cfg.train_musx),
             ("pis", ("pis",), oc.base_lr / oc.lr_div, cfg.train_pis),
-            ("A", ("a_diag", "a_corr"), oc.base_lr * oc.lr_mult, True)):
+            ("A", ("a_diag", "a_corr"), oc.base_lr * oc.lr_mult, True),
+            ("motion", ("motion",), oc.base_lr,
+             cfg.train_trafo and not inc and params.motion is not None)):
         if enabled and lr != 0:
             groups.append({"params": [getattr(params, f) for f in fields],
                            "lr": lr, "name": name, "fields": fields})
@@ -205,13 +236,8 @@ def _check_ported(cfg: SmoeConfig) -> None:
     if cfg.compute_dtype != "float32":
         raise ValueError("compute_dtype must be 'float32': a bf16 maha is "
                          "a measured fault and is not ported")
-    for flag, what, item in (
-            (cfg.dim_domain == 3 and (cfg.train_trafo or cfg.num_frames > 0),
-             "video motion", 10),
-            (cfg.dual_model, "the dual-model video fit", 10),
-            (cfg.train_svs, "the SV residual (train_svs)", 12)):
-        if flag:
-            _not_ported(what, item)
+    if cfg.train_svs:
+        _not_ported("the SV residual (train_svs)", 12)
 
 
 class Smoe:
@@ -239,9 +265,6 @@ class Smoe:
         device="cpu" to fit on the CPU)."""
         if mesh is not None:
             _not_ported("multi-GPU training (mesh=)", 14)
-        if affines is not None or model_mask_init is not None:
-            _not_ported("the motion-compensated video init (affines=, "
-                        "model_mask_init=)", 10)
         image = np.asarray(image, np.float32)
         dim = image.ndim - 1
         if cfg is None:
@@ -253,6 +276,40 @@ class Smoe:
         if image.shape[-1] != 3 and cfg.use_yuv:
             cfg = cfg.replace(use_yuv=False)
         _check_ported(cfg)
+        if cfg.dim_domain == 3 and cfg.train_trafo and cfg.num_frames == 0:
+            cfg = cfg.replace(num_frames=image.shape[2])
+
+        # motion-compensated video init (trainer.py:981-1010): warp the
+        # domain by the per-frame affines, place the model-0 kernels by
+        # init_flag, concatenate the disabled raw-domain model-1 kernels
+        motion_init = None
+        if model_mask_init is not None:   # reload path (container pickle)
+            model_mask_init = np.asarray(model_mask_init, bool)
+            cfg = cfg.replace(dual_model=True)
+        self.num_2d_kernels = None
+        if cfg.dim_domain == 3 and affines is not None \
+                and init_params_dict is None:
+            from smoe_tpu_torch.core.init import (generate_experts,
+                                                  generate_kernel_grid,
+                                                  generate_pis)
+            from smoe_tpu_torch.video.init_strategies import (
+                dual_model_concat, motion_from_affines, video_kernel_init,
+                warp_domain)
+            affines = np.asarray(affines, np.float32)
+            cfg = cfg.replace(num_frames=image.shape[2], dual_model=True)
+            warped = warp_domain(image, affines, cfg.num_params_model)
+            m0 = video_kernel_init(image, warped, cfg.kernels_per_dim,
+                                   init_flag)
+            base = cfg.replace(dual_model=False, start_pis_override=0)
+            musX1, A1 = generate_kernel_grid(base)
+            nu1, g1 = generate_experts(image, musX1, base)
+            m1 = {"musX": musX1, "A": A1, "nu_e": nu1, "gamma_e": g1,
+                  "pis": generate_pis(musX1.shape[0], cfg.normalize_pis)}
+            init_params_dict, model_mask_init = dual_model_concat(m0, m1)
+            cfg = cfg.replace(
+                start_pis_override=int(init_params_dict["pis"].shape[0]))
+            motion_init = motion_from_affines(affines, image.shape)
+            self.num_2d_kernels = int(np.sum(init_params_dict["pis"] > 0))
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -287,7 +344,22 @@ class Smoe:
             rows = np.asarray(musX_grid_init, np.float32)
             g[:rows.shape[0]] = rows
             self.musX_grid = torch.as_tensor(g, device=self.device)
-        self._init_params(init_params_dict)
+        if motion_init is None and init_params_dict is not None \
+                and "h11" in init_params_dict and cfg.dim_domain == 3:
+            # reload path: the per-frame motion rows get_params saved
+            motion_init = np.stack([np.asarray(init_params_dict[r],
+                                               np.float32)
+                                    for r in _MOTION_ROWS])
+            if cfg.num_frames == 0:
+                cfg = cfg.replace(num_frames=motion_init.shape[1])
+                self.cfg = cfg
+        self._init_params(init_params_dict, motion_init=motion_init)
+        self.model_mask = None     # dual model: kernel -> domain (True: t)
+        if model_mask_init is not None:
+            pad_n = cfg.capacity - model_mask_init.shape[0]
+            self.model_mask = torch.as_tensor(np.concatenate(
+                [model_mask_init, np.ones((pad_n,), bool)]),
+                device=self.device)
 
         self.bset = build_blockset(image, cfg, cfg.block_shape,
                                    device=self.device)
@@ -342,21 +414,30 @@ class Smoe:
     # ---------------- parameters ----------------
 
     def _init_params(self, init: Optional[dict] = None,
-                     zero_diff: bool = False) -> None:
-        """Fresh leaf tensors from `init_params` (trainer.py:1038-1055).
+                     zero_diff: bool = False,
+                     motion_init: Optional[np.ndarray] = None) -> None:
+        """Fresh leaf tensors from `init_params` (trainer.py:1038-1070).
         Under use_diff_center the first call takes the grid from the init
         and trains offsets from zero; zero_diff (reinit) zeroes them
-        against the grid already held."""
+        against the grid already held.  A video fit also holds the (8, T)
+        motion rows: `motion_init`, else the identity `init_params` gives;
+        they are a leaf that trains only under train_trafo."""
         p = init_params(self.image, self.cfg, init)
         vals = {f: torch.as_tensor(np.array(getattr(p, f), np.float32),
                                    device=self.device) for f in PARAM_FIELDS}
+        motion = p.motion if motion_init is None else motion_init
+        self._fields = PARAM_FIELDS
+        if motion is not None:
+            vals["motion"] = torch.as_tensor(np.array(motion, np.float32),
+                                             device=self.device)
+            self._fields = PARAM_FIELDS + ("motion",)
         if self.cfg.use_diff_center and (self.musX_grid is None
                                          or zero_diff):
             if self.musX_grid is None:
                 self.musX_grid = vals["musX"]
             vals["musX"] = torch.zeros_like(vals["musX"])
-        for t in vals.values():
-            t.requires_grad_(True)
+        for f, t in vals.items():
+            t.requires_grad_(f != "motion" or self.cfg.train_trafo)
         self.params = SmoeParams(**vals)
 
     def set_params(self, params) -> None:
@@ -365,17 +446,27 @@ class Smoe:
         by the `get_params()` names, as `params_from_numpy` takes them."""
         new = params_from_numpy(params, device=self.device)
         with torch.no_grad():
-            for f in PARAM_FIELDS:
+            for f in self._fields:
                 v = getattr(new, f, None)
                 if v is not None:
                     getattr(self.params, f).copy_(v)
         self.valid = self.qvalid = False
 
     def _init_kernel_lists(self) -> None:
+        cfg = self.cfg
+        if self.model_mask is not None or (cfg.dim_domain == 3
+                                           and cfg.train_trafo):
+            # motion-compensated video starts with all-on lists (reference
+            # smoe.py:314-317): a raw-domain center assignment would be
+            # wrong for kernels on the t = -5 motion plane
+            self.kernel_lists = torch.ones(
+                (int(self.bset.coords.shape[0]), cfg.capacity),
+                dtype=torch.bool, device=self.device)
+            return
         with torch.no_grad():
-            eff0 = effective_params(self.params, self.cfg, self.musX_grid)
+            eff0 = effective_params(self.params, cfg, self.musX_grid)
             self.kernel_lists = initialize_kernel_lists(
-                eff0.A, eff0.musX, eff0.pis, self.cfg, self.bset)
+                eff0.A, eff0.musX, eff0.pis, cfg, self.bset)
 
     # ---------------- optimizer ----------------
 
@@ -387,7 +478,8 @@ class Smoe:
                 else self.opt_cfg
         self.opt_cfg = opt_cfg
         self.optimizer = make_optimizer(self.params, self.cfg, opt_cfg)
-        self.inc_optimizer = make_optimizer(self.params, self.cfg, opt_cfg)
+        self.inc_optimizer = make_optimizer(self.params, self.cfg, opt_cfg,
+                                            inc=True)
 
     def set_inc_optimizer(self, reset: bool = False):
         """The inc rows' optimizer: the main rig's learning-rate groups with
@@ -395,7 +487,7 @@ class Smoe:
         93-97); reset=True starts it afresh (apply_inc)."""
         if self.inc_optimizer is None or reset:
             self.inc_optimizer = make_optimizer(self.params, self.cfg,
-                                                self.opt_cfg)
+                                                self.opt_cfg, inc=True)
 
     def adam_state_numpy(self, optimizer=None) -> Optional[dict]:
         """An optimizer's moments as numpy (the main one by default):
@@ -427,6 +519,36 @@ class Smoe:
                     opt.state[p] = {
                         k: v.to(p.device) if k != "step" else v
                         for k, v in state[f].items()}
+
+    def load_state_numpy(self, params, model_mask=None, musX_grid=None,
+                         kernel_lists=None, num_2d_kernels=None,
+                         adam=None) -> None:
+        """Install a whole trainer state given as numpy, so that two
+        trainers (this package's, or the JAX package's `Smoe` through
+        `np.asarray` of its fields) continue from one state: the raw params
+        (a `SmoeParams` of arrays or a dict, with the motion rows as
+        `motion` or h11..h32), the dual model's mask (padded with True to
+        the capacity), the diff-center grid, the kernel lists, the count of
+        motion-plane kernels the reseeding starts after, and Adam's
+        moments as (mu, nu, count) with their motion leaf
+        (`adam_state_from_numpy`)."""
+        self.set_params(params)
+        if model_mask is not None:
+            mm = np.ones((self.cfg.capacity,), bool)
+            mm[:len(model_mask)] = np.asarray(model_mask, bool)
+            self.model_mask = torch.as_tensor(mm, device=self.device)
+        if musX_grid is not None:
+            self.musX_grid = torch.as_tensor(
+                np.array(musX_grid, np.float32), device=self.device)
+        if kernel_lists is not None:
+            self.kernel_lists = torch.as_tensor(
+                np.array(kernel_lists, bool), device=self.device)
+        if num_2d_kernels is not None:
+            self.num_2d_kernels = int(num_2d_kernels)
+        if adam is not None:
+            mu, nu, count = adam
+            self.load_adam_state(adam_state_from_numpy(
+                mu, nu, count, device=self.device))
 
     # ---------------- kernel lists and the capped width ----------------
 
@@ -487,8 +609,7 @@ class Smoe:
         optimizer holds takes its step (optax updates a leaf from momentum
         alone; torch.optim.Adam skips a tensor whose grad is None).
         Returns (loss, mse, survivors (B, K)) on the device."""
-        for f in PARAM_FIELDS:
-            p = getattr(self.params, f)
+        for p in self._trained():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             else:
@@ -502,7 +623,8 @@ class Smoe:
                 self.params, self.cfg, self.bset.coords[b],
                 self.bset.targets[b], lists[b], self._valid(b),
                 None if loss_w is None else loss_w[b], reg, self.musX_grid,
-                self.bset.block_padded, fused=self.fused, k_cap=k_cap)
+                self.bset.block_padded, fused=self.fused, k_cap=k_cap,
+                model_mask=self.model_mask)
             loss.backward()
             loss_acc = loss_acc + bw * loss.detach()
             mse_acc = mse_acc + bw * mse.detach()
@@ -517,8 +639,13 @@ class Smoe:
         params = [getattr(self.params, f) for f in PARAM_FIELDS]
         if clip is not None:
             # optax.clip: elementwise, before the Adam transform
-            for p in params:
+            for p in self._trained():
                 p.grad.clamp_(-clip, clip)
+        if self.cfg.train_trafo and self.params.motion is not None:
+            # frame 0 needs no transform: its column never moves
+            # (trainer.py:605-608, reference smoe.py:1155-1158).  The motion
+            # rows belong to the main optimizer alone, whole.
+            self.params.motion.grad[:, 0] = 0.0
         if not self.num_inc_kernels and not train_inc:
             if train_orig:
                 self.optimizer.step()
@@ -534,6 +661,31 @@ class Smoe:
             opt.step()
         for p, g in zip(params, grads):
             p.grad = g
+
+    def _trained(self):
+        """The leaf tensors that take gradients: the per-kernel fields and,
+        under train_trafo, the motion rows."""
+        return [p for p in (getattr(self.params, f) for f in self._fields)
+                if p.requires_grad]
+
+    def _probe_args(self, eff: EffParams) -> dict:
+        """update_kernel_lists' probe arguments: for motion-compensated
+        video the probe boxes are recomputed on the blocks' transformed
+        extent from the current motion rows (trainer.py:1449-1457, reference
+        smoe.py:2292-2317), and the dual model's raw-domain kernels are
+        probed against the raw boxes."""
+        if eff.motion is None or self.cfg.dim_domain != 3:
+            return {}
+        B, Nb, d = self.bset.coords.shape
+        tc = transform_coords(self.bset.coords.reshape(-1, d), eff.motion,
+                              self.cfg.num_params_model,
+                              self.cfg.num_frames).reshape(B, Nb, d)
+        probes = probe_points(tc.amin(dim=1), tc.amax(dim=1),
+                              grid=getattr(self.cfg, "probe_grid", 3))
+        if self.model_mask is None:
+            return {"probes": probes}
+        return {"probes": probes, "probes_raw": self.bset.probes,
+                "model_mask": self.model_mask}
 
     def _check_sweep(self, sampling_percentage) -> None:
         if sampling_percentage < 100:
@@ -574,7 +726,8 @@ class Smoe:
                     eff = effective_params(self.params, self.cfg,
                                            self.musX_grid)
                     lists = update_kernel_lists(eff.A, eff.musX, eff.pis,
-                                                self.cfg, self.bset, lists)
+                                                self.cfg, self.bset, lists,
+                                                **self._probe_args(eff))
                 kmax = torch.max(torch.sum(lists, dim=1))
                 rows.append(torch.stack([m.loss, m.mse, m.num_pi.float(),
                                          m.num_sv.float(), kmax.float()]))
@@ -633,7 +786,7 @@ class Smoe:
                                 self.bset.targets[b], lists[b],
                                 self._valid(b), None, reg, self.musX_grid,
                                 self.bset.block_padded, fused=self.fused,
-                                k_cap=kcap)
+                                k_cap=kcap, model_mask=self.model_mask)
 
         def fwd_bwd():
             for _ in range(n_steps):
@@ -670,14 +823,16 @@ class Smoe:
                 s = row_chunks(coords.shape[0], int(cfg.capacity))
                 m = coords.shape[0] // s
                 outs = [_forward_eff(eff, cfg, coords[i * m:(i + 1) * m],
-                                     kmask) for i in range(s)]
+                                     kmask, model_mask=self.model_mask)
+                        for i in range(s)]
                 res = torch.cat([o.res for o in outs])
                 surv = torch.stack([o.survivors for o in outs]).any(dim=0)
                 if with_rec:
                     wam_l.append(torch.cat([torch.argmax(o.w_e, dim=1)
                                             for o in outs]))
             else:
-                out = _forward_eff(eff, cfg, coords, kmask, fused=self.fused)
+                out = _forward_eff(eff, cfg, coords, kmask, fused=self.fused,
+                                   model_mask=self.model_mask)
                 res, surv = out.res, out.survivors
             loss_pix, la = _pixel_term(
                 res, self.bset.targets[b], cfg,
@@ -757,7 +912,8 @@ class Smoe:
         base = torch.zeros_like(self._kernel_lists) if replace \
             else self.kernel_lists
         self.kernel_lists = update_kernel_lists(
-            eff.A, eff.musX, eff.pis, self.cfg, self.bset, base)
+            eff.A, eff.musX, eff.pis, self.cfg, self.bset, base,
+            **self._probe_args(eff))
 
     def _eff_from_rparams(self) -> EffParams:
         """Scatter the dequantized params back into full-capacity slots
@@ -781,8 +937,10 @@ class Smoe:
         gam[idx] = rp["gamma_e"]
         pis[idx] = rp["pis"]
         t = lambda x: torch.as_tensor(x, device=self.device)  # noqa: E731
+        with torch.no_grad():
+            motion = apply_qat(self.params, self.cfg).motion
         return EffParams(A=t(A), musX=t(musX), nu_e=t(nu), gamma_e=t(gam),
-                         pis=t(pis), motion=None)
+                         pis=t(pis), motion=motion)
 
     def ls_init_experts(self, mode: str = "auto", ridge: float = 1e-6,
                         damp: float = 0.0, timings: Optional[dict] = None):
@@ -946,11 +1104,17 @@ class Smoe:
             dev = {"pis": eff.pis, "musX": eff.musX,
                    "A_diagonal": eff.a_diag, "A_corr": eff.a_corr,
                    "gamma_e": eff.gamma_e, "nu_e": eff.nu_e}
+            if eff.motion is not None:
+                dev["_motion"] = eff.motion
             flat = torch.cat([v.reshape(-1) for v in dev.values()]).cpu()
         out, i = {}, 0
         for name, v in dev.items():
             out[name] = flat[i:i + v.numel()].numpy().reshape(v.shape)
             i += v.numel()
+        m = out.pop("_motion", None)
+        if m is not None:
+            for j, name in enumerate(_MOTION_ROWS):
+                out[name] = m[j]
         return out
 
     def _snapshot_best(self, mse=None):
@@ -1012,7 +1176,7 @@ class Smoe:
         (trainer.py:1764-1786); no torch object is pickled."""
         state = {
             "params": {f: getattr(self.params, f).detach().cpu().numpy()
-                       for f in PARAM_FIELDS},
+                       for f in self._fields},
             "opt_state": self.adam_state_numpy(),
             "inc_opt_state": self.adam_state_numpy(self.inc_optimizer),
             "iter": self.iter, "losses": self.losses, "mses": self.mses,
@@ -1090,7 +1254,8 @@ class Smoe:
         demand (trainer.py:1733-1744)."""
         eff = effective_params(self.params, self.cfg, self.musX_grid)
         w = torch.stack([_forward_eff(eff, self.cfg, self.bset.coords[b],
-                                      self.kernel_lists[b]).w_e
+                                      self.kernel_lists[b],
+                                      model_mask=self.model_mask).w_e
                          for b in range(self.start_batches)])
         full = stitch_blocks(w, self.bset).cpu().numpy()
         return np.moveaxis(full, -1, 0)
@@ -1117,6 +1282,50 @@ class Smoe:
         with torch.no_grad():
             self.params.nu_e.copy_(torch.as_tensor(nu.astype(np.float32)))
         self.valid = False
+
+    def reseed_time_slab(self, kk: int, rng=None):
+        """Activate the kk-th time slab of spare (disabled) kernels at
+        error-proportional random pixel positions and re-init their experts
+        from the gating argmax (trainer.py:1871-1910; the video reseed loop
+        of reference smoe_test.py:123-207).  The draw is numpy's, as in the
+        JAX package, so a seed picks the same rows and positions in both.
+        Returns the activated row indices."""
+        cfg = self.cfg
+        if cfg.dim_domain != 3:
+            raise ValueError("time-slab reseeding is a video feature")
+        rng = np.random.default_rng(rng)
+        k2d = int(np.prod(cfg.kernels_per_dim[:2]))
+        shape = self.image.shape[:3]
+
+        rec = self.get_reconstruction().reshape(self.image.shape)
+        wts = [6 / 8, 1 / 8, 1 / 8] \
+            if (cfg.use_yuv and self.image.shape[-1] == 3) else None
+        diff = np.average(np.square(255.0 * (self.image - rec)), axis=-1,
+                          weights=wts) ** 2
+        p = diff.reshape(-1) / diff.sum()
+        idx = rng.choice(p.size, p=p, size=k2d, replace=False)
+        pos = np.unravel_index(idx, shape)
+        mus3 = np.stack([pos[i] / max(shape[i] - 1, 1) for i in range(3)],
+                        axis=1).astype(np.float32)
+
+        pis = self.params.pis.detach().cpu().numpy().copy()
+        if self.num_2d_kernels is None or kk == 0:
+            self.num_2d_kernels = int(np.sum(pis != 0))
+        lo = self.num_2d_kernels + kk * k2d
+        hi = min(lo + k2d, cfg.start_pis)
+        if hi <= lo:
+            raise ValueError("no spare kernel slots left for reseeding")
+        rows = np.arange(lo, hi)
+        musX = self.params.musX.detach().cpu().numpy().copy()
+        pis[rows] = 1.0
+        musX[rows] = mus3[:rows.size]
+        with torch.no_grad():
+            self.params.pis.copy_(torch.as_tensor(pis))
+            self.params.musX.copy_(torch.as_tensor(musX))
+        self.update_kernel_list()
+        self.valid = False
+        self.reinit_nu_from_argmax(rows=rows)
+        return rows
 
     def reinit_inc(self, plot_dir=None, threshold_rel=0.2):
         from smoe_tpu_torch.fit.incremental import reinit_inc as _reinit

@@ -1,5 +1,6 @@
-"""Image input and output of the port (from smoe_tpu/io/images.py:24-49,
-105-114 and 139-160; d == 2, PNG).
+"""Image and video input and output of the port (from
+smoe_tpu/io/images.py:24-49, 93-114 and 139-179; PNG images, `.npz` video
+bundles in, raw I420 `.yuv` video out).
 
 Written in numpy, zlib and struct alone, so it runs where OpenCV and PIL
 are absent:
@@ -14,8 +15,16 @@ are absent:
   * `yuv_to_bgr` is OpenCV's integer `COLOR_YUV2BGR` (color_yuv: 14-bit
     fixed-point coefficients 2.032 / -0.395 / -0.581 / 1.140, round half
     up by CV_DESCALE, saturating), so the PNG matches `cv2.cvtColor`;
-  * `write_png` writes an 8- or 16-bit grayscale or RGB PNG.
-Other image formats, video and light fields raise NotImplementedError.
+  * `write_png` writes an 8- or 16-bit grayscale or RGB PNG;
+  * a `.npz` bundle (`imgs` (T, H, W, C) uint8 RGB, `affines` (T, 2|3, 3))
+    is a video with its per-frame global-motion matrices; its YUV is
+    `bgr_to_yuv` of the flipped channels, which is cv2's `COLOR_RGB2YUV`;
+  * `bgr_to_i420` is OpenCV's `COLOR_BGR2YUV_I420` (BT.601 studio range,
+    20-bit fixed point, chroma taken from the top-left pixel of each 2 x 2
+    cell), so a `.yuv` file holds the bytes the JAX package writes.
+Other image formats, cv2's video containers (`.mp4`, `.avi`, ...: the
+card's machine has no OpenCV to decode them; convert to `.npz`) and light
+fields raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -160,9 +169,12 @@ def read_png(path: str) -> np.ndarray:
 
 def read_image(path: str, use_yuv: bool = True
                ) -> Tuple[np.ndarray, int, Optional[np.ndarray]]:
-    """images.py:24-49, 105-114 for PNG: (float image in [0, 1] (H, W, C),
-    precision 8 or 16, affines None).  Gray auto-detect, alpha dropped,
-    BGR -> YUV when use_yuv; uint16 scales by 1 / 2^16 as in JAX."""
+    """images.py:24-49, 93-114: (float image in [0, 1], precision 8 or 16,
+    affines or None).  A PNG gives (H, W, C): gray auto-detect, alpha
+    dropped, BGR -> YUV when use_yuv; uint16 scales by 1 / 2^16 as in JAX.
+    A `.npz` bundle gives a video (H, W, T, C) and its (T, 2|3, 3)
+    affines."""
+    affines = None
     p = path.lower()
     if p.endswith(".png"):
         orig = read_png(path)
@@ -185,10 +197,22 @@ def read_image(path: str, use_yuv: bool = True
     elif p.endswith(IMG_EXT):
         raise NotImplementedError(
             f"{path}: smoe_tpu_torch reads PNG images only; convert to PNG")
-    elif p.endswith(VID_EXT) or p.endswith(".npz"):
+    elif p.endswith(".npz"):
+        # a video bundle with its per-frame affines (images.py:93-101)
+        with np.load(path) as npz:
+            orig = np.moveaxis(npz["imgs"], 0, -2)       # (H, W, T, C)
+            affines = npz["affines"]
+        if use_yuv:
+            if orig.shape[-1] != 3:
+                raise ValueError(f"{path}: use_yuv needs RGB frames, got "
+                                 f"{orig.shape[-1]} channel(s)")
+            # cv2's COLOR_RGB2YUV is COLOR_BGR2YUV of the flipped channels
+            orig = bgr_to_yuv(np.ascontiguousarray(orig[..., ::-1]))
+    elif p.endswith(VID_EXT):
         raise NotImplementedError(
-            f"{path}: video input is not ported to smoe_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 10)")
+            f"{path}: smoe_tpu_torch reads video from .npz bundles only "
+            "(imgs (T, H, W, C) uint8 RGB + affines): decoding a container "
+            "needs OpenCV; convert it to .npz (ROADMAP.md Queue 1 item 10)")
     elif p.endswith(".mat"):
         raise NotImplementedError(
             f"{path}: light-field input is not ported to smoe_tpu_torch yet "
@@ -205,7 +229,7 @@ def read_image(path: str, use_yuv: bool = True
     else:
         orig = np.clip(orig.astype(np.float32), 0, 1)
         precision = 8
-    return orig, precision, None
+    return orig, precision, affines
 
 
 def yuv_to_bgr(yuv: np.ndarray) -> np.ndarray:
@@ -220,6 +244,34 @@ def yuv_to_bgr(yuv: np.ndarray) -> np.ndarray:
     g = y + ((u * _C_GU + v * _C_GV + half) >> _YUV_SHIFT)
     r = y + ((v * _C_RV + half) >> _YUV_SHIFT)
     return np.clip(np.stack([b, g, r], -1), 0, info.max).astype(yuv.dtype)
+
+
+# OpenCV's RGB -> YUV 4:2:0 coefficients (BT.601 studio range, x 2^20)
+_I420_SHIFT = 20
+_I_RY, _I_GY, _I_BY = 269484, 528482, 102760
+_I_RU, _I_GU, _I_BU = -155188, -305135, 460324
+_I_GV, _I_BV = -385875, -74448
+
+
+def bgr_to_i420(bgr: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 BGR, H and W even -> the (H * W * 3 / 2,) bytes of
+    one I420 frame (the Y plane, then U, then V at half size), bit-exact to
+    cv2.cvtColor(x, cv2.COLOR_BGR2YUV_I420): chroma comes from the top-left
+    pixel of each 2 x 2 cell, not from its mean."""
+    h, w = bgr.shape[:2]
+    if bgr.dtype != np.uint8 or h % 2 or w % 2:
+        raise ValueError(f"I420 needs uint8 frames of even size, got "
+                         f"{bgr.dtype} {bgr.shape}")
+    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
+    half = 1 << (_I420_SHIFT - 1)
+    y = (_I_RY * r + _I_GY * g + _I_BY * b + half
+         + (16 << _I420_SHIFT)) >> _I420_SHIFT
+    b, g, r = b[::2, ::2], g[::2, ::2], r[::2, ::2]
+    bias = half + (128 << _I420_SHIFT)
+    u = (_I_RU * r + _I_GU * g + _I_BU * b + bias) >> _I420_SHIFT
+    v = (_I_BU * r + _I_GV * g + _I_BV * b + bias) >> _I420_SHIFT
+    return np.concatenate([np.clip(p, 0, 255).astype(np.uint8).reshape(-1)
+                           for p in (y, u, v)])
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -254,17 +306,33 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 def write_image(img: np.ndarray, path: str, dim_domain: int,
                 yuv: bool = True, precision: int = 8) -> str:
-    """Write a reconstruction (images.py:139-160, reference
-    utils.py:136-162).  Returns the path actually written."""
-    if dim_domain != 2:
+    """Write a reconstruction (images.py:139-179, reference
+    utils.py:136-162): a PNG for d = 2, a raw I420 `.yuv` stream for a
+    video (H, W, T, C) of 8-bit precision.  Returns the path actually
+    written."""
+    if dim_domain not in (2, 3):
         raise NotImplementedError(
-            "smoe_tpu_torch writes images (d=2) only; video and light-field "
-            "output wait for those slices (ROADMAP.md, Queue 1)")
+            "smoe_tpu_torch writes images (d=2) and video (d=3); "
+            "light-field output is not ported yet (ROADMAP.md, Queue 1)")
     if precision == 8:
         out = np.uint8(np.round(img * 255))
     else:
         out = np.uint16(np.round(np.clip(img * 2 ** precision, 0,
                                          2 ** 16 - 1)))
+    if dim_domain == 3:
+        if precision != 8:
+            raise ValueError("the .yuv writer takes 8-bit video")
+        with open(path + ".yuv", "wb") as fd:
+            for t in range(out.shape[2]):
+                frame = out[:, :, t, :]
+                if frame.shape[-1] == 1:
+                    # grayscale: luma + neutral chroma (images.py:166-173)
+                    neutral = np.full_like(frame, 128)
+                    frame = np.concatenate([frame, neutral, neutral], -1)
+                elif not yuv:
+                    frame = bgr_to_yuv(np.ascontiguousarray(frame))
+                fd.write(bgr_to_i420(yuv_to_bgr(frame)).tobytes())
+        return path + ".yuv"
     if out.shape[-1] == 3:
         # the codec works in BGR->YUV (images.py:42-49); a PNG holds RGB
         bgr = yuv_to_bgr(out) if yuv else out

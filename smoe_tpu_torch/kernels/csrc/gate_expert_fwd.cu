@@ -66,7 +66,10 @@
 // row and only the kernels near it are candidates; on randomly ordered
 // pixels nearly every kernel is, and pass 2 costs what it did before.
 // Staged q'/G are read as shared-memory broadcasts (every thread of a warp
-// reads the same word), which costs no bank conflicts.
+// reads the same word), which costs no bank conflicts.  At F = 26 (the
+// dual-model video features) a thread holds a 26-float phi row: 80 registers
+// with 48 bytes of spills at E = 4, C = 3, and 43 KB of static shared memory
+// (s_q is 256 x 28 floats), under the 48 KB a static allocation may take.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -317,14 +320,18 @@ int launch(const float* phi, const float* xe, const float* qs, const float* G,
 #define SMOE_WIDTHS(X)                                                     \
   X(7, 3, 3) X(7, 1, 3) X(7, 3, 1) X(7, 1, 1)                              \
   X(13, 4, 3) X(13, 1, 3) X(13, 4, 1) X(13, 1, 1)                          \
-  X(21, 5, 3) X(21, 1, 3) X(21, 5, 1) X(21, 1, 1)
+  X(21, 5, 3) X(21, 1, 3) X(21, 5, 1) X(21, 1, 1)                          \
+  X(26, 4, 3) X(26, 1, 3) X(26, 4, 1) X(26, 1, 1)
 
 extern "C" {
 
 // Feature widths this build instantiates: d = 2, 3, 4 (F = d^2 + d + 1),
-// affine (E = d + 1) or constant (E = 1) experts, 1 or 3 channels.
+// and F = 26 = 2 * 13, the dual-model video features at d = 3 (the
+// transformed and the raw domain side by side, half of every q' row exact
+// zeros, which the FMA chain multiplies through: fmaf(x, 0, acc) is acc for
+// finite x); affine (E = d + 1) or constant (E = 1) experts, 1 or 3 channels.
 int smoe_gate_expert_fwd_supported(int f, int e, int c) {
-  const int d = f == 7 ? 2 : f == 13 ? 3 : f == 21 ? 4 : 0;
+  const int d = f == 7 ? 2 : (f == 13 || f == 26) ? 3 : f == 21 ? 4 : 0;
   return d && (e == 1 || e == d + 1) && (c == 1 || c == 3);
 }
 

@@ -153,7 +153,8 @@ def gate_expert_fwd(phi, xe, q, G, pi_det, mask, thr: float, floor: float,
     lib = _library()
     if not lib.smoe_gate_expert_fwd_supported(f, e, c):
         raise ValueError(f"gate_expert_fwd: no kernel instance for F={f}, "
-                         f"E={e}, C={c} (d = 2, 3, 4; C = 1 or 3)")
+                         f"E={e}, C={c} (d = 2, 3, 4 or the dual-model "
+                         "F = 26; C = 1 or 3)")
     # q' = -0.5 * mask * q: exact (power-of-two scale, 0/1 mask) and it
     # zeroes dead rows, so the kernel needs neither
     q_s = (q * (-0.5 * mask)[:, None]).contiguous()
@@ -264,7 +265,8 @@ def gate_expert_bwd(phi, xe, q_s, G, pi_det, g, thr: float, floor: float,
     lib = _bwd_library()
     if not lib.smoe_gate_expert_bwd_supported(f, e, c):
         raise ValueError(f"gate_expert_bwd: no kernel instance for F={f}, "
-                         f"E={e}, C={c} (d = 2, 3, 4; C = 1 or 3)")
+                         f"E={e}, C={c} (d = 2, 3, 4 or the dual-model "
+                         "F = 26; C = 1 or 3)")
     dq = torch.empty((k, f), dtype=torch.float32, device=dev)
     dG = torch.empty((k, ec), dtype=torch.float32, device=dev)
     dpi = torch.empty((k,), dtype=torch.float32, device=dev)

@@ -13,6 +13,7 @@ pytest.importorskip("torch")
 cv2 = pytest.importorskip("cv2")
 
 from smoe_tpu.io.images import read_image as jax_read_image  # noqa: E402
+from smoe_tpu.io.images import write_image as jax_write_image  # noqa: E402
 from smoe_tpu_torch.io import images as timg  # noqa: E402
 
 
@@ -150,8 +151,7 @@ def test_yuv_round_trip_through_write_image(tmp_path):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("clip.mp4", "item 10"), ("frames.npz", "item 10"),
-    ("lf.mat", "item 11"), ("photo.jpg", "PNG"), ("scan.tif", "PNG")])
+    ("clip.mp4", ".npz"), ("lf.mat", "item 11"), ("photo.jpg", "PNG"), ("scan.tif", "PNG")])
 def test_other_formats_raise(name, match):
     with pytest.raises(NotImplementedError, match=match):
         timg.read_image(name)
@@ -173,3 +173,65 @@ def test_unsupported_png_kinds_raise(tmp_path):
     open(path, "wb").write(bytes(bad))
     with pytest.raises(ValueError, match="CRC"):
         timg.read_png(path)
+
+
+# ---------------- video: .npz bundles in, raw I420 .yuv out ----------------
+
+@pytest.mark.parametrize("use_yuv", [True, False])
+def test_npz_bundle_read_matches_jax(tmp_path, use_yuv):
+    """A video bundle (frames + per-frame affines) reads to the JAX
+    reader's values exactly: (H, W, T, C) float, cv2's RGB -> YUV through
+    the port's BGR -> YUV on the flipped channels."""
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (4, 12, 20, 3), dtype=np.uint8)
+    aff = rng.normal(size=(4, 2, 3)).astype(np.float32)
+    path = str(tmp_path / "clip.npz")
+    np.savez(path, imgs=imgs, affines=aff)
+    ref, prec_j, aff_j = jax_read_image(path, use_yuv=use_yuv)
+    got, prec_t, aff_t = timg.read_image(path, use_yuv=use_yuv)
+    assert got.shape == (12, 20, 4, 3) and got.dtype == np.float32
+    assert prec_t == prec_j == 8
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(aff_t, aff_j)
+
+
+def test_npz_bundle_needs_rgb_for_yuv(tmp_path):
+    path = str(tmp_path / "gray.npz")
+    np.savez(path, imgs=np.zeros((2, 4, 4, 1), np.uint8),
+             affines=np.zeros((2, 2, 3), np.float32))
+    with pytest.raises(ValueError, match="RGB"):
+        timg.read_image(path, use_yuv=True)
+    got, _, _ = timg.read_image(path, use_yuv=False)
+    assert got.shape == (4, 4, 2, 1)
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (12, 20), (6, 10)])
+def test_bgr_to_i420_is_cv2_s(shape):
+    bgr = np.random.default_rng(sum(shape)).integers(
+        0, 256, shape + (3,), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        timg.bgr_to_i420(bgr),
+        cv2.cvtColor(bgr, cv2.COLOR_BGR2YUV_I420).reshape(-1))
+    with pytest.raises(ValueError, match="even"):
+        timg.bgr_to_i420(bgr[:-1])
+
+
+@pytest.mark.parametrize("c,yuv", [(3, True), (3, False), (1, True)])
+def test_yuv_video_bytes_match_jax(tmp_path, c, yuv):
+    """write_image(dim_domain=3): the raw I420 stream equals the JAX
+    writer's byte for byte, colour (YUV or BGR model) and grayscale
+    (neutral chroma), H * W * 3 / 2 bytes a frame."""
+    vid = np.random.default_rng(3).uniform(0, 1, (12, 20, 4, 3)) \
+        .astype(np.float32)[..., :c]
+    pa = jax_write_image(vid, str(tmp_path / "a"), 3, yuv=yuv)
+    pb = timg.write_image(vid, str(tmp_path / "b"), 3, yuv=yuv)
+    assert pb.endswith(".yuv")
+    with open(pa, "rb") as fa, open(pb, "rb") as fb:
+        a, b = fa.read(), fb.read()
+    assert len(b) == 12 * 20 * 3 // 2 * 4
+    assert a == b
+
+
+def test_lightfield_output_is_not_ported():
+    with pytest.raises(NotImplementedError, match="light-field"):
+        timg.write_image(np.zeros((2, 2, 4, 4, 3), np.float32), "x", 4)

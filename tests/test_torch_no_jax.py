@@ -114,6 +114,49 @@ shutil.rmtree(d)
     _run(extra)
 
 
+def test_video_path_runs_without_jax():
+    """The video entry points end to end on the CPU in a process where jax
+    is never loaded: an .npz bundle through cli.fit (the motion-compensated
+    dual-model fit and its reseed loop), cli.reconstruct (the .smoe with
+    its motion rows and mask, the .yuv) and cli.decode; a train_trafo fit;
+    the recorded dual-model file."""
+    extra = """
+import os, shutil, tempfile
+import numpy as np
+import chip_smoke
+from smoe_tpu_torch.cli import decode, fit, reconstruct
+from smoe_tpu_torch.codec.serve import decode_bitstream, read_model
+from smoe_tpu_torch.fit.trainer import Smoe
+vid, aff = chip_smoke.build_video(h=16, w=24, t=4)
+d = tempfile.mkdtemp()
+clip = os.path.join(d, "clip.npz")
+np.savez(clip, imgs=np.uint8(np.round(np.moveaxis(vid, 2, 0) * 255)),
+         affines=aff)
+s = fit.main(["-i", clip, "-r", os.path.join(d, "fit"), "-k", "3", "3", "2",
+              "-n", "4", "-v", "4", "-ri", "2", "-qm", "1", "-iukl", "1",
+              "--device", "cpu"])
+assert s.model_mask is not None and s.params.motion is not None
+assert s.get_num_pis()[-1][1] == 36
+rec = reconstruct.main(["-i", clip, "-p", os.path.join(d, "fit",
+                        "params_best.pkl"), "-r", os.path.join(d, "enc"),
+                        "--device", "cpu"])
+assert os.path.getsize(os.path.join(d, "enc", "output.yuv")) == 16 * 24 * 6
+_, _, header = read_model(os.path.join(d, "enc", "model.smoe"))
+assert header["motion"] is not None and header["model_mask"] is not None
+dec = decode.main(["-p", os.path.join(d, "enc", "model.smoe"), "-r",
+                   os.path.join(d, "dec"), "--device", "cpu"])
+assert dec.shape == vid.shape and np.abs(dec - rec).max() <= 1.01 / 255
+t = Smoe(vid, kernels_per_dim=[2, 2, 2], train_trafo=True, device="cpu")
+loss, mse, _, _ = t.run_batched_chunk(2)
+assert np.isfinite(mse).all()
+out = decode_bitstream("tests/data/video_cut.smoe", device="cpu",
+                       frames=(1, 2))
+assert out.shape == (144, 176, 1, 3) and np.isfinite(out).all()
+shutil.rmtree(d)
+"""
+    _run(extra)
+
+
 def test_chip_smoke_refuses_without_a_gpu():
     """chip_smoke.py measures the card or fails: without CUDA it exits
     non-zero and prints no result line."""

@@ -111,9 +111,9 @@ def test_qat_mode_0_1_unchanged_and_motion_raises():
     p = {f: torch.as_tensor(v) for f, v in _params().items()}
     params = SmoeParams(**p)
     assert tq.apply_qat(params, SmoeConfig(quantization_mode=1)) is params
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tq.apply_qat(dataclasses.replace(params, motion=torch.zeros(8, 3)),
-                     SmoeConfig(quantization_mode=3))
+    # modes 0 and 1 leave the motion rows of a video model as they are
+    video = dataclasses.replace(params, motion=torch.rand(8, 3))
+    assert tq.apply_qat(video, SmoeConfig(quantization_mode=1)) is video
 
 
 def _ssim_pair(shape, ndim, use_yuv, seed):

@@ -154,15 +154,38 @@ def test_video_d3_frames_match_jax(tmp_path):
                           j_decode(path, **kw))
 
 
-def test_motion_video_is_refused(fitted, tmp_path):
-    from smoe_tpu_torch.codec.bitstream import read_bitstream
-    qp, header = read_bitstream(fitted["flat"])
+def test_motion_video_decodes_like_jax(tmp_path):
+    """A d = 3 file whose header carries motion rows (no dual-model mask):
+    the raster is motion-transformed per call as the JAX decoder does,
+    for the whole clip, a frame range and a window, on the kernel path's
+    CPU version and the reference path (1 LSB)."""
+    rng = np.random.default_rng(11)
+    vid = rng.uniform(0, 1, (12, 10, 4, 3)).astype(np.float32)
+    # train_trafo puts the init's kernels on the t = -5 motion plane
+    cfg = SmoeConfig(dim_domain=3, kernels_per_dim=(3, 3, 2), num_frames=4,
+                     num_params_model=6, train_trafo=True)
+    motion = np.zeros((8, 4), np.float32)
+    motion[0] = motion[4] = 1.0
+    motion[2] = -0.05 * np.arange(4)
+    motion[1] = 0.01 * np.arange(4)
     path = str(tmp_path / "motion.smoe")
-    cfg = SmoeConfig(kernels_per_dim=(4, 4))
-    write_bitstream(path, qp, cfg, extra={
-        **_extra((32, 32), 3, cfg), "motion": np.zeros((8, 1)).tolist()})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        decode_bitstream(path, device="cpu")
+    write_bitstream(path, _init_model(vid, cfg, 6), cfg, extra={
+        **_extra(vid.shape[:3], 3, cfg), "motion": motion.tolist(),
+        "num_params_model": 6, "num_frames": 4})
+    # 1 LSB; 99 % identical: on the t = -5 plane the maha's products
+    # cancel, so more of a 1,440-value clip sits on a rounding boundary of
+    # the output quantizer than in a 2D decode
+    for kw in ({}, {"frames": (1, 3)}, {"roi": ((2, 10), (0, 6))}):
+        ref = j_decode(path, **kw)
+        assert_within_lsb(decode_bitstream(path, device="cpu", **kw), ref,
+                          min_identical=0.99)
+        assert_within_lsb(decode_bitstream(path, device="cpu",
+                                           reference=True, **kw), ref,
+                          min_identical=0.99)
+    moved = decode_bitstream(path, device="cpu")
+    assert moved.std() > 0.01
+    # the pan shows: frame 3 is not frame 0
+    assert np.abs(moved[:, :, 3] - moved[:, :, 0]).max() > 1 / 255
 
 
 def test_committed_fixture_matches_recorded_jax_decode():

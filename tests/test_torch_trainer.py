@@ -258,12 +258,10 @@ def test_phase_breakdown_on_cpu():
     assert ph["step"] > 0 and ph["fwd"] > 0 and ph["k_cap"] == 128.0
 
 
-@pytest.mark.parametrize("what", ["mesh", "affines", "train_svs", "sampling",
-                                  "bf16"])
+@pytest.mark.parametrize("what", ["mesh", "train_svs", "sampling", "bf16"])
 def test_unported_options_raise(what):
     img = _toy(16)
     kw = {"mesh": dict(mesh=object()),
-          "affines": dict(affines=np.zeros((4, 6), np.float32)),
           "train_svs": dict(train_svs=True)}.get(what)
     if what == "bf16":
         with pytest.raises(ValueError, match="float32"):
