@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port's serving decode, trainer, forward
-ablation variants, encode CLI, fit CLI and video path on one NVIDIA GPU.
+ablation variants, encode CLI, fit CLI, video path, light-field path and
+SV residual / subsampling on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -73,10 +74,10 @@ no result line) on any fault:
      below K_pad = 640, with one K1 and one K2 launch per block per sweep
      and one host sync per chunk, against 20 sweeps on the plain path;
  13. K1 past one segment's reach: a seeded 1920x1080 RGB model with
-     240x240 = 57,600 kernels written by the port's own init, quantizer and
-     bitstream writer, read once and decoded through K1, within 1 LSB of
-     the plain decode on every 40th row (>= 99.9 % identical); K1's time,
-     bound and candidate fraction on it;
+     160x160 = 25,600 kernels (four of K1's segments) written by the port's
+     own init, quantizer and bitstream writer, read once and decoded
+     through K1, within 1 LSB of the plain decode on every 40th row
+     (>= 99.9 % identical); K1's time, bound and candidate fraction on it;
  14. the least-squares expert solves (fit/lsinit.py) on the flagship
      against the JAX package's recorded ones
      (tests/data/bench512_lsinit_ref.npz, scripts/make_torch_ls_fixture.py),
@@ -129,6 +130,37 @@ no result line) on any fault:
      dual-model .smoe within 1 LSB of its recorded JAX decode; (8) the
      fit's s/iter, K1 / K2 ms beside their bounds, the decode's and
      read_model's ms, printed beside the card's name and power limit.
+ 18. 4D light fields at the repo's full width (scripts/bench_lf.py's
+     synthetic scene, copied as `build_lf`: 15 x 15 views of 48 x 48,
+     grayscale, -k 4 4 6 6: 518,400 pixels x 576 kernels, F = 21, E = 5,
+     C = 1): (1) K1 and K2 at F = 21 against their plain versions on
+     random d = 4 inputs, every E x C instance (phases 3 and 4's bounds),
+     K2 fed K1's denominator with bit-identical reruns; (2) the recipe's
+     trainer (`lf_smoe`) at lf_corner_weight 0.1 after the per-kernel LS
+     solve: 20 sweeps in one block on the kernel path (one K1 and one K2
+     launch per sweep, one host sync per chunk) against 20 on the plain
+     path from the same state, mse within TRAJ_RTOL, then three sweeps
+     taken by both paths from one state with identical lists; K1 and K2 on
+     the fit's raster operands with times, bounds, candidate fraction; (3)
+     BASELINE.md's light-field point through the CLIs: build_lf(s=24) as a
+     .mat, cli.fit -n 600 with bench_lf.py's flags, cli.reconstruct's
+     automatic encode to output.mat and model.smoe, cli.decode through K1
+     within 1 LSB (>= 99.9 % identical) of the encoder's reconstruction
+     and of the plain decode, a views= decode equal to the slice; the
+     trained-view and all-view PSNR, bpp, s/iter and wall s; (4) the cut
+     light field (s = 12) against the JAX fit recorded in
+     tests/data/lf_cut_ref.npz (scripts/make_torch_lf_fixture.py): LS
+     experts, 20 sweeps' mse, num_pi, the recorded .smoe's decode;
+ 19. the SV residual and error-proportional subsampling on the bench
+     flagship in 64 blocks of 64 x 64, train_svs: at 100 % and at 50 %,
+     10 sweeps on the kernel path (one K1 and one K2 launch per block per
+     sweep) against 10 on the plain path from one init and one generator
+     seed (mse within TRAJ_RTOL), then 3 sweeps each taken by both from
+     one state (mse, and num_sv after the step, equal); s/iter with and
+     without SVs (the SV map's share of the sweep); K1 and K2 on block 0's
+     operands, full and subsampled (2,048 pixels in score order), with
+     times and candidate fractions; shared-grid SVs under overlap 1 train
+     and leave the dummy row at 0.
 Launch counts are zeroed before each path and read after it; the launches
 made to compare a kernel with its plain version are not counted.  Then
 prints the card line, one JSON line of kernel results (each with its
@@ -828,18 +860,36 @@ def decode_kernel_args(path: str, model=None):
                            pis > 0)
 
 
-def trainer_kernel_args(s):
-    """K1's operands for block 0 of the trainer `s` at its current
-    parameters, at full width (the flagship's one block is the image)."""
+def block_kernel_args(s, coords, klist, coords_raw=None, model_mask=None):
+    """K1's operands for the pixels `coords` of the trainer `s` at its
+    current parameters, as its sweep launches them (the dual-domain
+    features with coords_raw and model_mask; gathered to the capped width
+    where a cap is set): ((phi, xe, q, G, pi_det, mask), thr, floor)."""
     import torch
     from smoe_tpu_torch.core.model import fused_op_inputs
     from smoe_tpu_torch.fit.trainer import effective_params
     with torch.no_grad():
         eff = effective_params(s.params, s.cfg, s.musX_grid)
-        return tuple(t.detach() if torch.is_tensor(t) else t
-                     for t in fused_op_inputs(
-                         eff.A, eff.musX, eff.nu_e, eff.gamma_e, eff.pis,
-                         s.cfg, s.bset.coords[0], s.kernel_lists[0]))
+        phi, xe, q, G, pi_det, mask, thr, floor = fused_op_inputs(
+            eff.A, eff.musX, eff.nu_e, eff.gamma_e, eff.pis, s.cfg, coords,
+            klist, coords_raw=coords_raw, model_mask=model_mask)
+        cap = s._current_k_cap()
+        if cap and cap < q.shape[0]:
+            order = torch.argsort((mask == 0).to(torch.int32),
+                                  stable=True)[:cap]
+            q, G, pi_det, mask = (t[order].contiguous()
+                                  for t in (q, G, pi_det, mask))
+    return (phi.contiguous(), xe.contiguous(), q.contiguous(),
+            G.contiguous(), pi_det, mask), thr, floor
+
+
+def trainer_kernel_args(s):
+    """K1's operands for block 0 of the trainer `s` at its current
+    parameters, as one flat tuple (phi, xe, q, G, pi_det, mask, thr,
+    floor) (the flagship's one block is the image)."""
+    args, thr, floor = block_kernel_args(s, s.bset.coords[0],
+                                         s.kernel_lists[0])
+    return (*args, thr, floor)
 
 
 def psnr_of(mse: float) -> float:
@@ -1290,22 +1340,29 @@ def contraction_phase(flagship, launches):
     return out
 
 
+# phase 13's model: 160 x 160 = 25,600 kernels, four of K1's segments (at
+# 240 x 240 = 57,600 the writer's and read_model's neighbour search, which
+# is quadratic in K, took ~90 s of the run; phase 3 holds K1 past 53,236
+# kernels at K = 60000)
+LARGE_K_KPD = 160
+
+
 def large_k_decode(launches):
-    """Phase 13: a seeded 1920x1080 RGB model with 240x240 = 57,600
-    kernels (past the 53,236 a one-segment K1 could hold), written by the
-    port's own init, quantizer and bitstream writer, decoded through K1
-    and held against the plain decode on strided rows; K1's time, bound
-    and candidate fraction on the decode's operands."""
+    """Phase 13: a seeded 1920x1080 RGB model with LARGE_K_KPD^2 kernels
+    (several of K1's segments of 8192), written by the port's own init,
+    quantizer and bitstream writer, decoded through K1 and held against
+    the plain decode on strided rows; K1's time, bound and candidate
+    fraction on the decode's operands."""
     import torch
     from smoe_tpu_torch.codec.serve import (make_decoder, pad_decoded_params,
                                             read_model)
     from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
-    kpd, h, w = 240, 1080, 1920
+    kpd, h, w = LARGE_K_KPD, 1080, 1920
     k = kpd * kpd
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "fhd_k57600.smoe")
+        path = os.path.join(tmp, f"fhd_k{k}.smoe")
         t0 = time.perf_counter()
-        bits = write_seeded_model(path, h, w, kpd, 1, 5, 50.0)
+        bits = write_seeded_model(path, h, w, kpd, 1, 5, 50.0 * kpd / 240)
         encode_s = time.perf_counter() - t0
         # decode_bitstream's two steps, so the file is read once: the
         # entropy decoder's neighbour search is quadratic in K
@@ -1346,11 +1403,11 @@ def large_k_decode(launches):
            "k1_ms": ms, "k1_bound_ms": b_ms, "k1_bound_by": b_by,
            "candidate_fraction": frac, "survivors": survivors}
     print(f"large-K decode: {json.dumps(out)}", flush=True)
-    check(n_dec == 1, f"1080p K=57600 decode launched K1 {n_dec} times")
+    check(n_dec == 1, f"1080p K={k} decode launched K1 {n_dec} times")
     check(rec.shape == (h, w, 3) and np.isfinite(rec).all(),
-          f"1080p K=57600 decode: bad output {rec.shape}")
+          f"1080p K={k} decode: bad output {rec.shape}")
     check(lsb <= 1 and same >= 0.999,
-          f"1080p K=57600 decode vs plain: {lsb} LSB, {same:.5f} identical")
+          f"1080p K={k} decode vs plain: {lsb} LSB, {same:.5f} identical")
     return out
 
 
@@ -1790,7 +1847,6 @@ def video_kernel_args(s):
     launches them: the motion-transformed and raw pixels' dual-domain
     features (F = 26), gathered to the capped width where a cap is set."""
     import torch
-    from smoe_tpu_torch.core.model import fused_op_inputs
     from smoe_tpu_torch.fit.trainer import effective_params
     from smoe_tpu_torch.video.motion import transform_coords
     with torch.no_grad():
@@ -1798,17 +1854,8 @@ def video_kernel_args(s):
         raw = s.bset.coords[0]
         tc = transform_coords(raw, eff.motion, s.cfg.num_params_model,
                               s.cfg.num_frames)
-        phi, xe, q, G, pi_det, mask, thr, floor = fused_op_inputs(
-            eff.A, eff.musX, eff.nu_e, eff.gamma_e, eff.pis, s.cfg, tc,
-            s.kernel_lists[0], coords_raw=raw, model_mask=s.model_mask)
-        cap = s._current_k_cap()
-        if cap and cap < q.shape[0]:
-            order = torch.argsort((mask == 0).to(torch.int32),
-                                  stable=True)[:cap]
-            q, G, pi_det, mask = (t[order].contiguous()
-                                  for t in (q, G, pi_det, mask))
-    return (phi.contiguous(), xe.contiguous(), q.contiguous(),
-            G.contiguous(), pi_det, mask), thr, floor
+    return block_kernel_args(s, tc, s.kernel_lists[0], coords_raw=raw,
+                             model_mask=s.model_mask)
 
 
 def video_fit(vid, affines, launches):
@@ -2152,6 +2199,521 @@ def video_phase(thr, floor, launches):
             "recorded": recorded, "train_trafo": trafo, "roundtrip": trip}
 
 
+def build_lf(views=15, s=48, seed=3):
+    """The synthetic light field of scripts/bench_lf.py:28-79 (`texture=
+    "synth"`; the `hopper` texture needs matplotlib and cv2), copied so
+    that this script needs nothing of the JAX side: (views, views, s, s, 1)
+    grayscale in [0, 1], a textured background plane at +1.5 px a view and
+    a foreground square at -2.5 px a view, each view an exact shift."""
+    rng = np.random.default_rng(seed)
+    pad = int(3.0 * views) + 8
+    side = s + 2 * pad
+    yy, xx = np.mgrid[0:side, 0:side] / s
+    tex = (0.55 + 0.25 * np.sin(5.1 * yy + 1.0) * np.cos(4.3 * xx)
+           + 0.12 * np.sin(11.0 * (yy + xx)))
+    ftex = 0.35 + 0.3 * np.cos(7.0 * yy) * np.sin(6.2 * xx + 0.5)
+    lf = np.empty((views, views, s, s), np.float32)
+    uc = (views - 1) / 2
+    d_bg, d_fg = 1.5, -2.5
+    fy0, fx0, fs = int(0.30 * s), int(0.36 * s), int(0.30 * s)
+    for u in range(views):
+        for v in range(views):
+            oy_b = pad + int(round(d_bg * (u - uc)))
+            ox_b = pad + int(round(d_bg * (v - uc)))
+            view = tex[oy_b:oy_b + s, ox_b:ox_b + s].copy()
+            oy_f = pad + int(round(d_fg * (u - uc)))
+            ox_f = pad + int(round(d_fg * (v - uc)))
+            fg = ftex[oy_f:oy_f + s, ox_f:ox_f + s]
+            view[fy0:fy0 + fs, fx0:fx0 + fs] = fg[fy0:fy0 + fs,
+                                                  fx0:fx0 + fs]
+            lf[u, v] = view
+    lf += rng.normal(0, 0.004, lf.shape).astype(np.float32)
+    return np.clip(lf, 0.0, 1.0)[..., None]
+
+
+LF_KPD = [4, 4, 6, 6]
+# scripts/bench_lf.py:140-170's flags for BASELINE.md's light-field point
+# (--iukl --pmt 100 --pg 5 --lsinit --lsri 100 --cw 0.1)
+LF_RECIPE = ["-k", "4", "4", "6", "6", "-lr", "5e-4", "-np", "0", "-qm",
+             "1", "-iukl", "1", "-pmt", "100", "-pg", "5", "-lsinit",
+             "kernel", "-nuanchor", "1", "-lsri", "100", "-lfcw", "0.1"]
+LF_REF = os.path.join(HERE, "tests", "data", "lf_cut_ref.npz")
+LF_SMOE = os.path.join(HERE, "tests", "data", "lf_cut.smoe")
+# the cut light field's 20 sweeps against the recorded JAX fit (after the
+# same per-kernel LS solve); the port's CPU fit sits 1.4e-4 from it
+LF_JAX_RTOL = 2e-3
+LF_VIEWS = ((3, 12), (0, 15))    # the view window decoded on its own
+
+
+def lf_smoe(lf, mode, **kw):
+    """The trainer cli.fit builds for LF_RECIPE: -k 4 4 6 6, Adam 5e-4,
+    unnormalised pis, QAT mode 1 with quantized pis, in-graph lists with
+    the probe threshold 100 on a 5^4 grid, centre-anchored nu, corner
+    views at weight 0.1, grayscale."""
+    from smoe_tpu_torch.config import OptConfig
+    from smoe_tpu_torch.fit.trainer import Smoe
+    s = Smoe(lf, kernels_per_dim=LF_KPD, opt_cfg=OptConfig(base_lr=5e-4),
+             normalize_pis=False, quantization_mode=1, quantize_pis=True,
+             in_graph_ukl=True, probe_maha_threshold=100.0, probe_grid=5,
+             nu_anchor=True, lf_corner_weight=0.1, use_yuv=False,
+             use_pallas=mode, device=DEVICE, **kw)
+    s.set_optimizer()
+    return s
+
+
+def lf_kernels(thr, floor, n=40009, k=576, seed=23):
+    """Phase 18, check 1: K1 and K2 at the light-field width F = 21 against
+    their plain versions on random d = 4 inputs, every E x C instance
+    (E = 5 with the affine experts, 1 with constant ones; C = 1 grayscale,
+    3 RGB), K2 fed K1's denominator with bit-identical reruns (phases 3
+    and 4's bounds); the light field's own instance (E 5, C 1) at K = 576
+    with times and bounds."""
+    from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
+                                                    gate_expert_bwd_reference,
+                                                    gate_expert_fwd,
+                                                    gate_expert_reference)
+    out = {}
+    for name, nn, e, c, time_it in (("F21 E5 C1", n, 5, 1, True),
+                                    ("F21 E5 C3", 4099, 5, 3, False),
+                                    ("F21 E1 C1", 4099, 1, 1, False),
+                                    ("F21 E1 C3", 4099, 1, 3, False)):
+        fargs = random_case(nn, k, 4, e, c, seed, "cuda")
+        res_k, surv_k = gate_expert_fwd(*fargs, thr, floor)
+        fwd = fwd_vs_plain(fargs, res_k, surv_k, thr, floor, name)
+        fwd["candidate_fraction"], fwd["survivors"] = k1_stats(fargs, thr,
+                                                               floor)
+        fwd["bound_ms"], fwd["bound_by"] = k1_bound(nn, k, 21, e, c,
+                                                    fwd["survivors"])
+        bwd, args, den = bwd_vs_plain(fargs, seed, thr, floor, name)
+        bwd["bound_ms"], bwd["bound_by"] = k2_bound(nn, k, 21, e, c,
+                                                    fwd["survivors"], True)
+        if time_it:
+            fwd["ms"] = cuda_ms(lambda: gate_expert_fwd(*fargs, thr, floor),
+                                20, warmup=5)
+            fwd["plain_ms"] = cuda_ms(
+                lambda: gate_expert_reference(*fargs, thr, floor), 5)
+            bwd["ms"] = cuda_ms(lambda: gate_expert_bwd(*args, denom=den), 10)
+            bwd["plain_ms"] = cuda_ms(
+                lambda: gate_expert_bwd_reference(*args), 3)
+        print(f"F21 K1-vs-plain {json.dumps(fwd)}", flush=True)
+        print(f"F21 K2-vs-plain {json.dumps(bwd)}", flush=True)
+        out[name] = {"k1": fwd, "k2": bwd}
+    return out
+
+
+def lf_fit(lf, launches):
+    """Phase 18, check 2: the light field at full width (15 x 15 views of
+    48 x 48, -k 4 4 6 6: 518,400 pixels x 576 kernels in one block, F = 21,
+    E = 5, C = 1) with the recipe's trainer at lf_corner_weight 0.1: the
+    per-kernel LS solve, then 20 sweeps on the kernel path (one K1 and one
+    K2 launch per sweep, one host sync per chunk) against 20 on the plain
+    path from the same state (one (N, K) map is 1.19 GB: one block fits):
+    per-sweep mse within TRAJ_RTOL; then three sweeps, each taken by both
+    paths from the kernel path's state, with identical lists (a free-
+    running pair may part in a borderline list flag: reported).  Returns
+    (the report, K1's operands after the 20 sweeps)."""
+    import torch
+    pair, fits = {}, {}
+    for path, mode in (("kernel", KERNEL_MODE), ("plain", "off")):
+        s = lf_smoe(lf, mode)
+        s.ls_init_experts(mode="kernel")
+        reset_counts()
+        t, (_, mse, npi, _) = host_s(lambda: s.run_batched_chunk(FIT_SWEEPS))
+        n1, n2 = read_counts()
+        if path == "kernel":
+            launches[0] += n1
+            launches[1] += n2
+        pair[path] = {"k1_k2": [n1, n2], "mse": [float(v) for v in mse],
+                      "num_pi": int(npi[-1]), "chunk_s": t,
+                      "k_cap": s._current_k_cap()}
+        fits[path] = s
+    s_k, s_p = fits["kernel"], fits["plain"]
+    k, p = pair["kernel"], pair["plain"]
+    lists_share = float((s_k.kernel_lists == s_p.kernel_lists).float().mean())
+    fargs = block_kernel_args(s_k, s_k.bset.coords[0], s_k.kernel_lists[0])
+    stepped, lists_equal = [], True
+    reset_counts()
+    for _ in range(3):
+        st = s_k.adam_state_numpy()
+        s_p.load_state_numpy(
+            {f: getattr(s_k.params, f).detach().cpu().numpy()
+             for f in s_k._fields},
+            kernel_lists=s_k.kernel_lists.cpu().numpy(),
+            adam=(st["mu"], st["nu"], st["count"]))
+        mk = s_k.run_batched_chunk(1)[1][0]
+        mp = s_p.run_batched_chunk(1)[1][0]
+        stepped.append(abs(float(mk) - float(mp)) / float(mp))
+        lists_equal &= bool(torch.equal(s_k.kernel_lists, s_p.kernel_lists))
+    syncs, _ = syncs_of(lambda: s_k.run_batched_chunk(5))
+    t20, _ = host_s(lambda: s_k.run_batched_chunk(FIT_SWEEPS))
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    out = {"pixels": int(np.prod(lf.shape[:4])), "kernels": s_k.cfg.capacity,
+           "pair": pair, "kernel_vs_plain_mse_max_rel": max_rel(k["mse"],
+                                                                p["mse"]),
+           "free_run_lists_identical_share": lists_share,
+           "stepped_mse_max_rel": max(stepped),
+           "stepped_lists_equal": lists_equal, "host_syncs_per_chunk": syncs,
+           "s_per_iter": t20 / FIT_SWEEPS, "k1_k2_later": [n1, n2]}
+    print(f"LF fit: {json.dumps(out)}", flush=True)
+    check(s_k.fused and s_k.cfg.dim_domain == 4
+          and s_k.bset.train_mask.dtype == torch.float32,
+          "the LF fit is not the fused d = 4 fit on the float mask")
+    check(k["k1_k2"] == [FIT_SWEEPS] * 2 and p["k1_k2"] == [0, 0]
+          and [n1, n2] == [3 + 5 + FIT_SWEEPS] * 2,
+          f"LF fit: launches {k['k1_k2']} / plain {p['k1_k2']} / later "
+          f"{[n1, n2]}")
+    check(syncs == 1, f"LF chunk synced with the host {syncs} times")
+    check(np.isfinite(k["mse"]).all() and k["mse"][-1] < k["mse"][0],
+          "the LF fit did not train")
+    check(out["kernel_vs_plain_mse_max_rel"] <= TRAJ_RTOL
+          and k["num_pi"] == p["num_pi"],
+          f"LF kernel path off the plain path by "
+          f"{out['kernel_vs_plain_mse_max_rel']:.2e}")
+    check(max(stepped) <= TRAJ_RTOL and lists_equal,
+          f"LF kernel and plain paths from one state: mse off by "
+          f"{max(stepped):.2e}, lists equal {lists_equal}")
+    del fits, s_p, s_k
+    return out, fargs
+
+
+def lf_psnr(rec, orig):
+    """(trained-view PSNR, all-view PSNR) of a light-field decode, as
+    scripts/bench_lf.py:183-193 measures them (the corner views are the
+    ones the reference's train mask excludes)."""
+    from smoe_tpu_torch.fit.blocks import _lf_train_mask
+    tm = _lf_train_mask(orig.shape[:2])
+    err2 = (rec.reshape(orig.shape) - orig) ** 2
+    scale = float(2 ** 8) ** 2
+    return (float(10 * np.log10(scale / (float(err2[tm].mean()) * scale))),
+            float(10 * np.log10(scale / (float(err2.mean()) * scale))))
+
+
+def lf_recipe(tmp, launches, s=24, n=600):
+    """Phase 18, check 3: BASELINE.md's light-field point through the
+    port's CLIs: build_lf(s=24) as a float32 .mat, cli.fit with LF_RECIPE
+    and -n 600 -v 500 (bench_lf.py's defaults), cli.reconstruct's default
+    automatic encode (--auto-bd 0.05 --prune 0) of its params_best.pkl to
+    output.mat and model.smoe, cli.decode of the .smoe through K1: within
+    1 LSB (>= 99.9 % identical) of the encoder's reconstruction and of the
+    plain decode; a views= decode equal to the slice of the full one; the
+    trained-view and all-view PSNR, bpp, s/iter and wall seconds."""
+    from scipy.io import loadmat, savemat
+    from smoe_tpu_torch.cli import decode, fit, reconstruct
+    from smoe_tpu_torch.codec.serve import decode_bitstream
+    lf = build_lf(s=s)
+    mat = os.path.join(tmp, "lf.mat")
+    savemat(mat, {"LF": lf})
+    d = os.path.join(tmp, "lf_fit")
+    reset_counts()
+    smoe, log, fit_s = _cli(fit.main, ["-i", mat, "-r", d, "-n", str(n),
+                                       "-v", "500", "--device", DEVICE]
+                            + LF_RECIPE)
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    rows = _metrics(d)
+    sweeps = smoe.phase_timer.as_dict()["train_sweeps"]
+    reset_counts()
+    rec, enc_log, enc_s = _cli(reconstruct.main, [
+        "-i", mat, "-p", os.path.join(d, "params_best.pkl"), "-r",
+        os.path.join(tmp, "lf_enc"), "--device", DEVICE])
+    check(read_counts() == (0, 0), "the LF encode's evals launched a kernel")
+    path = os.path.join(tmp, "lf_enc", "model.smoe")
+    reset_counts()
+    dec, _, dec_s = _cli(decode.main, ["-p", path, "-r",
+                                       os.path.join(tmp, "lf_dec"),
+                                       "--device", DEVICE])
+    part = decode_bitstream(path, device=DEVICE, views=LF_VIEWS)
+    n_dec = read_counts()[0]
+    launches[0] += n_dec
+    dec, rec = np.asarray(dec), np.asarray(rec)
+    _, lsb_p, same_p = decode_vs_plain(path)
+    lsb_e, same_e = lsb_stats(dec, rec)
+    mat_out = loadmat(os.path.join(tmp, "lf_dec", "output.mat"))["LF"]
+    bits = os.path.getsize(path) * 8
+    trained, all_views = lf_psnr(dec, lf)
+    (u0, u1), (v0, v1) = LF_VIEWS
+    out = {"shape": list(lf.shape), "sweeps": int(smoe.iter),
+           "fit_k1_k2": [n1, n2], "fit_wall_s": fit_s,
+           "s_per_iter": sweeps["total_s"] / max(smoe.iter, 1),
+           "mse_per_validation": [r["mse"] for r in rows],
+           "encode_s": enc_s, "decode_s": dec_s,
+           "auto_bd": [line for line in enc_log.splitlines()
+                       if "auto-bd:" in line or "prune:" in line],
+           "bits": bits, "bpp": bits / int(np.prod(lf.shape[:4])),
+           "psnr_trained_views_db": trained, "psnr_all_views_db": all_views,
+           "decode_vs_encoder_max_lsb": lsb_e,
+           "decode_vs_encoder_identical": same_e,
+           "decode_vs_plain_max_lsb": lsb_p,
+           "decode_vs_plain_identical": same_p,
+           "views_equal_slice": bool(np.array_equal(part,
+                                                    dec[u0:u1, v0:v1])),
+           "k1_launches_decode": n_dec,
+           "baseline_md_jax_cpu": {"psnr_trained_views_db": 39.81,
+                                   "psnr_all_views_db": 38.21, "bpp": 0.859}}
+    print(f"LF recipe: {json.dumps(out)}", flush=True)
+    check(n2 == n and n1 >= n, f"LF cli.fit: K1 {n1} / K2 {n2} launches in "
+          f"{n} sweeps")
+    check(dec.shape == lf.shape and np.isfinite(dec).all()
+          and mat_out.shape == lf.shape and mat_out.dtype == np.uint8,
+          "LF decode: bad output")
+    check(n_dec == 2, f"two LF decodes launched K1 {n_dec} times")
+    check(lsb_e <= 1 and same_e >= 0.999, f"LF decode vs the encoder's "
+          f"reconstruction: {lsb_e} LSB, {same_e:.5f} identical")
+    check(lsb_p <= 1 and same_p >= 0.999, f"LF decode K1 vs plain: "
+          f"{lsb_p} LSB, {same_p:.5f} identical")
+    check(out["views_equal_slice"], "views= is not the slice")
+    return out
+
+
+def lf_recorded(launches):
+    """Phase 18, check 4: the cut light field (build_lf(s=12), the recipe's
+    trainer) against the JAX fit recorded in tests/data/lf_cut_ref.npz
+    (scripts/make_torch_lf_fixture.py): the per-kernel LS experts within
+    LS_KERNEL_XTOL of max, the light eval after it, 20 sweeps' mse within
+    LF_JAX_RTOL, num_pi equal; the recorded JAX d = 4 .smoe decoded
+    through K1 within 1 LSB of the recorded JAX decode, PSNR within
+    0.01 dB."""
+    from smoe_tpu_torch.codec.serve import decode_bitstream
+    ref = np.load(LF_REF)
+    lf = build_lf(s=int(ref["s"]))
+    s = lf_smoe(lf, KERNEL_MODE)
+    s.ls_init_experts(mode="kernel")
+    x = np.concatenate([s.params.nu_e.detach().cpu().numpy().ravel(),
+                        s.params.gamma_e.detach().cpu().numpy().ravel()])
+    xr = np.concatenate([ref["ls_nu"].ravel(), ref["ls_gamma"].ravel()])
+    reset_counts()
+    ls_mse = s.run_batched(train=False)[1]
+    _, mse, npi, _ = s.run_batched_chunk(int(ref["mse"].shape[0]))
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    lists_same = float(np.mean(s.kernel_lists.cpu().numpy() == ref["lists"]))
+    reset_counts()
+    rec = decode_bitstream(LF_SMOE, device=DEVICE)
+    launches[0] += read_counts()[0]
+    st = int(ref["stride"])
+    lsb, same = lsb_stats(rec[..., ::st, ::st, :],
+                          ref["sample"].astype(np.float64) / 255)
+    psnr = psnr_of(float(np.mean((rec - lf) ** 2)) * 2 ** 16)
+    out = {"shape": list(lf.shape), "ls_experts_off_of_max": float(
+        np.abs(x - xr).max() / np.abs(xr).max()),
+        "ls_mse_port_jax": [float(ls_mse), float(ref["ls_mse"])],
+        "kernel_vs_jax_mse_max_rel": max_rel(mse, ref["mse"]),
+        "num_pi_port_jax": [int(npi[-1]), int(ref["num_pi"][-1])],
+        "lists_identical_share": lists_same,
+        "jax_smoe_decode_max_lsb": lsb, "identical_share": same,
+        "decode_psnr_db_port_jax": [psnr, float(ref["psnr_db"])]}
+    print(f"LF against the recorded JAX fit: {json.dumps(out)}", flush=True)
+    check(out["ls_experts_off_of_max"] <= LS_KERNEL_XTOL,
+          f"LF LS experts off JAX's by {out['ls_experts_off_of_max']:.2e}")
+    check(abs(ls_mse - float(ref["ls_mse"])) <= 1e-3 * float(ref["ls_mse"]),
+          f"LF eval after the LS solve: {out['ls_mse_port_jax']}")
+    check(out["kernel_vs_jax_mse_max_rel"] <= LF_JAX_RTOL,
+          f"LF fit off the recorded JAX fit by "
+          f"{out['kernel_vs_jax_mse_max_rel']:.2e} > {LF_JAX_RTOL}")
+    check(np.array_equal(npi, ref["num_pi"]), "LF fit: num_pi off JAX's")
+    check(lsb <= 1 and same >= 0.999, f"recorded JAX LF .smoe: {lsb} LSB, "
+          f"{same:.5f} identical")
+    check(abs(psnr - float(ref["psnr_db"])) <= 0.01, "LF PSNR drifted")
+    return out
+
+
+def lf_phase(thr, floor, launches):
+    """Phase 18: 4D light fields at full width, all on the card."""
+    import torch
+    kern = lf_kernels(thr, floor)
+    fit, (fargs, thr_f, floor_f) = lf_fit(build_lf(), launches)
+    raster = compare_raster("LF fit 518,400 x 576, sweep 20 (F21)", fargs,
+                            thr_f, floor_f, 18)
+    del fargs
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe = lf_recipe(tmp, launches)
+    recorded = lf_recorded(launches)
+    torch.cuda.empty_cache()
+    return {"kernels": kern, "fit": fit, "raster": raster, "recipe": recipe,
+            "recorded": recorded}
+
+
+SV_BLOCK = (64, 64)
+SV_SWEEPS = 10       # free-running, both paths
+SV_STEPPED = 3       # then each taken by both paths from one state
+SV_TIMED = 5         # then timed on the kernel path
+
+
+def sv_smoe(img, mode, **kw):
+    """Phase 19's trainer: the bench flagship (512^2 RGB, 16 x 16 kernels,
+    YUV loss, determinant gating) in 64 blocks of 64 x 64 (an SV map is
+    (4096, 4096), 64 MB; one of a 512^2 block would be 275 GB)."""
+    from smoe_tpu_torch.fit.trainer import Smoe
+    s = Smoe(img, kernels_per_dim=[16], batch_size=SV_BLOCK, use_yuv=True,
+             use_determinant=True, use_pallas=mode, device=DEVICE, **kw)
+    s.set_optimizer()
+    return s
+
+
+def sv_pair(img, pct, launches):
+    """One SV fit at sampling_percentage `pct` on the kernel and the plain
+    path from the same init and the same generator seed, SV_SWEEPS sweeps
+    each (one K1 and one K2 launch per block per sweep on the kernel path):
+    per-sweep mse within TRAJ_RTOL.  Then SV_STEPPED more sweeps, each taken
+    by both paths from the kernel path's state (params with the SVs, Adam
+    moments, lists; the generators stay in step, one draw per block per
+    sweep): the same mse and, after the step, the same num_sv.  Free-
+    running, num_sv may part by one: after k of Adam's first, nearly
+    lr-sized steps many SVs sit just below k * 1e-3, and the count's 5e-3
+    threshold takes them at a rounding (reported).  One host sync per
+    chunk; s/iter over a later chunk."""
+    import torch
+    out, fits = {}, {}
+    for path, mode in (("kernel", KERNEL_MODE), ("plain", "off")):
+        s = sv_smoe(img, mode, train_svs=True)
+        reset_counts()
+        t, (_, mse, npi, nsv) = host_s(lambda: s.run_batched_chunk(
+            SV_SWEEPS, sampling_percentage=pct))
+        n1, n2 = read_counts()
+        if path == "kernel":
+            launches[0] += n1
+            launches[1] += n2
+        out[path] = {"k1_k2": [n1, n2], "mse": [float(v) for v in mse],
+                     "num_sv": [int(v) for v in nsv],
+                     "num_pi": int(npi[-1]), "first_chunk_s": t}
+        fits[path] = s
+    s_k, s_p = fits["kernel"], fits["plain"]
+    stepped, nsv_pairs = [], []
+    reset_counts()
+    for _ in range(SV_STEPPED):
+        st = s_k.adam_state_numpy()
+        s_p.load_state_numpy(
+            {f: getattr(s_k.params, f).detach().cpu().numpy()
+             for f in s_k._fields},
+            kernel_lists=s_k.kernel_lists.cpu().numpy(),
+            adam=(st["mu"], st["nu"], st["count"]))
+        mk = s_k.run_batched_chunk(1, sampling_percentage=pct)[1][0]
+        mp = s_p.run_batched_chunk(1, sampling_percentage=pct)[1][0]
+        stepped.append(abs(float(mk) - float(mp)) / float(mp))
+        nsv_pairs.append([int(s_k._num_sv()), int(s_p._num_sv())])
+    syncs, _ = syncs_of(lambda: s_k.run_batched_chunk(
+        2, sampling_percentage=pct))
+    t, _ = host_s(lambda: s_k.run_batched_chunk(SV_TIMED,
+                                                sampling_percentage=pct))
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    k, p = out["kernel"], out["plain"]
+    nb = s_k.start_batches
+    out.update({"blocks": nb, "sample_n": s_k._sample_n(pct),
+                "kernel_vs_plain_mse_max_rel": max_rel(k["mse"], p["mse"]),
+                "stepped_mse_max_rel": max(stepped),
+                "stepped_num_sv_kernel_plain": nsv_pairs,
+                "host_syncs_per_chunk": syncs,
+                "s_per_iter": t / SV_TIMED})
+    print(f"SV fit at {pct} %: {json.dumps(out)}", flush=True)
+    check(nb == 64, f"the SV fit has {nb} blocks, expected 64")
+    check(k["k1_k2"] == [nb * SV_SWEEPS] * 2 and p["k1_k2"] == [0, 0]
+          and [n1, n2] == [nb * (SV_STEPPED + 2 + SV_TIMED)] * 2,
+          f"SV fit at {pct} %: launches {k['k1_k2']} / plain {p['k1_k2']} "
+          f"/ later {[n1, n2]}")
+    check(syncs == 1, f"SV chunk at {pct} % synced {syncs} times")
+    # the SV learning rate moves every coefficient ~1e-3 a step while an
+    # RBF reaches some 60 neighbours (A_SV = 116.6 I at 512^2): the first
+    # sweeps' mse swings before it falls (JAX's recipe as well)
+    check(np.isfinite(k["mse"]).all() and min(k["mse"][1:]) < k["mse"][0]
+          and nsv_pairs[-1][0] > 0, f"the SV fit at {pct} % did not train")
+    check(out["kernel_vs_plain_mse_max_rel"] <= TRAJ_RTOL
+          and k["num_pi"] == p["num_pi"],
+          f"SV fit at {pct} %: kernel vs plain path mse "
+          f"{out['kernel_vs_plain_mse_max_rel']:.2e}")
+    check(max(stepped) <= TRAJ_RTOL and all(a == b for a, b in nsv_pairs),
+          f"SV fit at {pct} % from one state: mse {max(stepped):.2e}, "
+          f"num_sv {nsv_pairs}")
+    del s_p, fits
+    torch.cuda.empty_cache()
+    return out, s_k
+
+
+def sv_phase(img, launches):
+    """Phase 19: the SV residual and error-proportional subsampling on the
+    bench flagship in 64 blocks of 64 x 64: the SV fit at 100 % and at
+    50 % (`sv_pair`), the same blocks without SVs for the SV map's share
+    of the sweep; K1 and K2 on block 0's operands of the full sweep and of
+    the subsampled one (the top-k pixels in score order, scattered over
+    the block) with times and candidate fractions; the shared-grid SVs
+    under overlap 1 train and leave the dummy row at 0."""
+    import torch
+    from smoe_tpu_torch.fit.trainer import gumbel_topk
+    full, s_full = sv_pair(img, 100, launches)
+    sub, s_sub = sv_pair(img, 50, launches)
+    s0 = sv_smoe(img, KERNEL_MODE)
+    s0.run_batched_chunk(2)
+    reset_counts()
+    t0, _ = host_s(lambda: s0.run_batched_chunk(SV_TIMED))
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    del s0
+    fargs = block_kernel_args(s_full, s_full.bset.coords[0],
+                              s_full.kernel_lists[0])
+    raster = {"full": compare_raster("SV fit block 0 (4096 px)", fargs[0],
+                                     fargs[1], fargs[2], 19)}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    u = torch.clamp(torch.rand((s_sub.bset.coords.shape[1],), generator=gen,
+                               device=DEVICE), min=1e-20)
+    idx = gumbel_topk(s_sub.sampling_probs[0], u, s_sub._sample_n(50))
+    sargs = block_kernel_args(s_sub, s_sub.bset.coords[0][idx],
+                              s_sub.kernel_lists[0])
+    raster["subsampled"] = compare_raster(
+        "SV fit block 0 at 50 % (2048 px, score order)", sargs[0], sargs[1],
+        sargs[2], 19)
+    del fargs, sargs, s_full, s_sub
+    shared = sv_smoe(img, KERNEL_MODE, train_svs=True, sv_shared_grid=True,
+                     overlap=1)
+    reset_counts()
+    _, mse_g, _, nsv_g = shared.run_batched_chunk(5)
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    sv = shared.params.sv.detach().cpu().numpy()
+    iv = shared.bset.sv_index.cpu().numpy()
+    n_pix = img.shape[0] * img.shape[1]
+    overlap_rows = np.flatnonzero(np.bincount(iv[iv < n_pix],
+                                              minlength=n_pix) > 1)
+    out = {"full": full, "subsampled": sub,
+           "s_per_iter_without_svs": t0 / SV_TIMED,
+           "sv_share_of_sweep": 1.0 - (t0 / SV_TIMED) / full["s_per_iter"],
+           "raster": raster,
+           "shared_grid": {"rows": int(sv.shape[0]),
+                           "mse": [float(v) for v in mse_g],
+                           "num_sv": int(nsv_g[-1]),
+                           "dummy_row": float(sv[-1, 0]),
+                           "overlap_rows_trained_share": float(np.mean(
+                               sv[overlap_rows, 0] != 0.0))}}
+    rest = {k: v for k, v in out.items() if k not in ("full", "subsampled")}
+    print(f"SV and subsampling: {json.dumps(rest)}", flush=True)
+    g = out["shared_grid"]
+    check(g["rows"] == n_pix + 1 and g["dummy_row"] == 0.0
+          and np.isfinite(mse_g).all() and min(mse_g[1:]) < mse_g[0]
+          and g["overlap_rows_trained_share"] > 0,
+          f"shared-grid SVs under overlap: {g}")
+    check([n1, n2] == [64 * 5] * 2, f"shared-grid SV fit launched K1 / K2 "
+          f"{[n1, n2]} times in 5 sweeps of 64 blocks")
+    torch.cuda.empty_cache()
+    return out
+
+
+_T0 = [time.perf_counter()]
+
+
+def clock(label: str) -> None:
+    """Print the seconds since the previous mark, for the phase `label`."""
+    now = time.perf_counter()
+    print(f"{label}: {now - _T0[0]:.1f} s", flush=True)
+    _T0[0] = now
+
+
 def build_all():
     """Phase 2: the three kernels, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2190,7 +2752,7 @@ def main() -> int:
                                             sample_grid)
     from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
 
-    t_start = time.perf_counter()
+    t_start = _T0[0] = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2202,6 +2764,7 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
     build_all()
+    clock("phases 1-2")
 
     # phase 3: K1 against plain at three shapes
     thr, floor = 0.5 / 2 ** 8, 1e-11
@@ -2240,6 +2803,7 @@ def main() -> int:
     max_rel_var = max(m["max_rel_err"] for o in var
                       for m in o["modes"].values())
     attribution = contraction_phase(flagship, launches)
+    clock("phases 3-5")
 
     # phase 6: the decode path on the committed fixture
     ref = np.load(FIXTURE_REF)
@@ -2342,6 +2906,7 @@ def main() -> int:
           f"{rows.size} strided rows: max {lsb4} LSB, "
           f"{100 * same4:.4f} % identical; {json.dumps(t4)}", flush=True)
     check(lsb4 <= 1 and same4 >= 0.999, "4K kernel vs plain decode")
+    clock("phases 6-7")
 
     # phases 8-12: the trainer path (K1 forward, K2 backward) and the
     # encode CLI
@@ -2350,22 +2915,29 @@ def main() -> int:
     raster["flagship"] = compare_raster("flagship fit, sweep 20", fargs,
                                         thr_f, floor_f, 8)
     del fargs
+    clock("phase 8")
     trainer_bench_recipe(s_k, s_p, launches)
+    clock("phase 9")
     trainer_file_roundtrip(s_k, img, launches)
     encode_cli(img, launches)
+    clock("phases 10-11")
     del s_k, s_p
     torch.cuda.empty_cache()
     trainer_1080p(load_1080p(), launches)
     torch.cuda.empty_cache()
+    clock("phase 12")
 
     # phases 13-16: K1 past the one-segment limit, the LS solves, and the
     # fit CLI (its headline recipe, the inc loop, QAT 3, SSIM)
     big = large_k_decode(launches)
     torch.cuda.empty_cache()
+    clock("phase 13")
     ls_phase(img)
     fit_cli_recipe(img, launches)
+    clock("phases 14-15")
     fit_cli_variants(img, launches)
     torch.cuda.empty_cache()
+    clock("phase 16")
 
     # phase 17: motion-compensated video at the CIF width, K1 and K2 at the
     # dual-model feature width F = 26
@@ -2394,6 +2966,50 @@ def main() -> int:
                                      for v in video["kernels"].values()))
     max_rel_bwd = max(max_rel_bwd, *(v["k2"]["max_rel_err"]
                                      for v in video["kernels"].values()))
+    clock("phase 17")
+
+    # phase 18: 4D light fields at full width, K1 and K2 at F = 21
+    lf = lf_phase(thr, floor, launches)
+    clock("phase 18")
+    # phase 19: the SV residual and error-proportional subsampling
+    sv = sv_phase(img, launches)
+    clock("phase 19")
+    l_k1, l_k2 = lf["kernels"]["F21 E5 C1"]["k1"], lf["kernels"][
+        "F21 E5 C1"]["k2"]
+    lr_k1, lr_k2 = lf["raster"]["k1"], lf["raster"]["k2"]
+    print(f"light field and SV times ({card}): " + json.dumps({
+        "lf_fit_s_per_iter": lf["fit"]["s_per_iter"],
+        "lf_k1_ms_on_fit_operands": lr_k1["ms"],
+        "lf_k1_bound_ms": lr_k1["bound_ms"],
+        "lf_k1_candidate_fraction": lr_k1["candidate_fraction"],
+        "lf_k2_ms_on_fit_operands": lr_k2["ms"],
+        "lf_k2_bound_ms": lr_k2["bound_ms"],
+        "lf_recipe_s_per_iter": lf["recipe"]["s_per_iter"],
+        "lf_recipe_fit_wall_s": lf["recipe"]["fit_wall_s"],
+        "lf_recipe_psnr_trained_all_db": [
+            lf["recipe"]["psnr_trained_views_db"],
+            lf["recipe"]["psnr_all_views_db"]],
+        "lf_recipe_bpp": lf["recipe"]["bpp"],
+        "sv_s_per_iter_full_subsampled_without": [
+            sv["full"]["s_per_iter"], sv["subsampled"]["s_per_iter"],
+            sv["s_per_iter_without_svs"]],
+        "sv_share_of_sweep": sv["sv_share_of_sweep"],
+        "sv_block_k1_ms_full_subsampled": [
+            sv["raster"]["full"]["k1"]["ms"],
+            sv["raster"]["subsampled"]["k1"]["ms"]],
+        "sv_block_k2_ms_full_subsampled": [
+            sv["raster"]["full"]["k2"]["ms"],
+            sv["raster"]["subsampled"]["k2"]["ms"]],
+        "sv_block_candidate_fraction_full_subsampled": [
+            sv["raster"]["full"]["k1"]["candidate_fraction"],
+            sv["raster"]["subsampled"]["k1"]["candidate_fraction"]]}),
+          flush=True)
+    max_err = max(max_err, *(v["k1"]["max_abs_err_res"]
+                             for v in lf["kernels"].values()))
+    max_err_bwd = max(max_err_bwd, *(v["k2"]["max_abs_err"]
+                                     for v in lf["kernels"].values()))
+    max_rel_bwd = max(max_rel_bwd, *(v["k2"]["max_rel_err"]
+                                     for v in lf["kernels"].values()))
     check(all(n > 0 for n in launches),
           f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
           f"{launches[2]} times")
@@ -2415,9 +3031,10 @@ def main() -> int:
          "k60000_bound_ms": large_k["K60000 d2"]["bound_ms"],
          "k60000_candidate_fraction":
              large_k["K60000 d2"]["candidate_fraction"],
-         "decode_1080p_k57600_ms": big["k1_ms"],
-         "decode_1080p_k57600_bound_ms": big["k1_bound_ms"],
-         "decode_1080p_k57600_candidate_fraction":
+         "decode_1080p_large_k_kernels": big["kernels"],
+         "decode_1080p_large_k_ms": big["k1_ms"],
+         "decode_1080p_large_k_bound_ms": big["k1_bound_ms"],
+         "decode_1080p_large_k_candidate_fraction":
              big["candidate_fraction"],
          "f26_ms": v_k1["ms"], "f26_plain_ms": v_k1["plain_ms"],
          "f26_bound_ms": v_k1["bound_ms"],
@@ -2427,7 +3044,19 @@ def main() -> int:
          "f26_cif_fit_bound_ms": r_k1["bound_ms"],
          "f26_cif_fit_max_abs_err": r_k1["max_abs_err_res"],
          "f26_cif_fit_cull_flip_pairs": r_k1["cull_flip_pairs"],
-         "f26_cif_fit_candidate_fraction": r_k1["candidate_fraction"]},
+         "f26_cif_fit_candidate_fraction": r_k1["candidate_fraction"],
+         "f21_ms": l_k1["ms"], "f21_plain_ms": l_k1["plain_ms"],
+         "f21_bound_ms": l_k1["bound_ms"],
+         "f21_max_abs_err": l_k1["max_abs_err_res"],
+         "f21_lf_fit_ms": lr_k1["ms"], "f21_lf_fit_bound_ms":
+             lr_k1["bound_ms"],
+         "f21_lf_fit_candidate_fraction": lr_k1["candidate_fraction"],
+         "sv_block_ms_full_subsampled": [
+             sv["raster"]["full"]["k1"]["ms"],
+             sv["raster"]["subsampled"]["k1"]["ms"]],
+         "sv_block_candidate_fraction_full_subsampled": [
+             sv["raster"]["full"]["k1"]["candidate_fraction"],
+             sv["raster"]["subsampled"]["k1"]["candidate_fraction"]]},
         {"name": "gate_expert_bwd", "route": "cuda", "source": BWD_SRC,
          "replaces": BWD_REPLACES, "launches": launches[1],
          "max_abs_err": max_err_bwd, "max_rel_err": max_rel_bwd,
@@ -2445,7 +3074,15 @@ def main() -> int:
          "f26_cif_fit_bound_ms": r_k2["bound_ms"],
          "f26_cif_fit_max_rel_err": r_k2["max_rel_err"],
          "f26_cif_fit_rel_err_of_abs_sum": max(
-             r_k2["rel_err_of_abs_sum"].values())},
+             r_k2["rel_err_of_abs_sum"].values()),
+         "f21_ms": l_k2["ms"], "f21_plain_ms": l_k2["plain_ms"],
+         "f21_bound_ms": l_k2["bound_ms"],
+         "f21_max_rel_err": l_k2["max_rel_err"],
+         "f21_lf_fit_ms": lr_k2["ms"], "f21_lf_fit_bound_ms":
+             lr_k2["bound_ms"],
+         "sv_block_ms_full_subsampled": [
+             sv["raster"]["full"]["k2"]["ms"],
+             sv["raster"]["subsampled"]["k2"]["ms"]]},
         {"name": "gate_expert_variants", "route": "cuda", "source": VAR_SRC,
          "replaces": VAR_REPLACES, "launches": launches[2],
          "max_abs_err": max_err_var, "max_rel_err": max_rel_var,

@@ -15,7 +15,8 @@ ops, as the JAX package keeps it outside its Pallas kernel).  With
 `--device cuda` (the default) and no GPU present it fails rather than
 carry on on the CPU.  A video file (d = 3, with its motion rows and
 dual-model mask in the header) decodes to a raw I420 `output.yuv`; a
-pickle carries no motion, so video models decode from their `.smoe`.
+pickle carries no motion, so video models decode from their `.smoe`.  A
+light field (d = 4) decodes to `output.mat` (U, V, H, W, C).
 """
 
 from __future__ import annotations
@@ -123,7 +124,13 @@ def main(args=None):
     # decode usually skips the reference's fail-and-double loop
     # (smoe_reconstruction_decoded.py:41-50), which stays as the fallback.
     n_pix = int(np.prod(img_shape))
+    used = np.asarray(cp["used_kernels"]).astype(bool).reshape(-1)
     k_cap = int(np.prod(k))
+    if used.shape[0] > k_cap:
+        # the grid of s // 4 kernels a dim holds fewer slots than the file
+        # codes (a light field's 15-view axes give 3): widen it to the
+        # coded kernels, where the JAX CLI raises an IndexError
+        cfg_kw["start_pis_override"] = k_cap = int(used.shape[0])
     batches = estimate_batches(n_pix, k_cap, a.batches)
     if batches > a.batches:
         print(f"memory estimate: starting with {batches} blocks "
@@ -133,8 +140,6 @@ def main(args=None):
         smoe = Smoe(orig, kernels_per_dim=k, start_batches=batches,
                     device=a.device, **cfg_kw)
         cfg = smoe.cfg
-
-        used = np.asarray(cp["used_kernels"]).astype(bool).reshape(-1)
         grid = grid_numpy(smoe)
         rp = rescaler(cp, cfg,
                       musX_grid=(grid[used[:len(grid)]]

@@ -5,24 +5,25 @@ Usage:
     python -m smoe_tpu_torch.cli.fit -i image.png -r results/ \
         [-n 10000 -k 12 ...] [--device cuda]
 
-The JAX CLI's image and video paths: the fit (K1 forward and K2 backward on
-the card), the least-squares expert init and refresh (-lsinit, -lsri), the
-incremental kernel loop (-is), the SSIM loss (-ssim), QAT modes 1-3
-(-qm), resume (-c, -orfc, -hpc, -cis); for a video (an .npz bundle of
-frames and per-frame affines) the motion-compensated dual-model fit and
-the per-time-slab reseed loop (-rsi); and the outputs: metrics.jsonl,
-params/ and reconstructions/ per validation, checkpoints/ every 100
-iterations, params_best.pkl / params_last.pkl and, with -qm != 0,
-model_last.smoe and model_best.smoe (the global best), which
-smoe_tpu_torch.cli.reconstruct and smoe_tpu_torch.cli.decode read.  With
-`--device cuda` (the default) and no GPU present it fails rather than
-carry on on the CPU.  The input is a PNG, or an .npz video bundle (cv2's
-containers need OpenCV's decoder: convert them to .npz).
+The JAX CLI's image, video and light-field paths: the fit (K1 forward and
+K2 backward on the card), the least-squares expert init and refresh
+(-lsinit, -lsri), the incremental kernel loop (-is), the SSIM loss (-ssim),
+QAT modes 1-3 (-qm), the SV residual (-tvs, -svg, -svreg, -msv),
+error-proportional subsampling (-sp < 100), resume (-c, -orfc, -hpc,
+-cis); for a video (an .npz bundle of frames and per-frame affines) the
+motion-compensated dual-model fit and the per-time-slab reseed loop (-ri);
+for a light field (a .mat file) the corner-view mask, weighted by -lfcw;
+and the outputs: metrics.jsonl, params/ and reconstructions/ (a PNG, .yuv
+or .mat) per validation, checkpoints/ every 100 iterations,
+params_best.pkl / params_last.pkl and, with -qm != 0, model_last.smoe and
+model_best.smoe (the global best), which smoe_tpu_torch.cli.reconstruct
+and smoe_tpu_torch.cli.decode read.  With `--device cuda` (the default)
+and no GPU present it fails rather than carry on on the CPU.  The input is
+a PNG, an .npz video bundle (cv2's containers need OpenCV's decoder:
+convert them to .npz) or a .mat light field (a v7.3 file needs h5py).
 
 Not ported, raising NotImplementedError with their ROADMAP.md Queue 1
-item: light-field inputs (11), SVs and subsampling (-tvs,
--svg, -sp < 100: 12), the multi-host flags (14), the loss and image plots
-and -lsrs (7).
+item: the multi-host flags (14), the loss and image plots and -lsrs (7).
 """
 
 from __future__ import annotations
@@ -174,10 +175,6 @@ def _not_ported(what: str, item: int):
 
 
 def _refuse_unported(args) -> None:
-    if args.train_svs or args.sv_shared_grid:
-        _not_ported("the SV residual (-tvs, -svg)", 12)
-    if args.sampling_percentage < 100:
-        _not_ported("subsampling (-sp < 100)", 12)
     if (args.coordinator_address is not None or args.num_processes
             is not None or args.process_id is not None):
         _not_ported("the multi-host run (--coordinator_address, "
@@ -266,6 +263,7 @@ def main(args=None):
         add_kernel_slots=args.inc_steps * int(np.prod(kpd)),
         overlap=args.overlap_of_batches,
         kernel_count_as_norm_l1=args.kernel_count_norm_l1,
+        train_svs=args.train_svs, sv_shared_grid=args.sv_shared_grid,
         train_trafo=args.train_trafo,
         num_params_model=args.num_params_model,
         train_inverse_cov=args.train_inverse_cov,

@@ -5,9 +5,9 @@ Reference smoe.py:902-1053:
     eps = margin / 2^precision and optional per-pixel loss weights
   * YUV channel weighting 6/8 : 1/8 : 1/8
   * L1 on pis (sparsification), L1 on diag(A) (bandwidth)
+  * L1 - L2 on the support-vector residual's coefficients
   * reported MSE scaled by (2^precision)^2 so PSNR = 10 log10((2^p)^2 / mse)
-The SSIM loss and the SV penalty wait for their slices (ROADMAP.md
-Queue 1 items 8 and 12).
+The SSIM loss is core/ssim.py.
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ def pixel_loss(res: torch.Tensor, target: torch.Tensor, cfg: SmoeConfig,
     # |diff| with jnp.abs's derivative, +1 at diff == 0 (torch.abs gives 0
     # there, and a fake-quantized res equals an 8-bit target exactly on
     # many pixels); the max(0, .) of a square only differs on NaN
-    lp = torch.square(torch.where(diff >= 0, diff, -diff) - cfg.epsilon)
+    lp = torch.square(abs_jax(diff) - cfg.epsilon)
     if vm is not None:
         lp = lp * vm
     if loss_weights is not None:
@@ -92,6 +92,21 @@ def bandwidth_l1_reg(params: SmoeParams, cfg: SmoeConfig,
     diag = diag_of_A(params, cfg)                              # (K, d)
     return weight * torch.sum(torch.where(active_mask[:, None], diag,
                                           torch.zeros_like(diag)))
+
+
+def abs_jax(x: torch.Tensor) -> torch.Tensor:
+    """|x| with jnp.abs's derivative: +1 at x == 0, where torch.abs gives
+    0 (an SV coefficient starts at exactly 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def sv_l1_sub_l2_reg(sv: torch.Tensor, weight: float,
+                     block_pixels: int) -> torch.Tensor:
+    """Support-vector L1 - L2 penalty (losses.py:93-97, reference
+    smoe.py:1029-1036), normalised by the pixels fed."""
+    p1 = torch.sum(abs_jax(sv))
+    p2 = torch.sqrt(torch.sum(torch.square(sv)) + 1e-9)
+    return weight * 0.1 * (p1 - p2) / float(block_pixels)
 
 
 def psnr_from_mse(mse: float, precision: int) -> float:

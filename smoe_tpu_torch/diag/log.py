@@ -44,12 +44,19 @@ class ModelLogger:
                                          f"{it}.pkl"))
 
     def _write(self, rec, path, smoe) -> None:
-        """A PNG through io/images.write_image (d = 2), else .npy."""
-        if self.as_media and smoe.cfg.dim_domain == 2:
+        """The reconstruction as media through io/images.write_image (log.py:
+        47-57): a PNG (d = 2), a raw I420 `.yuv` (d = 3), a `.mat` light
+        field (d = 4); `.npy` where write_image refuses the array (a video
+        of odd size or above 8 bits) or as_media is off."""
+        if self.as_media:
             from smoe_tpu_torch.io.images import write_image
-            write_image(rec, path, 2, yuv=smoe.cfg.use_yuv,
-                        precision=smoe.cfg.precision)
-            return
+            try:
+                write_image(rec, path, smoe.cfg.dim_domain,
+                            yuv=smoe.cfg.use_yuv,
+                            precision=smoe.cfg.precision)
+                return
+            except ValueError:
+                pass
         np.save(path + ".npy", rec)
 
 

@@ -40,6 +40,7 @@ class BlockSet(NamedTuple):
     block_padded: Tuple[int, ...]      # block size per dim with 2*overlap
     overlap: int
     train_mask: Optional[torch.Tensor] = None   # (B, Nb) LF corner views
+    sv_index: Optional[torch.Tensor] = None     # (B, Nb) shared-grid SV rows
 
 
 def row_chunks(nb: int, width: int, budget_bytes: int = 2 << 30) -> int:
@@ -129,11 +130,23 @@ def build_blockset(image: np.ndarray, cfg: SmoeConfig,
             train_mask = dev(_block_view(tm, bs, ov)[..., 0] > 0.5,
                              torch.bool)
 
+    sv_index = None
+    if cfg.train_svs and cfg.sv_shared_grid:
+        # each padded-block pixel's global raster row; the zero pad at the
+        # image edge decodes as -1 and gathers the dummy row n_pix
+        # (blocks.py:144-153)
+        n_pix = int(np.prod(spatial))
+        idxf = np.arange(1, n_pix + 1, dtype=np.int64).reshape(
+            spatial + (1,))
+        iv = _block_view(idxf, bs, ov)[..., 0] - 1
+        iv[iv < 0] = n_pix
+        sv_index = dev(iv, torch.int64)
+
     return BlockSet(
         coords=dev(coords), targets=dev(targets), valid=dev(valid, torch.bool),
         probes=dev(probes), centers=dev(centers),
         image_shape=spatial, block_valued=bs, block_padded=win,
-        overlap=ov, train_mask=train_mask)
+        overlap=ov, train_mask=train_mask, sv_index=sv_index)
 
 
 def _lf_train_mask(spatial: Tuple[int, ...]) -> np.ndarray:

@@ -29,9 +29,19 @@ motion rows (Adam group 5, frame 0 frozen) on the plain path, since the
 fused op gives coords no gradient.  `reseed_time_slab` activates spare
 raw-domain kernels where the error is.
 
-Not ported yet, and raising NotImplementedError with their ROADMAP.md
-Queue 1 item: `mesh=` (14), `sampling_percentage < 100` and `train_svs`
-(12).
+Light fields (d = 4) train through the same sweep on the blocked corner-
+view mask (fit/blocks.py), a weight under `lf_corner_weight > 0`.
+
+`train_svs=True` adds the support-vector residual (`sv_residual`): one
+RBF coefficient and steering factor per pixel, block-local rows or, under
+`sv_shared_grid`, one row per image pixel gathered by every block that
+covers it (`_RowGather`, a backward without float atomics).
+`sampling_percentage < 100` trains each block on a Gumbel top-k draw of
+its pixels in proportion to the last reconstruction's error
+(`gumbel_topk`), the uniforms from the trainer's own torch.Generator.
+
+Not ported yet, and raising NotImplementedError: `mesh=` (ROADMAP.md
+Queue 1, multi-GPU training).
 """
 
 from __future__ import annotations
@@ -47,9 +57,11 @@ import torch
 from smoe_tpu_torch.config import OptConfig, SmoeConfig
 from smoe_tpu_torch.core import losses as L
 from smoe_tpu_torch.core.init import get_batch_shape, init_params
-from smoe_tpu_torch.core.model import (ForwardOut, clip_unit,
-                                       expert_regression, fake_quant_unit,
-                                       forward_fused, gating, maha_from_A,
+from smoe_tpu_torch.core.model import (ForwardOut, _aat, _exact_matmul,
+                                       clip_unit, expert_regression,
+                                       fake_quant_unit, forward_fused,
+                                       gating, kernel_quadratics,
+                                       maha_from_A, quadratic_features,
                                        resolve_fused)
 from smoe_tpu_torch.core.params import (SmoeParams, adam_state_from_numpy,
                                         assemble_A, params_from_numpy)
@@ -62,10 +74,12 @@ from smoe_tpu_torch.fit.blocks import (_block_view, build_blockset,
                                        update_kernel_lists)
 from smoe_tpu_torch.video.motion import transform_coords
 
-# the per-kernel fields of SmoeParams; a video fit also holds `motion`
-# (`Smoe._fields`); the SV fields are not ported
+# the per-kernel fields of SmoeParams; a video fit also holds `motion`, an
+# SV fit the per-pixel SV_FIELDS (`Smoe._fields`)
 PARAM_FIELDS = ("musX", "a_diag", "a_corr", "pis", "nu_e", "gamma_e")
+SV_FIELDS = ("sv", "sv_bw_diag", "sv_bw_corr")
 _MOTION_ROWS = ("h11", "h12", "h13", "h21", "h22", "h23", "h31", "h32")
+SV_COUNT_THRESHOLD = 5e-3     # num_sv and the eval's threshold (smoe.py:1536)
 
 
 def _not_ported(what: str, item: int):
@@ -107,6 +121,75 @@ def effective_params(params: SmoeParams, cfg: SmoeConfig,
                                     is not None) else eff.musX
     return EffParams(A=assemble_A(eff, cfg), musX=musX, nu_e=eff.nu_e,
                      gamma_e=eff.gamma_e, pis=eff.pis, motion=eff.motion)
+
+
+def sv_residual(coords: torch.Tensor, sv_rows: torch.Tensor,
+                bw_diag: torch.Tensor, bw_corr: torch.Tensor, thr_sv: float):
+    """Support-vector residual on a block (trainer.py:92-124, reference
+    smoe.py:688-709): every pixel a owns an RBF with its own steering factor
+    A_a,
+        res_sv[b] = sum_a exp(-(x_b - x_a)^T A_a A_a^T (x_b - x_a)) SV_a,
+    SVs below thr_sv zeroed, through the quadratic-feature product with
+    B' = 2 A A^T (exp(-m) = exp(-0.5 m')) in exact fp32, the maha clamped
+    at 0.  Forms an (Nb, Nb) map.  Returns (res_sv (Nb,), sv_eff (Nb, 1))."""
+    d = coords.shape[1]
+    eye = torch.eye(d, dtype=bw_diag.dtype, device=bw_diag.device)
+    diag = torch.diagonal(bw_diag, dim1=1, dim2=2)
+    A_sv = diag[:, :, None] * eye[None] + torch.tril(bw_corr, diagonal=-1)
+    q_sv = kernel_quadratics(2.0 * _aat(A_sv), coords)
+    maha = _exact_matmul(quadratic_features(coords), q_sv.T)
+    maha = torch.maximum(maha, maha.new_zeros(()))
+    kmat = torch.exp(-0.5 * maha)
+    sv_eff = sv_rows * (torch.abs(sv_rows) >= thr_sv)
+    return _exact_matmul(kmat, sv_eff)[:, 0], sv_eff
+
+
+class _RowGather(torch.autograd.Function):
+    """src (n, ...), idx (m,) int64 -> src[idx], for the shared-grid SV
+    rows (trainer.py:457-467): the real rows of a block's window are
+    distinct, and every image-edge pad position gathers the dummy row
+    n - 1.  The backward writes each real row's gradient with one copy and
+    sums the dummy row's in a fixed order, where index_add_ would add with
+    float atomics on the card, so two runs from one state give the same
+    bits."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = src.shape[0]
+        return src.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        n, m = ctx.n, idx.shape[0]
+        # each pad position to a scratch row of its own: every target is
+        # distinct, so index_copy_ involves no accumulation
+        spare = torch.arange(n, n + m, device=idx.device)
+        out = g.new_zeros((n + m,) + g.shape[1:])
+        out.index_copy_(0, torch.where(idx < n - 1, idx, spare), g)
+        grad = out[:n]
+        grad[n - 1] = out[n:].sum(0)
+        return grad, None
+
+
+def gumbel_topk(probs: torch.Tensor, uniform: torch.Tensor, sample_n: int,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The error-proportional draw without replacement of one block's
+    pixels (trainer.py:476-486; np.random.choice(p=...) of reference
+    smoe.py:1664-1667) as a Gumbel top-k on the given uniforms in
+    [1e-20, 1): scores = log(max(probs, 1e-20)) - log(-log(u)), masked to
+    -inf outside `valid` (bool, or a float weight > 0).  Returns the
+    sample_n indices in descending score order, equal scores lower index
+    first, as lax.top_k gives them."""
+    g = -torch.log(-torch.log(uniform))
+    scores = torch.log(torch.clamp(probs, min=1e-20)) + g
+    if valid is not None:
+        keep = valid if valid.dtype == torch.bool else valid > 0
+        scores = torch.where(keep, scores,
+                             scores.new_full((), float("-inf")))
+    order = torch.sort(scores, descending=True, stable=True).indices
+    return order[:sample_n]
 
 
 def _forward_eff(eff: EffParams, cfg: SmoeConfig, coords: torch.Tensor,
@@ -192,16 +275,25 @@ def _block_loss(params: SmoeParams, cfg: SmoeConfig, coords: torch.Tensor,
                 musX_grid: Optional[torch.Tensor],
                 block_padded: Tuple[int, ...], fused: bool = False,
                 k_cap: Optional[int] = None,
-                model_mask: Optional[torch.Tensor] = None):
+                model_mask: Optional[torch.Tensor] = None,
+                sv_blk=None, thr_sv: float = 0.0):
     """Loss of one block, differentiable in the raw params (trainer.py:
-    186-250 without the SV branch).
+    186-250).  sv_blk: this block's (sv, bw_diag, bw_corr) rows, whose
+    residual joins the Y channel before the clip and whose L1 - L2 penalty
+    is normalised by the rows fed.
     Returns (loss, (mse, survivors, err_map, num_active))."""
     eff = effective_params(params, cfg, musX_grid)
+    sv_add = sv_eff = None
+    if sv_blk is not None:
+        sv_add, sv_eff = sv_residual(coords, *sv_blk, thr_sv)
     out = _forward_eff(eff, cfg, coords, kernel_mask, fused=fused,
-                       k_cap=k_cap, model_mask=model_mask)
+                       sv_add=sv_add, k_cap=k_cap, model_mask=model_mask)
     loss_pix, la = _pixel_term(out.res, targets, cfg, loss_w, valid,
                                block_padded)
     loss, num_active = _with_reg(loss_pix, eff, cfg, kernel_mask, reg)
+    if sv_eff is not None:
+        loss = loss + L.sv_l1_sub_l2_reg(sv_eff, reg.sv_l1_sub_l2,
+                                         int(sv_eff.shape[0]))
     return loss, (la.mse, out.survivors, la.err_map, num_active)
 
 
@@ -210,9 +302,12 @@ def make_optimizer(params: SmoeParams, cfg: SmoeConfig,
     """One torch.optim.Adam over the reference's learning-rate groups,
     counterpart of `make_tx` (trainer.py:253-286): {nu_e, gamma_e, musX}
     at base_lr, pis at base_lr / lr_div, A (a_diag, a_corr) at
-    base_lr * lr_mult, and under train_trafo the video motion rows at
-    base_lr (the main optimizer only, not the inc one).  A group optax sets
-    to zero (disabled or lr 0) is left out, so its tensors never move.  The
+    base_lr * lr_mult, under train_svs the SV rows at base_lr *
+    lr_mult_sv, and under train_trafo the video motion rows at base_lr
+    (those two in the main optimizer only: the inc one gives them zero
+    gradients, which move no Adam state that starts at zero).  A group
+    optax sets to zero (disabled or lr 0) is left out, so its tensors never
+    move.  The
     gradient clip (`grad_clip_value_abs`) is applied by the trainer before
     each step."""
     oc = opt_cfg
@@ -223,6 +318,8 @@ def make_optimizer(params: SmoeParams, cfg: SmoeConfig,
             ("musx", ("musX",), oc.base_lr, cfg.train_musx),
             ("pis", ("pis",), oc.base_lr / oc.lr_div, cfg.train_pis),
             ("A", ("a_diag", "a_corr"), oc.base_lr * oc.lr_mult, True),
+            ("sv", SV_FIELDS, oc.base_lr * oc.lr_mult_sv,
+             cfg.train_svs and not inc and params.sv is not None),
             ("motion", ("motion",), oc.base_lr,
              cfg.train_trafo and not inc and params.motion is not None)):
         if enabled and lr != 0:
@@ -236,8 +333,6 @@ def _check_ported(cfg: SmoeConfig) -> None:
     if cfg.compute_dtype != "float32":
         raise ValueError("compute_dtype must be 'float32': a bf16 maha is "
                          "a measured fault and is not ported")
-    if cfg.train_svs:
-        _not_ported("the SV residual (train_svs)", 12)
 
 
 class Smoe:
@@ -410,6 +505,14 @@ class Smoe:
         self._main_rows = main
         self.inc_optimizer: Optional[torch.optim.Adam] = None
         self.phase_timer = PhaseTimer()
+        # error-proportional sampling: per-block probabilities (uniform
+        # until an eval with the reconstruction, trainer.py:1117-1119,
+        # 1405) and the draw's own generator, seeded as JAX's PRNGKey(0)
+        nb = int(np.prod(self.bset.block_padded))
+        self.sampling_probs = torch.full((self.start_batches, nb), 1.0 / nb,
+                                         device=self.device)
+        self.reconstruction_sv = None
+        self._reseed_generator()
 
     # ---------------- parameters ----------------
 
@@ -427,10 +530,15 @@ class Smoe:
                                    device=self.device) for f in PARAM_FIELDS}
         motion = p.motion if motion_init is None else motion_init
         self._fields = PARAM_FIELDS
+        if p.sv is not None:
+            for f in SV_FIELDS:
+                vals[f] = torch.as_tensor(np.array(getattr(p, f), np.float32),
+                                          device=self.device)
+            self._fields = PARAM_FIELDS + SV_FIELDS
         if motion is not None:
             vals["motion"] = torch.as_tensor(np.array(motion, np.float32),
                                              device=self.device)
-            self._fields = PARAM_FIELDS + ("motion",)
+            self._fields = self._fields + ("motion",)
         if self.cfg.use_diff_center and (self.musX_grid is None
                                          or zero_diff):
             if self.musX_grid is None:
@@ -603,7 +711,63 @@ class Smoe:
                 valid = tm if valid is None else tm * valid
         return valid
 
-    def _sweep_grads(self, lists, reg: RegWeights, loss_w, k_cap):
+    def _reseed_generator(self) -> None:
+        self._gen = torch.Generator(device=self.device).manual_seed(0)
+
+    def _sample_uniform(self, n: int) -> torch.Tensor:
+        """n uniforms in [1e-20, 1) from the trainer's generator, on the
+        device (jax.random.uniform(minval=1e-20), trainer.py:480-481)."""
+        u = torch.rand((n,), generator=self._gen, device=self.device)
+        return torch.clamp(u, min=1e-20)
+
+    def _sample_n(self, sampling_percentage) -> Optional[int]:
+        """Pixels a block trains on under subsampling, or None: the JAX
+        sweep samples only below 100 % and neither under the SSIM loss nor
+        under overlap (trainer.py:440-442)."""
+        if sampling_percentage >= 100 or self.cfg.ssim_opt \
+                or self.cfg.overlap > 0:
+            return None
+        return int(round(np.prod(self.bset.block_padded)
+                         * sampling_percentage / 100.0))
+
+    def _sv_block(self, b: int):
+        """Block b's (sv, bw_diag, bw_corr) rows (trainer.py:456-475): a
+        slice of the block-local rows, or the shared grid's rows gathered
+        by the block's window, the dummy row's SV zeroed."""
+        p = self.params
+        idx = self.bset.sv_index
+        if idx is not None:
+            svix = idx[b]
+            real = (svix < p.sv.shape[0] - 1)[:, None]
+            return (_RowGather.apply(p.sv, svix) * real,
+                    _RowGather.apply(p.sv_bw_diag, svix),
+                    _RowGather.apply(p.sv_bw_corr, svix))
+        nb = self.bset.coords.shape[1]
+        sl = slice(b * nb, (b + 1) * nb)
+        return p.sv[sl], p.sv_bw_diag[sl], p.sv_bw_corr[sl]
+
+    def _block_inputs(self, b: int, loss_w, sample_n: Optional[int]):
+        """(coords, targets, loss weights, valid, SV rows) of block b as a
+        training sweep feeds them (trainer.py:446-501); under subsampling
+        the drawn pixels, SV rows riding the same indices, with no valid
+        mask left."""
+        coords, targets = self.bset.coords[b], self.bset.targets[b]
+        lw = None if loss_w is None else loss_w[b]
+        valid = self._valid(b)
+        sv_blk = self._sv_block(b) if self.cfg.train_svs else None
+        if sample_n is not None:
+            idx = gumbel_topk(self.sampling_probs[b],
+                              self._sample_uniform(coords.shape[0]),
+                              sample_n, valid)
+            coords, targets = coords[idx], targets[idx]
+            lw = None if lw is None else lw[idx]
+            valid = None
+            if sv_blk is not None:
+                sv_blk = tuple(a[idx] for a in sv_blk)
+        return coords, targets, lw, valid, sv_blk
+
+    def _sweep_grads(self, lists, reg: RegWeights, loss_w, k_cap,
+                     sample_n: Optional[int] = None, thr_sv: float = 0.0):
         """Forward + backward over every block; the gradients are summed
         unweighted into .grad, zero-filled first so that every tensor the
         optimizer holds takes its step (optax updates a leaf from momentum
@@ -619,12 +783,13 @@ class Smoe:
         loss_acc, mse_acc = zero, zero
         survivors = []
         for b in range(self.start_batches):
+            coords, targets, lw, valid, sv_blk = self._block_inputs(
+                b, loss_w, sample_n)
             loss, (mse, surv, _, _) = _block_loss(
-                self.params, self.cfg, self.bset.coords[b],
-                self.bset.targets[b], lists[b], self._valid(b),
-                None if loss_w is None else loss_w[b], reg, self.musX_grid,
-                self.bset.block_padded, fused=self.fused, k_cap=k_cap,
-                model_mask=self.model_mask)
+                self.params, self.cfg, coords, targets, lists[b], valid, lw,
+                reg, self.musX_grid, self.bset.block_padded,
+                fused=self.fused, k_cap=k_cap, model_mask=self.model_mask,
+                sv_blk=sv_blk, thr_sv=thr_sv)
             loss.backward()
             loss_acc = loss_acc + bw * loss.detach()
             mse_acc = mse_acc + bw * mse.detach()
@@ -687,10 +852,6 @@ class Smoe:
         return {"probes": probes, "probes_raw": self.bset.probes,
                 "model_mask": self.model_mask}
 
-    def _check_sweep(self, sampling_percentage) -> None:
-        if sampling_percentage < 100:
-            _not_ported("sampling_percentage < 100 (subsampling)", 12)
-
     def run_batched_chunk(self, n_steps, pis_l1=0.0, u_l1=0.0,
                           sv_l1_sub_l2=0.0, sampling_percentage=100,
                           train_orig=True, train_inc=False, thr_sv=None,
@@ -698,23 +859,25 @@ class Smoe:
         """`n_steps` training sweeps with one host pull at the end
         (trainer.py:1240-1294).  Returns per-step numpy arrays (loss, mse,
         num_pi, num_sv); each step's metrics describe the params before
-        that step's update."""
-        self._check_sweep(sampling_percentage)
+        that step's update.  The SVs train at thr_sv (None: 0, as the
+        reference trains, smoe.py:1552)."""
         if self.optimizer is None:
             self.set_optimizer()
         reg = RegWeights(float(pis_l1), float(u_l1), float(sv_l1_sub_l2))
         lw = self.loss_mask if use_loss_mask else None
+        tsv = 0.0 if thr_sv is None else float(thr_sv)
+        sample_n = self._sample_n(sampling_percentage)
         k_cap = self._current_k_cap()
         lists = self._kernel_lists
         rows = []
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
         for _ in range(int(n_steps)):
-            loss, mse, survivors = self._sweep_grads(lists, reg, lw, k_cap)
+            loss, mse, survivors = self._sweep_grads(lists, reg, lw, k_cap,
+                                                     sample_n, tsv)
             with torch.no_grad():
                 # metrics of the params before this step's update
                 m = SweepMetrics(loss=loss, mse=mse, num_pi=torch.sum(
-                    apply_qat(self.params, self.cfg).pis > 0), num_sv=zero,
-                    survivors=survivors)
+                    apply_qat(self.params, self.cfg).pis > 0),
+                    num_sv=self._num_sv(), survivors=survivors)
                 if train_orig or train_inc:
                     self._step(train_orig, train_inc)
                 lists = m.survivors
@@ -782,11 +945,13 @@ class Smoe:
         def fwd():
             for _ in range(n_steps):
                 for b in range(self.start_batches):
-                    _block_loss(self.params, self.cfg, self.bset.coords[b],
-                                self.bset.targets[b], lists[b],
-                                self._valid(b), None, reg, self.musX_grid,
+                    coords, targets, _, valid, sv_blk = self._block_inputs(
+                        b, None, None)
+                    _block_loss(self.params, self.cfg, coords, targets,
+                                lists[b], valid, None, reg, self.musX_grid,
                                 self.bset.block_padded, fused=self.fused,
-                                k_cap=kcap, model_mask=self.model_mask)
+                                k_cap=kcap, model_mask=self.model_mask,
+                                sv_blk=sv_blk)
 
         def fwd_bwd():
             for _ in range(n_steps):
@@ -803,27 +968,44 @@ class Smoe:
                 "k_cap": float(kcap) if kcap is not None
                 else float(self.cfg.capacity)}
 
+    def _num_sv(self) -> torch.Tensor:
+        """The count of SVs above 5e-3 in magnitude (trainer.py:619), 0
+        without SVs."""
+        if self.params.sv is None:
+            return torch.zeros((), dtype=torch.int64, device=self.device)
+        return torch.sum(torch.abs(self.params.sv) > SV_COUNT_THRESHOLD)
+
     @torch.no_grad()
     def _eval_sweep(self, eff: EffParams, klists, loss_w, reg: RegWeights,
-                    with_rec: bool, exact: bool):
+                    with_rec: bool, exact: bool, thr_sv: float):
         """Eval sweep (trainer.py:685-836).  with_rec or exact: the plain
         path, row-chunked, with the reconstruction and the gating argmax;
         otherwise the light validation
         through the fused op at full width.  Quantized-param evals (exact)
-        must match the decoder, so they never take the fused op."""
+        must match the decoder, so they never take the fused op.  The SV
+        residual (float SVs at thr_sv) joins every eval, with its penalty
+        normalised by the block's pixels.  with_rec also returns each
+        block's sampling probabilities and SV map."""
         cfg = self.cfg
         bw = self.block_weight
         plain = with_rec or exact
+        nb = int(np.prod(self.bset.block_padded))
         loss_acc = torch.zeros((), device=self.device)
         mse_acc = torch.zeros((), device=self.device)
-        res_l, wam_l, surv_l = [], [], []
+        res_l, wam_l, surv_l, prob_l, sv_l = [], [], [], [], []
         for b in range(self.start_batches):
             coords, kmask = self.bset.coords[b], klists[b]
+            sv_add = sv_eff = None
+            if cfg.train_svs and self.params.sv is not None:
+                sv_add, sv_eff = sv_residual(coords, *self._sv_block(b),
+                                             thr_sv)
             if plain:
                 s = row_chunks(coords.shape[0], int(cfg.capacity))
                 m = coords.shape[0] // s
                 outs = [_forward_eff(eff, cfg, coords[i * m:(i + 1) * m],
-                                     kmask, model_mask=self.model_mask)
+                                     kmask, model_mask=self.model_mask,
+                                     sv_add=None if sv_add is None
+                                     else sv_add[i * m:(i + 1) * m])
                         for i in range(s)]
                 res = torch.cat([o.res for o in outs])
                 surv = torch.stack([o.survivors for o in outs]).any(dim=0)
@@ -832,22 +1014,30 @@ class Smoe:
                                             for o in outs]))
             else:
                 out = _forward_eff(eff, cfg, coords, kmask, fused=self.fused,
-                                   model_mask=self.model_mask)
+                                   model_mask=self.model_mask, sv_add=sv_add)
                 res, surv = out.res, out.survivors
             loss_pix, la = _pixel_term(
                 res, self.bset.targets[b], cfg,
                 None if loss_w is None else loss_w[b], self._valid(b),
                 self.bset.block_padded)
             loss, _ = _with_reg(loss_pix, eff, cfg, kmask, reg)
+            if sv_eff is not None:
+                loss = loss + L.sv_l1_sub_l2_reg(sv_eff, reg.sv_l1_sub_l2,
+                                                 nb)
             loss_acc = loss_acc + bw * loss
             mse_acc = mse_acc + bw * la.mse
             surv_l.append(surv)
             if with_rec:
                 res_l.append(res)
+                prob_l.append(la.err_map / torch.clamp(
+                    torch.sum(la.err_map), min=1e-30))
+                if sv_add is not None:
+                    sv_l.append(sv_add)
         num_pi = torch.sum(eff.pis > 0)
         rec = None
         if with_rec:
-            rec = (torch.stack(res_l), torch.stack(wam_l))
+            rec = (torch.stack(res_l), torch.stack(wam_l),
+                   torch.stack(prob_l), torch.stack(sv_l) if sv_l else None)
         return loss_acc, mse_acc, torch.stack(surv_l), num_pi, rec
 
     def run_batched(self, pis_l1=0.0, u_l1=0.0, sv_l1_sub_l2=0.0, train=True,
@@ -873,12 +1063,19 @@ class Smoe:
         if self.cfg.in_graph_ukl:
             # dense validation: every active kernel (trainer.py:1375-1382)
             kl = (eff.pis > 0)[None, :].expand(kl.shape)
+        # the SVs evaluate at the reporting threshold (smoe.py:1536, 1558)
         loss, mse, surv, num_pi, rec = self._eval_sweep(
             eff, kl, lw, reg, with_rec=bool(update_reconstruction),
-            exact=bool(with_quantized_params))
-        h = torch.stack([loss, mse, num_pi.float()]).cpu().numpy()
+            exact=bool(with_quantized_params),
+            thr_sv=SV_COUNT_THRESHOLD if thr_sv is None else float(thr_sv))
+        h = torch.stack([loss, mse, num_pi.float(),
+                         self._num_sv().float()]).cpu().numpy()
         if update_reconstruction:
-            res, wam = rec
+            res, wam, probs, sv_map = rec
+            self.sampling_probs = probs
+            if sv_map is not None:
+                self.reconstruction_sv = stitch_blocks(
+                    sv_map[..., None], self.bset)[..., 0].cpu().numpy()
             image = stitch_blocks(res, self.bset).cpu().numpy()
             wam = stitch_blocks(wam[..., None], self.bset)[..., 0] \
                 .cpu().numpy()
@@ -892,7 +1089,7 @@ class Smoe:
                 self.valid = True
         if not with_quantized_params:
             self._update_kernel_lists_from(surv)
-        return float(h[0]), float(h[1]), int(h[2]), 0
+        return float(h[0]), float(h[1]), int(h[2]), int(h[3])
 
     def _update_kernel_lists_from(self, survivors):
         """Lists <- eval survivors (trainer.py:1420-1432): shrink-only, so
@@ -975,7 +1172,6 @@ class Smoe:
         best-loss snapshot, callbacks.  ls_refresh_iter: every N iterations
         re-solve the experts in closed form (mode "kernel", line-searched,
         so the blend mse cannot rise)."""
-        self._check_sweep(sampling_percentage)
         if ukl_iter is None:
             ukl_iter = val_iter
         if grad_clip_value_abs is not None and \
@@ -985,7 +1181,9 @@ class Smoe:
             self.set_optimizer(grad_clip_value_abs=grad_clip_value_abs)
         if self.optimizer is None:
             self.set_optimizer()
-        upd_rec = bool(callbacks)
+        # the reconstruction's error map refreshes the sampling
+        # probabilities (trainer.py:1517-1521)
+        upd_rec = bool(callbacks) or sampling_percentage < 100
         qm = self.cfg.quantization_mode
 
         if qm >= 1:
@@ -1236,6 +1434,7 @@ class Smoe:
         self.iter = 0
         self.losses, self.mses, self.num_pis, self.num_svs = [], [], [], []
         self.best_loss = self.best_mse = self.best_params = None
+        self._reseed_generator()
 
     @torch.no_grad()
     def re_normalize_pis(self):

@@ -1,6 +1,6 @@
-"""Image and video input and output of the port (from
-smoe_tpu/io/images.py:24-49, 93-114 and 139-179; PNG images, `.npz` video
-bundles in, raw I420 `.yuv` video out).
+"""Image, video and light-field input and output of the port (from
+smoe_tpu/io/images.py:24-191; PNG images, `.npz` video bundles and `.mat`
+light fields in, PNG, raw I420 `.yuv` video and `.mat` light fields out).
 
 Written in numpy, zlib and struct alone, so it runs where OpenCV and PIL
 are absent:
@@ -8,8 +8,10 @@ are absent:
     (all five row filters) into what `cv2.imread(path, IMREAD_UNCHANGED)`
     returns: (H, W) gray, (H, W, 3) BGR or (H, W, 4) BGRA;
   * `bgr_to_yuv` is OpenCV's `COLOR_BGR2YUV`: the 14-bit fixed-point
-    integer path on uint8 and the fused-multiply-add float path on
-    float32, so `read_image` gives the JAX package's values;
+    integer path on uint8 and uint16 and the fused-multiply-add float path
+    on float32 (OpenCV's scalar loop; its vector loop, which wide float
+    rows take, can round the last bit otherwise), so `read_image` gives
+    the JAX package's values;
   * `read_image` keeps the JAX reader's gray auto-detect, alpha drop and
     uint16 scaling;
   * `yuv_to_bgr` is OpenCV's integer `COLOR_YUV2BGR` (color_yuv: 14-bit
@@ -21,10 +23,15 @@ are absent:
     `bgr_to_yuv` of the flipped channels, which is cv2's `COLOR_RGB2YUV`;
   * `bgr_to_i420` is OpenCV's `COLOR_BGR2YUV_I420` (BT.601 studio range,
     20-bit fixed point, chroma taken from the top-left pixel of each 2 x 2
-    cell), so a `.yuv` file holds the bytes the JAX package writes.
-Other image formats, cv2's video containers (`.mp4`, `.avi`, ...: the
-card's machine has no OpenCV to decode them; convert to `.npz`) and light
-fields raise NotImplementedError.
+    cell), so a `.yuv` file holds the bytes the JAX package writes;
+  * a `.mat` light field (variable `LF`, (U, V, H, W, C)) reads through
+    `scipy.io.loadmat` (MATLAB v5 / v7) or, for a v7.3 (HDF5) file, through
+    h5py when it imports; without h5py a v7.3 file raises the JAX
+    package's ValueError naming the conversion.  `write_image` writes
+    d = 4 through `scipy.io.savemat`, or as v7.3 through h5py.
+Other image formats and cv2's video containers (`.mp4`, `.avi`, ...: the
+card's machine has no OpenCV to decode them; convert to `.npz`) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,20 +67,23 @@ def _fma32(a: np.ndarray, b: np.float32, c) -> np.ndarray:
 
 def bgr_to_yuv(bgr: np.ndarray) -> np.ndarray:
     """(..., 3) BGR -> YUV of the same dtype, as cv2.cvtColor(x,
-    cv2.COLOR_BGR2YUV): uint8 through the integer path (CV_DESCALE by
-    2^14, saturating), float32 through the SIMD float path
-    (Y = fma(R, .299, fma(B, .114, G * .587)), U = fma(B - Y, .492, .5),
-    V = fma(R - Y, .877, .5))."""
-    if bgr.dtype == np.uint8:
+    cv2.COLOR_BGR2YUV): uint8 and uint16 through the integer path
+    (CV_DESCALE by 2^14, chroma offset half the range, saturating),
+    float32 through the float path of OpenCV's scalar loop (Y = fma(R,
+    .299, fma(B, .114, G * .587)), U = fma(B - Y, .492, .5), V = fma(R - Y,
+    .877, .5)); OpenCV's vector loop can round the last bit otherwise."""
+    if bgr.dtype in (np.uint8, np.uint16):
+        info = np.iinfo(bgr.dtype)
         b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
         half = 1 << (_YUV_SHIFT - 1)
-        delta = 128 << _YUV_SHIFT
+        delta = ((int(info.max) + 1) // 2) << _YUV_SHIFT
         y = (b * _C_BY + g * _C_GY + r * _C_RY + half) >> _YUV_SHIFT
         u = ((b - y) * _C_BU_I + delta + half) >> _YUV_SHIFT
         v = ((r - y) * _C_RV_I + delta + half) >> _YUV_SHIFT
-        return np.clip(np.stack([y, u, v], -1), 0, 255).astype(np.uint8)
+        return np.clip(np.stack([y, u, v], -1), 0,
+                       info.max).astype(bgr.dtype)
     if bgr.dtype != np.float32:
-        raise ValueError(f"bgr_to_yuv takes uint8 or float32, got "
+        raise ValueError(f"bgr_to_yuv takes uint8, uint16 or float32, got "
                          f"{bgr.dtype}")
     b, g, r = (bgr[..., i] for i in range(3))
     y = _fma32(r, _F_RY, _fma32(b, _F_BY, g * _F_GY))
@@ -167,13 +177,33 @@ def read_png(path: str) -> np.ndarray:
     return img[..., [2, 1, 0, 3][:ch]]          # RGB(A) -> BGR(A)
 
 
+def read_mat(path: str) -> np.ndarray:
+    """The `LF` array of a `.mat` light field (images.py:69-85): MATLAB v5 /
+    v7 through scipy.io.loadmat; v7.3, an HDF5 container that loadmat
+    refuses, through h5py, whose column-major axes transpose() restores to
+    (U, V, H, W, C).  Without h5py a v7.3 file raises ValueError."""
+    from scipy.io import loadmat
+    try:
+        return loadmat(path)["LF"]
+    except NotImplementedError:
+        try:
+            import h5py
+        except ImportError as e:
+            raise ValueError(
+                "v7.3 .mat light fields need h5py; convert with "
+                "scipy.io.savemat(..., do_compression=True) first") from e
+        with h5py.File(path, "r") as f:
+            return np.asarray(f["LF"]).transpose()
+
+
 def read_image(path: str, use_yuv: bool = True
                ) -> Tuple[np.ndarray, int, Optional[np.ndarray]]:
-    """images.py:24-49, 93-114: (float image in [0, 1], precision 8 or 16,
+    """images.py:24-114: (float image in [0, 1], precision 8 or 16,
     affines or None).  A PNG gives (H, W, C): gray auto-detect, alpha
     dropped, BGR -> YUV when use_yuv; uint16 scales by 1 / 2^16 as in JAX.
     A `.npz` bundle gives a video (H, W, T, C) and its (T, 2|3, 3)
-    affines."""
+    affines.  A `.mat` light field gives (U, V, H, W, C) with at most three
+    channels, RGB -> YUV per view when use_yuv and C = 3."""
     affines = None
     p = path.lower()
     if p.endswith(".png"):
@@ -214,9 +244,11 @@ def read_image(path: str, use_yuv: bool = True
             "(imgs (T, H, W, C) uint8 RGB + affines): decoding a container "
             "needs OpenCV; convert it to .npz (ROADMAP.md Queue 1 item 10)")
     elif p.endswith(".mat"):
-        raise NotImplementedError(
-            f"{path}: light-field input is not ported to smoe_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 11)")
+        orig = read_mat(path)[..., 0:3]
+        if use_yuv and orig.shape[-1] == 3:      # grayscale LFs skip YUV
+            # per view cv2's COLOR_RGB2YUV (images.py:87-91), which is
+            # COLOR_BGR2YUV of the flipped channels
+            orig = bgr_to_yuv(np.ascontiguousarray(orig[..., ::-1]))
     else:
         raise ValueError(f"Unknown data format: {path}")
 
@@ -304,16 +336,35 @@ def write_png(path: str, img: np.ndarray) -> None:
         fd.write(_chunk(b"IEND", b""))
 
 
+def _write_mat_v73(path: str, lf: np.ndarray) -> None:
+    """A MATLAB v7.3 (HDF5) light-field container (images.py:117-136): the
+    column-major dataset with its MATLAB_class attribute and the 512-byte
+    MAT userblock header, which MATLAB and `read_mat` accept."""
+    import h5py
+    classes = {"uint8": b"uint8", "uint16": b"uint16",
+               "float32": b"single", "float64": b"double"}
+    with h5py.File(path, "w", userblock_size=512) as f:
+        ds = f.create_dataset("LF", data=lf.transpose())
+        ds.attrs.create(
+            "MATLAB_class", np.bytes_(classes.get(str(lf.dtype), b"double")))
+    head = b"MATLAB 7.3 MAT-file, created by smoe_tpu"
+    with open(path, "r+b") as fd:
+        fd.write(head.ljust(116, b" "))
+        fd.write(b"\x00" * 8)                       # subsystem data offset
+        fd.write(struct.pack("<H", 0x0200))         # version
+        fd.write(b"IM")                             # endian indicator
+
+
 def write_image(img: np.ndarray, path: str, dim_domain: int,
-                yuv: bool = True, precision: int = 8) -> str:
-    """Write a reconstruction (images.py:139-179, reference
+                yuv: bool = True, precision: int = 8,
+                mat_v73: bool = False) -> str:
+    """Write a reconstruction (images.py:139-191, reference
     utils.py:136-162): a PNG for d = 2, a raw I420 `.yuv` stream for a
-    video (H, W, T, C) of 8-bit precision.  Returns the path actually
-    written."""
-    if dim_domain not in (2, 3):
-        raise NotImplementedError(
-            "smoe_tpu_torch writes images (d=2) and video (d=3); "
-            "light-field output is not ported yet (ROADMAP.md, Queue 1)")
+    video (H, W, T, C) of 8-bit precision, a `.mat` light field (U, V, H,
+    W, C) for d = 4 (YUV -> RGB per view; v7.3 through h5py with mat_v73).
+    Returns the path actually written."""
+    if dim_domain not in (2, 3, 4):
+        raise ValueError(f"unsupported dim_domain {dim_domain}")
     if precision == 8:
         out = np.uint8(np.round(img * 255))
     else:
@@ -333,6 +384,17 @@ def write_image(img: np.ndarray, path: str, dim_domain: int,
                     frame = bgr_to_yuv(np.ascontiguousarray(frame))
                 fd.write(bgr_to_i420(yuv_to_bgr(frame)).tobytes())
         return path + ".yuv"
+    if dim_domain == 4:
+        lf = out
+        if yuv and lf.shape[-1] == 3:
+            # per view cv2's COLOR_YUV2RGB (images.py:182-185)
+            lf = np.ascontiguousarray(yuv_to_bgr(lf)[..., ::-1])
+        if mat_v73:
+            _write_mat_v73(path + ".mat", lf)
+        else:
+            from scipy.io import savemat
+            savemat(path + ".mat", {"LF": lf})
+        return path + ".mat"
     if out.shape[-1] == 3:
         # the codec works in BGR->YUV (images.py:42-49); a PNG holds RGB
         bgr = yuv_to_bgr(out) if yuv else out

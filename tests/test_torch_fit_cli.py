@@ -149,7 +149,6 @@ def test_resume_only_reconstruction_matches(png, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-tvs", "1"], 12), (["-svg", "1"], 12), (["-sp", "50"], 12),
     (["--coordinator_address", "localhost:1234"], 14),
     (["--num_processes", "2"], 14), (["-lsrs", "5"], 7)])
 def test_unported_flags_raise(png, tmp_path, flags, item):

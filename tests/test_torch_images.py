@@ -151,7 +151,7 @@ def test_yuv_round_trip_through_write_image(tmp_path):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("clip.mp4", ".npz"), ("lf.mat", "item 11"), ("photo.jpg", "PNG"), ("scan.tif", "PNG")])
+    ("clip.mp4", ".npz"), ("photo.jpg", "PNG"), ("scan.tif", "PNG")])
 def test_other_formats_raise(name, match):
     with pytest.raises(NotImplementedError, match=match):
         timg.read_image(name)
@@ -230,8 +230,3 @@ def test_yuv_video_bytes_match_jax(tmp_path, c, yuv):
         a, b = fa.read(), fb.read()
     assert len(b) == 12 * 20 * 3 // 2 * 4
     assert a == b
-
-
-def test_lightfield_output_is_not_ported():
-    with pytest.raises(NotImplementedError, match="light-field"):
-        timg.write_image(np.zeros((2, 2, 4, 4, 3), np.float32), "x", 4)

@@ -157,6 +157,44 @@ shutil.rmtree(d)
     _run(extra)
 
 
+def test_lightfield_and_sv_paths_run_without_jax():
+    """The light-field entry points end to end on the CPU in a process where
+    jax is never loaded (a .mat through cli.fit with the corner weight,
+    cli.reconstruct and cli.decode to .mat), and an SV fit on the shared
+    grid under overlap with subsampling."""
+    extra = """
+import os, shutil, tempfile
+import numpy as np
+from scipy.io import loadmat, savemat
+import chip_smoke
+from bench import build_image
+from smoe_tpu_torch.cli import decode, fit, reconstruct
+from smoe_tpu_torch.fit.trainer import Smoe
+lf = chip_smoke.build_lf(s=4)
+d = tempfile.mkdtemp()
+mat = os.path.join(d, "lf.mat")
+savemat(mat, {"LF": lf})
+s = fit.main(["-i", mat, "-r", os.path.join(d, "fit"), "-k", "2", "2", "2",
+              "2", "-n", "4", "-v", "2", "-qm", "1", "-iukl", "1", "-lfcw",
+              "0.1", "--device", "cpu"])
+assert s.cfg.dim_domain == 4 and s.bset.train_mask is not None
+rec = reconstruct.main(["-i", mat, "-p", os.path.join(d, "fit",
+                        "params_best.pkl"), "-r", os.path.join(d, "enc"),
+                        "--device", "cpu"])
+dec = decode.main(["-p", os.path.join(d, "enc", "model.smoe"), "-r",
+                   os.path.join(d, "dec"), "--device", "cpu"])
+assert dec.shape == lf.shape and np.abs(dec - rec).max() <= 1.01 / 255
+assert loadmat(os.path.join(d, "dec", "output.mat"))["LF"].shape == lf.shape
+t = Smoe(build_image(16), kernels_per_dim=[2], train_svs=True,
+         sv_shared_grid=True, batch_size=(8, 8), overlap=1, device="cpu")
+_, mse, _, _ = t.run_batched_chunk(2)
+_, mse2, _, _ = t.run_batched_chunk(2, sampling_percentage=50)
+assert np.isfinite(mse).all() and np.isfinite(mse2).all()
+shutil.rmtree(d)
+"""
+    _run(extra)
+
+
 def test_chip_smoke_refuses_without_a_gpu():
     """chip_smoke.py measures the card or fails: without CUDA it exits
     non-zero and prints no result line."""

@@ -258,25 +258,16 @@ def test_phase_breakdown_on_cpu():
     assert ph["step"] > 0 and ph["fwd"] > 0 and ph["k_cap"] == 128.0
 
 
-@pytest.mark.parametrize("what", ["mesh", "train_svs", "sampling", "bf16"])
+@pytest.mark.parametrize("what", ["mesh", "bf16"])
 def test_unported_options_raise(what):
     img = _toy(16)
-    kw = {"mesh": dict(mesh=object()),
-          "train_svs": dict(train_svs=True)}.get(what)
     if what == "bf16":
         with pytest.raises(ValueError, match="float32"):
             Smoe(img, kernels_per_dim=[2], device="cpu",
                  compute_dtype="bfloat16")
         return
-    if kw is not None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Smoe(img, kernels_per_dim=[2], device="cpu", **kw)
-        return
-    s = Smoe(img, kernels_per_dim=[2], device="cpu")
-    call = {"sampling": lambda: s.run_batched_chunk(
-        1, sampling_percentage=50)}[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+        Smoe(img, kernels_per_dim=[2], device="cpu", mesh=object())
 
 
 def test_phase_timer_matches_jax():
