@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port's serving decode, trainer, forward
-ablation variants, encode CLI, fit CLI, video path, light-field path and
-SV residual / subsampling on one NVIDIA GPU.
+ablation variants, encode CLI, fit CLI, video path, light-field path, SV
+residual / subsampling and mesh paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -161,6 +161,20 @@ no result line) on any fault:
      operands, full and subsampled (2,048 pixels in score order), with
      times and candidate fractions; shared-grid SVs under overlap 1 train
      and leave the dummy row at 0.
+ 20. the mesh paths (parallel/, Smoe(mesh=), the decode's mesh=) on the one
+     card: (1) NCCL at world size 1 in this process: the flagship fit of
+     phase 8 through Smoe(mesh=make_mesh(1, 1)), 20 sweeps, losses and
+     params bit-identical to phase 8's, and the 4K x 2304 decode of phase
+     7 with a one-rank mesh, bit-identical to phase 7's; (2) gloo with 2
+     ranks on cuda:0 in spawned processes (file store, timeout): the 1080p
+     fit of phase 12 in 16 blocks, 8 a rank, 20 sweeps, each sweep's mse
+     within TRAJ_RTOL of phase 12's one-card fit, K1 and K2 launched on
+     each rank, the ranks' losses equal bit for bit; the 4K decode split
+     over the 2 ranks, bit-identical to phase 7's; the flagship on a
+     (1, 2) ('b', 'k') mesh on the plain path, 10 sweeps within TRAJ_RTOL
+     of phase 8's plain path; (3) s/iter and decode ms beside their
+     one-card counterparts: the collectives' cost on one card, not a
+     scaling result.
 Launch counts are zeroed before each path and read after it; the launches
 made to compare a kernel with its plain version are not counted.  Then
 prints the card line, one JSON line of kernel results (each with its
@@ -174,6 +188,7 @@ them), and
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import math
 import os
@@ -952,6 +967,11 @@ def flagship_smoe(img, mode):
     return s
 
 
+# phase 8's kernel-path losses and params after FIT_SWEEPS sweeps and its
+# plain-path mse, which phase 20 holds the mesh fits to
+PHASE8 = {}
+
+
 def trainer_flagship(img, launches):
     """Phase 8: 20 sweeps on the kernel path against 20 on the plain path
     from the same init, one K1 and one K2 launch per sweep (one block),
@@ -971,6 +991,7 @@ def trainer_flagship(img, launches):
           f"flagship fit launched K1 {n1} / K2 {n2} times in {FIT_SWEEPS} "
           "one-block sweeps")
     fargs = trainer_kernel_args(s_k)
+    PHASE8["params_k"] = s_k.get_params()
     reset_counts()
     t_p, (loss_p, mse_p, npi_p, _) = host_s(
         lambda: s_p.run_batched_chunk(FIT_SWEEPS))
@@ -978,6 +999,7 @@ def trainer_flagship(img, launches):
     # one host sync per chunk: the metrics pull (the width is cached now)
     syncs, _ = syncs_of(lambda: s_k.run_batched_chunk(5))
     ref = np.load(TRAIN_REF)
+    PHASE8.update(loss_k=np.asarray(loss_k), mse_p=np.asarray(mse_p))
     out = {"sweeps": FIT_SWEEPS, "mse_kernel": [float(v) for v in mse_k],
            "mse_plain": [float(v) for v in mse_p],
            "mse_jax_recorded": [float(v) for v in ref["mse"]],
@@ -2704,6 +2726,200 @@ def sv_phase(img, launches):
     return out
 
 
+MESH_RANKS = 2
+MESH_BK_SWEEPS = 10
+
+
+def sha_of(a) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def mesh_rank(rank, world, path4k):
+    """Phase 20's work on one rank of the gloo world on cuda:0: the 1080p
+    fit over 'b', the 4K decode split over the ranks, the flagship over a
+    (1, world) ('b', 'k') mesh on the plain path."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, HERE)
+    from bench import build_image
+    from smoe_tpu_torch.codec.serve import decode_bitstream
+    from smoe_tpu_torch.fit.trainer import Smoe
+    from smoe_tpu_torch.parallel.sharded import axis_mesh, make_mesh
+    img = load_1080p()
+    out = {}
+    s = Smoe(img, kernels_per_dim=[24, 24],
+             batch_size=(img.shape[0] // 4, img.shape[1] // 4), use_yuv=True,
+             use_determinant=True, use_pallas=KERNEL_MODE, device=DEVICE,
+             mesh=make_mesh(world, 1, DEVICE))
+    s.set_optimizer()
+    reset_counts()
+    loss, mse, _, _ = s.run_batched_chunk(FIT_SWEEPS)
+    out["fit_1080p"] = {"loss": loss, "mse": mse, "k1_k2": read_counts()}
+    t, _ = host_s(lambda: s.run_batched_chunk(FIT_SWEEPS))
+    out["fit_1080p"]["s_per_iter_settled"] = t / FIT_SWEEPS
+    del s
+    torch.cuda.empty_cache()
+    m = axis_mesh("x", DEVICE)
+    reset_counts()
+    rec = decode_bitstream(path4k, device=DEVICE, mesh=m)
+    n1, _ = read_counts()
+    out["decode_4k"] = {"sha": sha_of(rec), "shape": rec.shape, "k1": n1,
+                        "e2e_ms": host_ms_median(lambda: decode_bitstream(
+                            path4k, device=DEVICE, mesh=m), reps=3)}
+    del rec
+    s = Smoe(build_image(512), kernels_per_dim=[16], use_yuv=True,
+             use_determinant=True, use_pallas=KERNEL_MODE, device=DEVICE,
+             mesh=make_mesh(1, world, DEVICE))
+    s.set_optimizer()
+    reset_counts()
+    t, (loss, mse, _, _) = host_s(lambda: s.run_batched_chunk(
+        MESH_BK_SWEEPS))
+    out["flagship_bk"] = {"loss": loss, "mse": mse, "k1_k2": read_counts(),
+                          "s_per_iter_first_chunk": t / MESH_BK_SWEEPS,
+                          "fused": s.fused}
+    return out
+
+
+def mesh_phase(img, fit1080, t4k, sha4k, launches):
+    """Phase 20: the mesh paths on the one card.  NCCL at world size 1 in
+    this process (the flagship fit and the 4K decode bit-identical to
+    phases 8 and 7), then a gloo world of MESH_RANKS ranks on cuda:0
+    (`mesh_rank`), each held to its one-card counterpart."""
+    import torch
+    import torch.distributed as dist
+    from smoe_tpu_torch.codec.serve import decode_bitstream
+    from smoe_tpu_torch.fit.trainer import Smoe
+    from smoe_tpu_torch.parallel.launch import run_world
+    from smoe_tpu_torch.parallel.sharded import axis_mesh, make_mesh
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path4k = os.path.join(tmp, "uhd_k2304.smoe")
+        write_uhd_model(path4k)
+        dist.init_process_group(
+            "nccl" if DEVICE.startswith("cuda") else "gloo",
+            init_method="file://" + os.path.join(tmp, "store"),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, 1, DEVICE)
+            s_m = Smoe(img, kernels_per_dim=[16], use_yuv=True,
+                       use_determinant=True, use_pallas=KERNEL_MODE,
+                       device=DEVICE, mesh=mesh)
+            s_m.set_optimizer()
+            reset_counts()
+            loss, _, _, _ = s_m.run_batched_chunk(FIT_SWEEPS)
+            n1, n2 = read_counts()
+            p_m = s_m.get_params()
+            same_params = all(np.array_equal(p_m[k], PHASE8["params_k"][k])
+                              for k in p_m)
+            # s/iter on the mesh and without it, in turns, at the width
+            # the lists settled to
+            s_1 = flagship_smoe(img, KERNEL_MODE)
+            s_1.run_batched_chunk(FIT_SWEEPS)
+            mesh_t, one_t = in_turns(
+                lambda: host_s(lambda: s_m.run_batched_chunk(
+                    FIT_SWEEPS))[0] / FIT_SWEEPS,
+                lambda: host_s(lambda: s_1.run_batched_chunk(
+                    FIT_SWEEPS))[0] / FIT_SWEEPS)
+            del s_m, s_1
+            m1 = axis_mesh("x", DEVICE)
+            reset_counts()
+            rec = decode_bitstream(path4k, device=DEVICE, mesh=m1)
+            d1, _ = read_counts()
+            out["nccl_world1"] = {
+                "fit_losses_bit_identical": bool(np.array_equal(
+                    loss, PHASE8["loss_k"])),
+                "fit_params_bit_identical": same_params,
+                "fit_k1_k2": [n1, n2], "decode_k1": d1,
+                "fit_s_per_iter": mesh_t, "fit_s_per_iter_one_card": one_t,
+                "decode_4k_bit_identical": sha_of(rec) == sha4k,
+                "decode_4k_e2e_ms": host_ms_median(lambda: decode_bitstream(
+                    path4k, device=DEVICE, mesh=m1), reps=3),
+                "decode_4k_e2e_ms_one_card": t4k["decode_4k_kernel_e2e_ms"]}
+            del rec
+            launches[0] += n1 + d1
+            launches[1] += n2
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_world(os.path.join(HERE, "chip_smoke.py") + ":mesh_rank",
+                          MESH_RANKS, os.path.join(tmp, "world"),
+                          device=torch.device(DEVICE, 0).type + ":0",
+                          timeout=400,
+                          threads=4, path4k=path4k)
+        wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    fit, dec, bk = r0["fit_1080p"], r0["decode_4k"], r0["flagship_bk"]
+    nb = 16 // MESH_RANKS
+    out["gloo_2_ranks"] = {
+        "world_wall_s": wall,
+        "fit_1080p_mse_max_rel_one_card": max_rel(
+            fit["mse"], fit1080["kernel"]["mse"][:FIT_SWEEPS]),
+        "fit_1080p_k1_k2_per_rank": [r["fit_1080p"]["k1_k2"]
+                                     for r in ranks],
+        "fit_1080p_ranks_bit_identical": all(
+            np.array_equal(r["fit_1080p"]["loss"], fit["loss"])
+            for r in ranks),
+        "fit_1080p_s_per_iter_settled": [r["fit_1080p"]["s_per_iter_settled"]
+                                         for r in ranks],
+        "fit_1080p_s_per_iter_settled_one_card":
+            fit1080["kernel"]["s_per_iter_settled"],
+        "decode_4k_bit_identical": [r["decode_4k"]["sha"] == sha4k
+                                    for r in ranks],
+        "decode_4k_k1_per_rank": [r["decode_4k"]["k1"] for r in ranks],
+        "decode_4k_e2e_ms": [r["decode_4k"]["e2e_ms"] for r in ranks],
+        "decode_4k_e2e_ms_one_card": t4k["decode_4k_kernel_e2e_ms"],
+        "flagship_bk_mse_max_rel_one_card_plain": max_rel(
+            bk["mse"], PHASE8["mse_p"][:MESH_BK_SWEEPS]),
+        "flagship_bk_ranks_bit_identical": all(
+            np.array_equal(r["flagship_bk"]["loss"], bk["loss"])
+            for r in ranks),
+        "flagship_bk_k1_k2": [r["flagship_bk"]["k1_k2"] for r in ranks],
+        "flagship_bk_fused": bk["fused"],
+        "flagship_bk_s_per_iter_first_chunk": bk["s_per_iter_first_chunk"]}
+    print(f"mesh paths: {json.dumps(out, default=list)}", flush=True)
+    w1, g = out["nccl_world1"], out["gloo_2_ranks"]
+    check(w1["fit_losses_bit_identical"] and w1["fit_params_bit_identical"],
+          "NCCL world-1 mesh fit differs from phase 8's one-card fit")
+    check(w1["fit_k1_k2"] == [FIT_SWEEPS] * 2 and w1["decode_k1"] == 1,
+          f"NCCL world-1 launches {w1['fit_k1_k2']} / {w1['decode_k1']}")
+    check(w1["decode_4k_bit_identical"],
+          "NCCL world-1 4K decode differs from phase 7's")
+    check(all(tuple(k) == (nb * FIT_SWEEPS,) * 2
+              for k in g["fit_1080p_k1_k2_per_rank"]),
+          f"1080p mesh fit launches {g['fit_1080p_k1_k2_per_rank']}, "
+          f"expected {nb * FIT_SWEEPS} K1 and K2 on each rank")
+    check(g["fit_1080p_ranks_bit_identical"],
+          "1080p mesh fit: the ranks left lockstep")
+    check(g["fit_1080p_mse_max_rel_one_card"] <= TRAJ_RTOL,
+          f"1080p mesh fit mse off the one-card fit by "
+          f"{g['fit_1080p_mse_max_rel_one_card']:.2e} > {TRAJ_RTOL}")
+    check(all(g["decode_4k_bit_identical"])
+          and g["decode_4k_k1_per_rank"] == [1] * MESH_RANKS,
+          "split 4K decode differs from phase 7's or launched K1 "
+          f"{g['decode_4k_k1_per_rank']} times")
+    check(g["flagship_bk_ranks_bit_identical"]
+          and not g["flagship_bk_fused"]
+          and all(tuple(k) == (0, 0) for k in g["flagship_bk_k1_k2"]),
+          f"('b', 'k') flagship: lockstep "
+          f"{g['flagship_bk_ranks_bit_identical']}, launches "
+          f"{g['flagship_bk_k1_k2']} on the plain path")
+    check(g["flagship_bk_mse_max_rel_one_card_plain"] <= TRAJ_RTOL,
+          f"('b', 'k') flagship mse off the one-card plain path by "
+          f"{g['flagship_bk_mse_max_rel_one_card_plain']:.2e} > {TRAJ_RTOL}")
+    n1 = sum(r["fit_1080p"]["k1_k2"][0] + r["decode_4k"]["k1"]
+             for r in ranks)
+    n2 = sum(r["fit_1080p"]["k1_k2"][1] for r in ranks)
+    launches[0] += n1
+    launches[1] += n2
+    out["launches_k1_k2"] = [n1 + w1["fit_k1_k2"][0] + w1["decode_k1"],
+                             n2 + w1["fit_k1_k2"][1]]
+    return out
+
+
+
 _T0 = [time.perf_counter()]
 
 
@@ -2873,6 +3089,7 @@ def main() -> int:
         launches4k = gate_expert_fwd.launches
         launches[0] += launches4k
         check(launches4k == 1, f"4K decode launched {launches4k} kernels")
+        sha4k = sha_of(rec4k)
         check(rec4k.shape == (2160, 3840, 3) and np.isfinite(rec4k).all(),
               f"4K decode: bad output {rec4k.shape}")
         cfg4, rp4, _ = read_model(path4k)
@@ -2923,7 +3140,7 @@ def main() -> int:
     clock("phases 10-11")
     del s_k, s_p
     torch.cuda.empty_cache()
-    trainer_1080p(load_1080p(), launches)
+    fit1080 = trainer_1080p(load_1080p(), launches)
     torch.cuda.empty_cache()
     clock("phase 12")
 
@@ -3010,6 +3227,23 @@ def main() -> int:
                                      for v in lf["kernels"].values()))
     max_rel_bwd = max(max_rel_bwd, *(v["k2"]["max_rel_err"]
                                      for v in lf["kernels"].values()))
+    # phase 20: the mesh paths, NCCL at world size 1 and 2 gloo ranks on
+    # the one card
+    mesh = mesh_phase(img, fit1080, t4, sha4k, launches)
+    clock("phase 20")
+    w1, g2 = mesh["nccl_world1"], mesh["gloo_2_ranks"]
+    print(f"mesh times ({card}): " + json.dumps({
+        "nccl_world1_fit_s_per_iter_vs_one_card": [
+            w1["fit_s_per_iter"][0], w1["fit_s_per_iter_one_card"][0]],
+        "nccl_world1_decode_4k_e2e_ms_vs_one_card": [
+            w1["decode_4k_e2e_ms"], w1["decode_4k_e2e_ms_one_card"]],
+        "gloo2_fit_1080p_s_per_iter_vs_one_card": [
+            max(g2["fit_1080p_s_per_iter_settled"]),
+            g2["fit_1080p_s_per_iter_settled_one_card"]],
+        "gloo2_decode_4k_e2e_ms_vs_one_card": [
+            max(g2["decode_4k_e2e_ms"]), g2["decode_4k_e2e_ms_one_card"]],
+        "gloo2_flagship_bk_plain_s_per_iter_first_chunk":
+            g2["flagship_bk_s_per_iter_first_chunk"]}), flush=True)
     check(all(n > 0 for n in launches),
           f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
           f"{launches[2]} times")
@@ -3056,7 +3290,8 @@ def main() -> int:
              sv["raster"]["subsampled"]["k1"]["ms"]],
          "sv_block_candidate_fraction_full_subsampled": [
              sv["raster"]["full"]["k1"]["candidate_fraction"],
-             sv["raster"]["subsampled"]["k1"]["candidate_fraction"]]},
+             sv["raster"]["subsampled"]["k1"]["candidate_fraction"]],
+         "mesh_phase_launches": mesh["launches_k1_k2"][0]},
         {"name": "gate_expert_bwd", "route": "cuda", "source": BWD_SRC,
          "replaces": BWD_REPLACES, "launches": launches[1],
          "max_abs_err": max_err_bwd, "max_rel_err": max_rel_bwd,
@@ -3082,7 +3317,8 @@ def main() -> int:
              lr_k2["bound_ms"],
          "sv_block_ms_full_subsampled": [
              sv["raster"]["full"]["k2"]["ms"],
-             sv["raster"]["subsampled"]["k2"]["ms"]]},
+             sv["raster"]["subsampled"]["k2"]["ms"]],
+         "mesh_phase_launches": mesh["launches_k1_k2"][1]},
         {"name": "gate_expert_variants", "route": "cuda", "source": VAR_SRC,
          "replaces": VAR_REPLACES, "launches": launches[2],
          "max_abs_err": max_err_var, "max_rel_err": max_rel_var,

@@ -22,8 +22,13 @@ and no GPU present it fails rather than carry on on the CPU.  The input is
 a PNG, an .npz video bundle (cv2's containers need OpenCV's decoder:
 convert them to .npz) or a .mat light field (a v7.3 file needs h5py).
 
+--coordinator_address host:port --num_processes N --process_id R (or
+torchrun's environment) join a torch.distributed world, NCCL on the card
+and gloo with --device cpu.  As in JAX the CLI builds no mesh: every
+process runs the whole fit and rank 0 alone writes the results.
+
 Not ported, raising NotImplementedError with their ROADMAP.md Queue 1
-item: the multi-host flags (14), the loss and image plots and -lsrs (7).
+item: the loss and image plots and -lsrs (7).
 """
 
 from __future__ import annotations
@@ -161,7 +166,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-mask", "--loss_mask_path", type=str, default=None)
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the fit into DIR")
-    p.add_argument("--coordinator_address", type=str, default=None)
+    # multi-process runtime (cli/fit.py:194-200): the world of
+    # torch.distributed, NCCL on the card and gloo on the CPU
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0; joins a torch.distributed "
+                        "world (parallel/multihost.py)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda",
@@ -175,10 +184,6 @@ def _not_ported(what: str, item: int):
 
 
 def _refuse_unported(args) -> None:
-    if (args.coordinator_address is not None or args.num_processes
-            is not None or args.process_id is not None):
-        _not_ported("the multi-host run (--coordinator_address, "
-                    "--num_processes, --process_id)", 14)
     if args.ls_refresh_stop:
         _not_ported("-lsrs (ls_refresh_stop, a measured dead end)", 7)
 
@@ -208,6 +213,11 @@ def main(args=None):
             not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is "
                          "available (pass --device cpu to fit on the CPU)")
+    from smoe_tpu_torch.parallel import multihost
+    # as in JAX the CLI builds no mesh: every process runs the whole fit,
+    # and rank 0 alone writes the results
+    multihost.initialize(args.coordinator_address, args.num_processes,
+                         args.process_id, device=args.device)
 
     from smoe_tpu_torch.codec.container import load_params, save_model
     from smoe_tpu_torch.config import OptConfig
@@ -223,9 +233,10 @@ def main(args=None):
     if args.loss_mask_path:
         loss_mask = np.load(args.loss_mask_path)["loss_mask"]
 
-    if os.path.exists(args.results_path):
-        shutil.rmtree(args.results_path)
-    os.makedirs(args.results_path)
+    if multihost.primary():
+        if os.path.exists(args.results_path):
+            shutil.rmtree(args.results_path)
+        os.makedirs(args.results_path)
 
     kpd = args.kernels_per_dim
     if len(kpd) == 1:
@@ -283,6 +294,8 @@ def main(args=None):
     if args.only_rec_from_checkpoint:
         # reconstruction only, from a restored checkpoint
         smoe.run_batched(train=False, update_reconstruction=True)
+        if not multihost.primary():
+            return smoe
         out = write_image(smoe.get_reconstruction(),
                           os.path.join(args.results_path, "reconstruction"),
                           orig.ndim - 1, yuv=use_yuv,
@@ -306,9 +319,13 @@ def main(args=None):
     # under -lsrip initial
     lsri_first = args.ls_refresh_iter or None
     lsri_later = lsri_first if args.ls_refresh_phases == "all" else None
+    # the writers are no-ops off rank 0, but every rank keeps the same
+    # callbacks list, so `bool(callbacks)` (and with it the evals each
+    # validation runs) agrees across ranks (cli/fit.py:340-346)
     callbacks = [ModelLogger(path=args.results_path).log,
                  JsonlLogger(os.path.join(args.results_path,
-                                          "metrics.jsonl")).log]
+                                          "metrics.jsonl")).log] \
+        if multihost.primary() else [lambda smoe: None] * 2
 
     if args.iterations:
         from smoe_tpu_torch.diag.profile import trace
@@ -367,7 +384,8 @@ def main(args=None):
             if args.hpc_mode:
                 break
 
-    _write_results(smoe, args, orig)
+    if multihost.primary():
+        _write_results(smoe, args, orig)
     return smoe
 
 

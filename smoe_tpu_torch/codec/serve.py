@@ -15,8 +15,11 @@ A video model (d = 3 with `motion`) transforms the raster by its per-frame
 motion rows on every call, exactly as training does (video/motion.py); with
 a dual-model `model_mask` the kernel path runs K1 at the 2F = 26 dual-domain
 width and the reference path takes the plain maha on the same features.
-Multi-device meshes are not ported yet (ROADMAP.md, Queue 1) and raise
-NotImplementedError.
+`mesh=` (a one-dimensional `DeviceMesh`, one process per card) splits the
+raster's pixels over the ranks: each evaluates its share with the
+parameters replicated and no collective in the math, and the image is
+gathered to every rank (serve.py:100-147).  K1 computes every pixel on its
+own, so the bits do not depend on the split.
 """
 
 from __future__ import annotations
@@ -29,17 +32,12 @@ import torch
 from smoe_tpu_torch.config import SmoeConfig
 from smoe_tpu_torch.core.model import (expert_regression, fake_quant_unit,
                                        forward_fused, gating, maha_from_A)
+from smoe_tpu_torch.parallel.compat import gather_rows
 from smoe_tpu_torch.video.motion import transform_coords
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to smoe_tpu_torch yet (ROADMAP.md, Queue 1: "
-        f"multi-GPU decode); decode it with smoe_tpu")
 
 
 def pad_decoded_params(rp: dict, capacity: int, d: int, c: int) -> dict:
@@ -90,9 +88,14 @@ def make_decoder(img_shape: Tuple[int, ...], channels: int,
     evaluates the whole raster in one launch.
     reference: evaluate with the plain torch ops in the JAX decoder's op
     order instead of the fused op (the parity reference).
+    mesh: a one-dimensional DeviceMesh over the decoding processes: the
+    (padded) raster splits into equal contiguous shares, one a rank, padded
+    to chunks x ranks on the chunked path (serve.py:103-104); every rank
+    returns the whole image.
     """
-    if mesh is not None:
-        _not_ported("multi-device decode")
+    if mesh is not None and mesh.ndim != 1:
+        raise ValueError("the serving decode splits one pixel axis: pass a "
+                         "one-dimensional mesh")
     device = torch.device(device)
     d = cfg.dim_domain
     if sample_points is not None:
@@ -119,13 +122,23 @@ def make_decoder(img_shape: Tuple[int, ...], channels: int,
         m = np.ones((capacity,), bool)
         m[:len(model_mask)] = np.asarray(model_mask, bool)
         mm = torch.as_tensor(m, device=device)
+    ranks, rank = (1, 0) if mesh is None else (mesh.size(),
+                                               mesh.get_local_rank())
     chunked = reference or device.type == "cpu"
     if not chunked:
-        chunk_pixels = max(n, 1)
+        # the whole share in one launch
+        chunk_pixels = _round_up(max(-(-n // ranks), 1), 256)
     elif chunk_pixels is None:
         budget = (8 << 20) if device.type == "cpu" else (256 << 20)
         chunk_pixels = _round_up(
             max(1024, min(n, budget // (4 * max(capacity, 1)))), 256)
+    # this rank's rows of the raster, padded with zero coords to equal
+    # shares; the pad rows are cut after the gather
+    n_pad = _round_up(max(n, 1), chunk_pixels * ranks)
+    share = n_pad // ranks
+    mine = slice(rank * share, (rank + 1) * share)
+    if mesh is not None:
+        coords = torch.cat([coords, coords.new_zeros((n_pad - n, d))])[mine]
 
     def chunk_fn(c_blk, A, musX, nu_e, gamma_e, pis, mask):
         c_in, c_raw, mk = c_blk, None, None
@@ -153,7 +166,9 @@ def make_decoder(img_shape: Tuple[int, ...], channels: int,
         mask = pis > 0
         res = torch.cat([chunk_fn(coords[i:i + chunk_pixels], A, musX, nu_e,
                                   gamma_e, pis, mask)
-                         for i in range(0, n, chunk_pixels)])
+                         for i in range(0, coords.shape[0], chunk_pixels)])
+        if mesh is not None:
+            res = gather_rows(res, mine, n_pad, mesh.get_group())[:n]
         return res.reshape(tuple(img_shape) + (channels,))
 
     return decode
@@ -260,7 +275,9 @@ def decode_bitstream(path: str, chunk_pixels: Optional[int] = None,
     `max_bytes=n` the largest prefix fitting n bytes.  A video file's
     `motion` rows and dual-model `model_mask` come from its header; a frame
     range keeps the native t of its frames, so each pixel still finds its
-    own frame's motion.  `mesh=` is not ported yet and raises.
+    own frame's motion.  `mesh=` splits the pixels over the processes of
+    a one-dimensional DeviceMesh (see `make_decoder`); every rank returns
+    the whole image.
     """
     cfg, rp, header = read_model(path, layers=layers, max_bytes=max_bytes)
     motion = header.get("motion")

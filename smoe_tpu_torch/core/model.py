@@ -34,6 +34,7 @@ import torch
 
 from smoe_tpu_torch.config import SmoeConfig
 from smoe_tpu_torch.core.params import SmoeParams, assemble_A
+from smoe_tpu_torch.parallel.compat import psum, pvary
 
 # Floor for the gating denominator.  Reference writes `10e-12` (= 1e-11),
 # smoe.py:821.
@@ -141,9 +142,15 @@ def maha_from_A(A: torch.Tensor, musX: torch.Tensor, cfg: SmoeConfig,
 
 
 def gating(maha: torch.Tensor, pis: torch.Tensor, diag_A: torch.Tensor,
-           cfg: SmoeConfig, kernel_mask: torch.Tensor) -> torch.Tensor:
+           cfg: SmoeConfig, kernel_mask: torch.Tensor,
+           kernel_group=None) -> torch.Tensor:
     """Softmax-like gating with influence culling (model.py:155-185,
-    reference smoe.py:807-827).  (N,K) -> (N,K)."""
+    reference smoe.py:807-827).  (N,K) -> (N,K).
+
+    kernel_group: the process group of the 'k' mesh dimension when the
+    kernel rows are split over ranks.  The denominator is then psum'd over
+    it, and pvary'd back where it meets this rank's kernels, so that each
+    rank's share of its gradient is summed (parallel/compat.py)."""
     mask = kernel_mask & (pis > 0)
     # mask inside the exp so dead kernels can never give inf * 0 = nan
     n_exp = torch.exp(-0.5 * torch.where(mask[None, :], maha,
@@ -153,8 +160,10 @@ def gating(maha: torch.Tensor, pis: torch.Tensor, diag_A: torch.Tensor,
         n_quo = n_div / math.sqrt((2.0 * math.pi) ** cfg.dim_domain)
         n_exp = n_exp * n_quo[None, :]
     n_w = n_exp * torch.where(mask, pis, torch.zeros_like(pis))[None, :]
-    denom = torch.maximum(n_w.new_full((), DENOM_FLOOR),
-                          torch.sum(n_w, dim=1, keepdim=True))
+    denom = torch.sum(n_w, dim=1, keepdim=True)
+    if kernel_group is not None:
+        denom = pvary(psum(denom, kernel_group), kernel_group)
+    denom = torch.maximum(n_w.new_full((), DENOM_FLOOR), denom)
     w_e = n_w / denom
     return w_e * (w_e > cfg.minimum_influence)
 
@@ -171,16 +180,17 @@ def _masked_gamma(gamma_e: torch.Tensor, cfg: SmoeConfig) -> torch.Tensor:
 
 def expert_regression(w_e: torch.Tensor, coords: torch.Tensor,
                       nu_e: torch.Tensor, gamma_e: torch.Tensor,
-                      cfg: SmoeConfig) -> torch.Tensor:
+                      cfg: SmoeConfig, kernel_group=None) -> torch.Tensor:
     """res[n,c] = sum_k w[n,k] (gamma_k^T x_n + nu_k)  (model.py:188-215,
-    reference smoe.py:840-848)."""
+    reference smoe.py:840-848).  kernel_group: each rank's partial sum over
+    its kernels is psum'd over the 'k' group."""
     k, d, c = gamma_e.shape
     res = _exact_matmul(w_e, nu_e)
     if cfg.train_gammas:
         gamma_e = _masked_gamma(gamma_e, cfg)
         g = _exact_matmul(w_e, gamma_e.reshape(k, d * c)).reshape(-1, d, c)
         res = res + (coords[:, :, None] * g).sum(1)
-    return res
+    return psum(res, kernel_group)
 
 
 def fake_quant_unit(x: torch.Tensor, bits: int) -> torch.Tensor:

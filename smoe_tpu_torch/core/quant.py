@@ -22,6 +22,7 @@ import torch
 
 from smoe_tpu_torch.config import SmoeConfig
 from smoe_tpu_torch.core.params import SmoeParams
+from smoe_tpu_torch.parallel.compat import pmin
 
 
 def fake_quant(x: torch.Tensor, min_val, max_val, bits: int) -> torch.Tensor:
@@ -49,26 +50,32 @@ def fake_quant(x: torch.Tensor, min_val, max_val, bits: int) -> torch.Tensor:
     return clamped + (q - clamped).detach()
 
 
-def _masked_min_max(x: torch.Tensor, mask: torch.Tensor):
+def _masked_min_max(x: torch.Tensor, mask: torch.Tensor, kernel_group=None):
     """min / max of x over the rows where mask holds, detached
     (quant.py:45-76): the bounds carry no gradient, a documented deviation
     of the JAX package from the reference.  With no row active the
     sentinel bounds come back inverted (+big, -big) and collapse to the
-    degenerate range [0, 0], which fake_quant passes through."""
+    degenerate range [0, 0], which fake_quant passes through.
+    kernel_group: the rows are split over the 'k' ranks; one pmin over
+    (min, -max) keeps the bounds global (quant.py:66-68)."""
     big = 3.4e38
     m = mask.reshape((-1,) + (1,) * (x.ndim - 1))
     x = x.detach()
     mn = torch.min(torch.where(m, x, torch.full_like(x, big)))
     mx = torch.max(torch.where(m, x, torch.full_like(x, -big)))
+    if kernel_group is not None:
+        mn, neg = pmin(torch.stack([mn, -mx]), kernel_group)
+        mx = -neg
     empty = mn > mx
     zero = torch.zeros_like(mn)
     return torch.where(empty, zero, mn), torch.where(empty, zero, mx)
 
 
-def apply_qat(params: SmoeParams, cfg: SmoeConfig) -> SmoeParams:
+def apply_qat(params: SmoeParams, cfg: SmoeConfig,
+              kernel_group=None) -> SmoeParams:
     """The effective (fake-quantized) params the forward pass sees
     (quant.py:79-136).  Modes 0 and 1 leave every group as it is, apart
-    from the pis under `quantize_pis`."""
+    from the pis under `quantize_pis`.  kernel_group: see _masked_min_max."""
     lb, ub, bd = cfg.lower_bounds, cfg.upper_bounds, cfg.bit_depths
     qm = cfg.quantization_mode
     pis = params.pis
@@ -87,19 +94,19 @@ def apply_qat(params: SmoeParams, cfg: SmoeConfig) -> SmoeParams:
         active = pis > 0
         diag_vals = params.a_diag if cfg.radial_as else torch.diagonal(
             params.a_diag, dim1=1, dim2=2)
-        mn, mx = _masked_min_max(diag_vals, active)
+        mn, mx = _masked_min_max(diag_vals, active, kernel_group)
         # shift-to-zero trick (reference smoe.py:497-511)
         a_diag = fake_quant(params.a_diag - mn, 0.0, mx - mn, bd[0]) + mn
-        mn, mx = _masked_min_max(params.a_corr, active)
+        mn, mx = _masked_min_max(params.a_corr, active, kernel_group)
         a_corr = fake_quant(params.a_corr, mn, mx, bd[0])
         if cfg.train_musx:
-            mn, mx = _masked_min_max(params.musX, active)
+            mn, mx = _masked_min_max(params.musX, active, kernel_group)
             musX = fake_quant(params.musX, mn, mx, bd[1])
         else:
             musX = params.musX
-        mn, mx = _masked_min_max(params.nu_e, active)
+        mn, mx = _masked_min_max(params.nu_e, active, kernel_group)
         nu_e = fake_quant(params.nu_e - mn, 0.0, mx - mn, bd[2]) + mn
-        mn, mx = _masked_min_max(params.gamma_e, active)
+        mn, mx = _masked_min_max(params.gamma_e, active, kernel_group)
         gamma_e = fake_quant(params.gamma_e, mn, mx, bd[4])
     else:
         raise ValueError(f"unknown quantization mode {qm}")

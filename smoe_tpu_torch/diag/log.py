@@ -2,8 +2,10 @@
 logger.py:11-46): params and reconstructions every validation, a full
 checkpoint every 100 iterations, and a JSON-lines metrics stream.
 
-The port runs as one process, so the JAX package's multi-host "process 0
-writes" check has no counterpart here.
+Only rank 0 writes (log.py:25-26).  A fit over a mesh reads its params,
+reconstruction and checkpoint through collectives, so there every rank
+gathers them and rank 0 writes; without a mesh the other ranks return at
+once.
 """
 
 from __future__ import annotations
@@ -26,22 +28,29 @@ class ModelLogger:
 
     def log(self, smoe) -> None:
         from smoe_tpu_torch.codec.container import save_model
+        from smoe_tpu_torch.parallel.multihost import primary
+        if not primary() and getattr(smoe, "mesh", None) is None:
+            return
         it = smoe.iter
-        grid = None if smoe.musX_grid is None \
-            else smoe.musX_grid.cpu().numpy()
-        save_model(os.path.join(self.path, "params", f"{it}.pkl"),
-                   smoe.get_params(), smoe.cfg, qparams=smoe.qparams,
-                   losses=smoe.get_losses(), mses=smoe.get_mses(),
-                   num_pis=smoe.get_num_pis(), musX_grid=grid)
-        self._write(smoe.get_reconstruction(),
-                    os.path.join(self.path, "reconstructions", f"{it}"), smoe)
-        if smoe.cfg.quantization_mode == 1 and smoe.qvalid:
-            self._write(smoe.get_qreconstruction(),
-                        os.path.join(self.path, "reconstructions",
-                                     f"{it}_q"), smoe)
+        params, rec = smoe.get_params(), smoe.get_reconstruction()
+        qrec = smoe.get_qreconstruction() \
+            if smoe.cfg.quantization_mode == 1 and smoe.qvalid else None
         if self.checkpoint_every and it and it % self.checkpoint_every == 0:
             smoe.checkpoint(os.path.join(self.path, "checkpoints",
                                          f"{it}.pkl"))
+        if not primary():
+            return
+        grid = None if smoe.musX_grid is None \
+            else smoe.musX_grid.cpu().numpy()
+        save_model(os.path.join(self.path, "params", f"{it}.pkl"),
+                   params, smoe.cfg, qparams=smoe.qparams,
+                   losses=smoe.get_losses(), mses=smoe.get_mses(),
+                   num_pis=smoe.get_num_pis(), musX_grid=grid)
+        self._write(rec, os.path.join(self.path, "reconstructions", f"{it}"),
+                    smoe)
+        if qrec is not None:
+            self._write(qrec, os.path.join(self.path, "reconstructions",
+                                           f"{it}_q"), smoe)
 
     def _write(self, rec, path, smoe) -> None:
         """The reconstruction as media through io/images.write_image (log.py:
@@ -69,7 +78,8 @@ class JsonlLogger:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def log(self, smoe) -> None:
-        if not smoe.get_mses():
+        from smoe_tpu_torch.parallel.multihost import primary
+        if not primary() or not smoe.get_mses():
             return
         from smoe_tpu_torch.core.losses import psnr_from_mse
         it, mse = smoe.get_mses()[-1]

@@ -40,12 +40,24 @@ covers it (`_RowGather`, a backward without float atomics).
 its pixels in proportion to the last reconstruction's error
 (`gumbel_topk`), the uniforms from the trainer's own torch.Generator.
 
-Not ported yet, and raising NotImplementedError: `mesh=` (ROADMAP.md
-Queue 1, multi-GPU training).
+`mesh=` (a `DeviceMesh` with the dimensions ("b",) or ("b", "k"), one
+process per card; parallel/sharded.py:make_mesh) runs the same fit over
+several processes (trainer.py:948-1102).  Each 'b' rank sweeps its share
+of the blocks through `_block_loss` (K1/K2 on the card), then one psum over
+'b' carries the flattened gradients, the loss, the mse and the sweep's
+survivors as a zero-filled (B, K) slab; every rank then steps Adam on the
+same gradients and reads the same lists, so its host decisions (the capped
+width, the divergence guard, the best snapshots) agree.  A 'k' dimension
+of size nk > 1 also splits the kernel rows: each rank holds K/nk rows, their
+gradients and both optimizers' moments, the forward takes the plain path
+with the gating denominator and the expert sums psum'd over 'k'
+(core/model.py), and the rows are gathered where the whole model is read
+(evals, list refreshes, `get_params`, checkpoints, the LS solve).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import pickle
 import time
@@ -72,6 +84,9 @@ from smoe_tpu_torch.fit.blocks import (_block_view, build_blockset,
                                        initialize_kernel_lists, probe_points,
                                        row_chunks, stitch_blocks,
                                        update_kernel_lists)
+from smoe_tpu_torch.parallel.compat import (all_sum_, gather_rows,
+                                            group_of, psum, rank_range,
+                                            size_rank)
 from smoe_tpu_torch.video.motion import transform_coords
 
 # the per-kernel fields of SmoeParams; a video fit also holds `motion`, an
@@ -80,11 +95,6 @@ PARAM_FIELDS = ("musX", "a_diag", "a_corr", "pis", "nu_e", "gamma_e")
 SV_FIELDS = ("sv", "sv_bw_diag", "sv_bw_corr")
 _MOTION_ROWS = ("h11", "h12", "h13", "h21", "h22", "h23", "h31", "h32")
 SV_COUNT_THRESHOLD = 5e-3     # num_sv and the eval's threshold (smoe.py:1536)
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported to smoe_tpu_torch yet "
-                              f"(ROADMAP.md Queue 1 item {item})")
 
 
 class RegWeights(NamedTuple):
@@ -114,9 +124,11 @@ class EffParams(NamedTuple):
 
 
 def effective_params(params: SmoeParams, cfg: SmoeConfig,
-                     musX_grid: Optional[torch.Tensor]) -> EffParams:
-    """trainer.py:82-89."""
-    eff = apply_qat(params, cfg)
+                     musX_grid: Optional[torch.Tensor],
+                     kernel_group=None) -> EffParams:
+    """trainer.py:82-89.  kernel_group: the rows are split over 'k' (the
+    QAT-3 bounds go global)."""
+    eff = apply_qat(params, cfg, kernel_group)
     musX = eff.musX + musX_grid if (cfg.use_diff_center and musX_grid
                                     is not None) else eff.musX
     return EffParams(A=assemble_A(eff, cfg), musX=musX, nu_e=eff.nu_e,
@@ -196,11 +208,15 @@ def _forward_eff(eff: EffParams, cfg: SmoeConfig, coords: torch.Tensor,
                  kernel_mask: torch.Tensor, fused: bool = False,
                  sv_add: Optional[torch.Tensor] = None,
                  k_cap: Optional[int] = None,
-                 model_mask: Optional[torch.Tensor] = None) -> ForwardOut:
-    """Forward from the effective view (trainer.py:127-179, without the
-    kernel-sharded branch).  fused: take the fused op (capped to k_cap)
-    where the config allows it: not under train_inverse_cov, and not while
-    the motion rows train (the fused op gives coords no gradient).
+                 model_mask: Optional[torch.Tensor] = None,
+                 kernel_group=None) -> ForwardOut:
+    """Forward from the effective view (trainer.py:127-179).  fused: take
+    the fused op (capped to k_cap) where the config allows it: not under
+    train_inverse_cov, and not while the motion rows train (the fused op
+    gives coords no gradient).  kernel_group: this rank holds some of the
+    kernel rows; the plain path psums the denominator and the expert sums
+    over 'k' (the fused op normalises inside K1 and cannot, trainer.py:
+    369-374), and the survivors are this rank's.
 
     A video model (eff.motion) gates and regresses on the motion-
     transformed pixels; with a model mask (its presence is the dual-model
@@ -212,7 +228,7 @@ def _forward_eff(eff: EffParams, cfg: SmoeConfig, coords: torch.Tensor,
             coords_raw = coords
         coords = transform_coords(coords, eff.motion, cfg.num_params_model,
                                   cfg.num_frames)
-    if fused and not cfg.train_inverse_cov and not (
+    if fused and kernel_group is None and not cfg.train_inverse_cov and not (
             eff.motion is not None and cfg.train_trafo):
         return forward_fused(eff.A, eff.musX, eff.nu_e, eff.gamma_e,
                              eff.pis, cfg, coords, kernel_mask,
@@ -220,8 +236,9 @@ def _forward_eff(eff: EffParams, cfg: SmoeConfig, coords: torch.Tensor,
                              coords_raw=coords_raw, model_mask=model_mask)
     maha = maha_from_A(eff.A, eff.musX, cfg, coords, coords_raw, model_mask)
     diag_A = torch.diagonal(eff.A, dim1=1, dim2=2)
-    w_e = gating(maha, eff.pis, diag_A, cfg, kernel_mask)
-    res = expert_regression(w_e, coords, eff.nu_e, eff.gamma_e, cfg)
+    w_e = gating(maha, eff.pis, diag_A, cfg, kernel_mask, kernel_group)
+    res = expert_regression(w_e, coords, eff.nu_e, eff.gamma_e, cfg,
+                            kernel_group)
     if sv_add is not None:
         res = torch.cat([res[:, :1] + sv_add[:, None], res[:, 1:]], dim=1)
     res = fake_quant_unit(clip_unit(res), cfg.precision)
@@ -230,9 +247,10 @@ def _forward_eff(eff: EffParams, cfg: SmoeConfig, coords: torch.Tensor,
 
 
 def _with_reg(loss_pix: torch.Tensor, eff: EffParams, cfg: SmoeConfig,
-              kernel_mask: torch.Tensor, reg: RegWeights):
+              kernel_mask: torch.Tensor, reg: RegWeights, kernel_group=None):
     """loss_pix + pis L1 + bandwidth L1 over the block's active kernels,
-    in the JAX op order (trainer.py:231-243, 787-795).
+    in the JAX op order (trainer.py:231-243, 787-795); under kernel_group
+    the live count and both sums go through one psum over 'k'.
     Returns (loss, num_active)."""
     active = kernel_mask & (eff.pis > 0)
     num_active = torch.sum(eff.pis > 0)
@@ -241,6 +259,10 @@ def _with_reg(loss_pix: torch.Tensor, eff: EffParams, cfg: SmoeConfig,
     diag_A = torch.diagonal(eff.A, dim1=1, dim2=2)
     s_diag = torch.sum(torch.where(active[:, None], diag_A,
                                    torch.zeros_like(diag_A)))
+    if kernel_group is not None:
+        tot = psum(torch.stack([num_active.to(s_pis.dtype), s_pis, s_diag]),
+                   kernel_group)
+        num_active, s_pis, s_diag = tot[0].round().long(), tot[1], tot[2]
     norm = (num_active.to(torch.float32) if cfg.kernel_count_as_norm_l1
             else float(cfg.start_pis))
     return loss_pix + reg.pis_l1 * s_pis / norm + reg.u_l1 * s_diag, \
@@ -276,21 +298,26 @@ def _block_loss(params: SmoeParams, cfg: SmoeConfig, coords: torch.Tensor,
                 block_padded: Tuple[int, ...], fused: bool = False,
                 k_cap: Optional[int] = None,
                 model_mask: Optional[torch.Tensor] = None,
-                sv_blk=None, thr_sv: float = 0.0):
+                sv_blk=None, thr_sv: float = 0.0, kernel_group=None):
     """Loss of one block, differentiable in the raw params (trainer.py:
     186-250).  sv_blk: this block's (sv, bw_diag, bw_corr) rows, whose
     residual joins the Y channel before the clip and whose L1 - L2 penalty
-    is normalised by the rows fed.
+    is normalised by the rows fed.  kernel_group: `params`, `kernel_mask`,
+    `musX_grid` and `model_mask` hold this rank's kernel rows of a 'k'
+    split; the QAT-3 bounds, the denominator, the expert sums and the
+    regularizers are psum'd over the group (trainer.py:186-250).
     Returns (loss, (mse, survivors, err_map, num_active))."""
-    eff = effective_params(params, cfg, musX_grid)
+    eff = effective_params(params, cfg, musX_grid, kernel_group)
     sv_add = sv_eff = None
     if sv_blk is not None:
         sv_add, sv_eff = sv_residual(coords, *sv_blk, thr_sv)
     out = _forward_eff(eff, cfg, coords, kernel_mask, fused=fused,
-                       sv_add=sv_add, k_cap=k_cap, model_mask=model_mask)
+                       sv_add=sv_add, k_cap=k_cap, model_mask=model_mask,
+                       kernel_group=kernel_group)
     loss_pix, la = _pixel_term(out.res, targets, cfg, loss_w, valid,
                                block_padded)
-    loss, num_active = _with_reg(loss_pix, eff, cfg, kernel_mask, reg)
+    loss, num_active = _with_reg(loss_pix, eff, cfg, kernel_mask, reg,
+                                 kernel_group)
     if sv_eff is not None:
         loss = loss + L.sv_l1_sub_l2_reg(sv_eff, reg.sv_l1_sub_l2,
                                          int(sv_eff.shape[0]))
@@ -329,6 +356,24 @@ def make_optimizer(params: SmoeParams, cfg: SmoeConfig,
     return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
 
 
+def fit_mesh_to_blocks(mesh, num_blocks: int):
+    """The mesh, where its 'b' dimension divides the block count
+    (trainer.py:289-317).  JAX shrinks the 'b' axis to a dividing device
+    subset when no process is orphaned; here every rank is a process of its
+    own, so any shrink would orphan one, and the count must divide."""
+    nb, _ = size_rank(mesh, "b")
+    B = int(num_blocks)
+    if B % nb == 0:
+        return mesh
+    nb2 = max(d for d in range(1, min(nb, B) + 1) if B % d == 0)
+    orphans = mesh.mesh.narrow(mesh.mesh_dim_names.index("b"), nb2, nb - nb2)
+    raise ValueError(
+        f"{B} blocks do not divide over the {nb}-way 'b' mesh axis, and "
+        f"shrinking to {nb2} devices would orphan processes "
+        f"{sorted(orphans.flatten().tolist())}; choose start_batches as a "
+        f"multiple of the fleet size")
+
+
 def _check_ported(cfg: SmoeConfig) -> None:
     if cfg.compute_dtype != "float32":
         raise ValueError("compute_dtype must be 'float32': a bf16 maha is "
@@ -357,9 +402,15 @@ class Smoe:
                  **cfg_overrides):
         """device: where the fit runs ("cuda", "cpu", a torch.device);
         defaults to "cuda" and raises when no card is present (pass
-        device="cpu" to fit on the CPU)."""
-        if mesh is not None:
-            _not_ported("multi-GPU training (mesh=)", 14)
+        device="cpu" to fit on the CPU).
+
+        mesh: a DeviceMesh (`parallel.sharded.make_mesh`) over this run's
+        processes, one a card, with a 'b' dimension and optionally a 'k'
+        one, its device type the device's (trainer.py:948-967).  'b' splits
+        the blocks, whose count must divide over it; 'k' of size nk > 1
+        splits the kernel capacity, which must divide over it, and takes the
+        plain path.  Every rank must make the same calls in the same order:
+        each holds the whole blocked image and the (B, K) kernel lists."""
         image = np.asarray(image, np.float32)
         dim = image.ndim - 1
         if cfg is None:
@@ -448,6 +499,7 @@ class Smoe:
             if cfg.num_frames == 0:
                 cfg = cfg.replace(num_frames=motion_init.shape[1])
                 self.cfg = cfg
+        self._set_mesh(mesh)
         self._init_params(init_params_dict, motion_init=motion_init)
         self.model_mask = None     # dual model: kernel -> domain (True: t)
         if model_mask_init is not None:
@@ -459,6 +511,11 @@ class Smoe:
         self.bset = build_blockset(image, cfg, cfg.block_shape,
                                    device=self.device)
         self.start_batches = int(self.bset.coords.shape[0])
+        if mesh is not None:
+            fit_mesh_to_blocks(mesh, self.start_batches)
+        nb, rb = size_rank(mesh, "b")
+        self._blocks = rank_range(self.start_batches, nb, rb) \
+            if mesh is not None else slice(0, self.start_batches)
         self.block_weight = float(np.prod(self.bset.block_valued)) \
             / self.num_pixel
         self.loss_mask = None
@@ -502,7 +559,7 @@ class Smoe:
                           device=self.device)
         if self.num_inc_kernels:
             main[cfg.capacity - self.num_inc_kernels:] = False
-        self._main_rows = main
+        self._main_rows = self._local(main)
         self.inc_optimizer: Optional[torch.optim.Adam] = None
         self.phase_timer = PhaseTimer()
         # error-proportional sampling: per-block probabilities (uniform
@@ -513,6 +570,107 @@ class Smoe:
                                          device=self.device)
         self.reconstruction_sv = None
         self._reseed_generator()
+
+    # ---------------- the mesh ----------------
+
+    def _set_mesh(self, mesh) -> None:
+        """The 'b' and 'k' groups and this rank's kernel rows."""
+        self.mesh = mesh
+        self._bgroup = group_of(mesh, "b")
+        self._kgroup = None
+        self._krows = slice(0, self.cfg.capacity)
+        self._rows_depth = 0          # > 0 inside _all_rows
+        if mesh is None:
+            return
+        if "b" not in (mesh.mesh_dim_names or ()):
+            raise ValueError("Smoe(mesh=): the mesh needs a 'b' dimension "
+                             f"(it has {mesh.mesh_dim_names})")
+        if torch.device(mesh.device_type).type != self.device.type:
+            raise ValueError(f"Smoe(mesh=): a {mesh.device_type!r} mesh for "
+                             f"a fit on {str(self.device)!r}")
+        nk, rk = size_rank(mesh, "k")
+        if nk > 1:
+            if self.cfg.capacity % nk:
+                raise ValueError(
+                    f"kernel capacity {self.cfg.capacity} does not divide "
+                    f"over the {nk}-way 'k' mesh axis")
+            self._kgroup = group_of(mesh, "k")
+            self._krows = rank_range(self.cfg.capacity, nk, rk)
+            # K1 normalises inside the kernel and cannot psum mid-kernel
+            self.fused = False
+
+    def _split(self) -> bool:
+        """Whether self.params holds only this rank's kernel rows."""
+        return self._kgroup is not None and not self._rows_depth
+
+    def _local(self, t):
+        """This rank's rows of a whole (capacity, ...) tensor."""
+        return t if t is None or not self._split() else t[self._krows]
+
+    def _gather_rows(self, t: torch.Tensor, field: str):
+        """The whole (capacity, ...) tensor of a kernel field from every
+        rank's rows (detached)."""
+        t = t.detach()
+        if not self._split() or field not in PARAM_FIELDS:
+            return t
+        return gather_rows(t, self._krows, self.cfg.capacity, self._kgroup)
+
+    def _full_params(self) -> SmoeParams:
+        """The raw params with every kernel row: self.params, or under a
+        'k' split the rows gathered in one all-reduce (no gradient)."""
+        if not self._split():
+            return self.params
+        p = self.params
+        flat = torch.cat([getattr(p, f).detach().reshape(
+            p.pis.shape[0], -1) for f in PARAM_FIELDS], dim=1)
+        flat = gather_rows(flat, self._krows, self.cfg.capacity,
+                           self._kgroup)
+        out, i = {}, 0
+        for f in PARAM_FIELDS:
+            t = getattr(p, f)
+            w = int(np.prod(t.shape[1:]))
+            out[f] = flat[:, i:i + w].reshape((-1,) + tuple(t.shape[1:]))
+            i += w
+        return dataclasses.replace(p, **out)
+
+    @contextlib.contextmanager
+    def _all_rows(self):
+        """Under a 'k' split: self.params holds every kernel row for the
+        body (the LS solve, the inc rows, the reseed, the gating map), and
+        what it writes to them goes back to this rank's rows after."""
+        if not self._split():        # no 'k' split, or inside already
+            yield
+            return
+        local, self.params = self.params, self._full_params()
+        self._rows_depth += 1
+        try:
+            yield
+        finally:
+            self._rows_depth -= 1
+            full, self.params = self.params, local
+            with torch.no_grad():
+                for f in PARAM_FIELDS:
+                    getattr(local, f).copy_(getattr(full, f)[self._krows])
+
+    def _gather_blocks(self, flat_parts, block_parts):
+        """One all-reduce over 'b': `flat_parts` (tensors summed whole) and
+        `block_parts` ((n_own, ...) rows of this rank's blocks, returned as
+        (B, ...) with every rank's rows).  Returns (flat_parts, block
+        parts) reduced."""
+        B = self.start_batches
+        slabs = []
+        for t in block_parts:
+            slab = t.new_zeros((B,) + tuple(t.shape[1:]), dtype=torch.float32)
+            slab[self._blocks] = t.to(torch.float32)
+            slabs.append(slab)
+        parts = list(flat_parts) + slabs
+        buf = all_sum_(torch.cat([t.reshape(-1).to(torch.float32)
+                                  for t in parts]), self._bgroup)
+        out, i = [], 0
+        for t in parts:
+            out.append(buf[i:i + t.numel()].reshape(t.shape))
+            i += t.numel()
+        return out[:len(flat_parts)], out[len(flat_parts):]
 
     # ---------------- parameters ----------------
 
@@ -544,6 +702,8 @@ class Smoe:
             if self.musX_grid is None:
                 self.musX_grid = vals["musX"]
             vals["musX"] = torch.zeros_like(vals["musX"])
+        for f in PARAM_FIELDS:       # this rank's rows of a 'k' split
+            vals[f] = self._local(vals[f]).clone()
         for f, t in vals.items():
             t.requires_grad_(f != "motion" or self.cfg.train_trafo)
         self.params = SmoeParams(**vals)
@@ -557,7 +717,8 @@ class Smoe:
             for f in self._fields:
                 v = getattr(new, f, None)
                 if v is not None:
-                    getattr(self.params, f).copy_(v)
+                    getattr(self.params, f).copy_(
+                        self._local(v) if f in PARAM_FIELDS else v)
         self.valid = self.qvalid = False
 
     def _init_kernel_lists(self) -> None:
@@ -572,7 +733,7 @@ class Smoe:
                 dtype=torch.bool, device=self.device)
             return
         with torch.no_grad():
-            eff0 = effective_params(self.params, cfg, self.musX_grid)
+            eff0 = effective_params(self._full_params(), cfg, self.musX_grid)
             self.kernel_lists = initialize_kernel_lists(
                 eff0.A, eff0.musX, eff0.pis, cfg, self.bset)
 
@@ -600,7 +761,8 @@ class Smoe:
     def adam_state_numpy(self, optimizer=None) -> Optional[dict]:
         """An optimizer's moments as numpy (the main one by default):
         {"count", "mu": {field: array}, "nu": {field: array}}, the form
-        `adam_state_from_numpy` takes."""
+        `adam_state_from_numpy` takes; under a 'k' split every rank calls
+        it (the kernel rows are gathered)."""
         opt = self.optimizer if optimizer is None else optimizer
         if opt is None:
             return None
@@ -609,8 +771,9 @@ class Smoe:
             for f, p in zip(g["fields"], g["params"]):
                 st = opt.state.get(p)
                 if st:
-                    mu[f] = st["exp_avg"].detach().cpu().numpy()
-                    nu[f] = st["exp_avg_sq"].detach().cpu().numpy()
+                    mu[f] = self._gather_rows(st["exp_avg"], f).cpu().numpy()
+                    nu[f] = self._gather_rows(st["exp_avg_sq"],
+                                              f).cpu().numpy()
                     count = int(st["step"])
         return {"count": count, "mu": mu, "nu": nu}
 
@@ -625,7 +788,8 @@ class Smoe:
             for f, p in zip(g["fields"], g["params"]):
                 if f in state:
                     opt.state[p] = {
-                        k: v.to(p.device) if k != "step" else v
+                        k: (self._local(v) if f in PARAM_FIELDS
+                            else v).to(p.device) if k != "step" else v
                         for k, v in state[f].items()}
 
     def load_state_numpy(self, params, model_mask=None, musX_grid=None,
@@ -772,29 +936,69 @@ class Smoe:
         unweighted into .grad, zero-filled first so that every tensor the
         optimizer holds takes its step (optax updates a leaf from momentum
         alone; torch.optim.Adam skips a tensor whose grad is None).
-        Returns (loss, mse, survivors (B, K)) on the device."""
+
+        Under a mesh only this rank's blocks are swept (every block's
+        uniforms are still drawn, so the draw does not depend on the mesh),
+        then one psum over 'b' carries the gradients, loss, mse and the
+        survivors (trainer.py:546-551); under a 'k' split a second one over
+        'k' carries the survivors' columns, the motion gradient (motion acts
+        before the split maha, trainer.py:553-559) and the live count.
+        Returns (loss, mse, survivors (B, K), num_pi) on the device, num_pi
+        counting the live pis before the update."""
         for p in self._trained():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             else:
                 p.grad.zero_()
+        with torch.no_grad():
+            num_pi = torch.sum(apply_qat(self.params, self.cfg).pis > 0)
         bw = self.block_weight
         zero = torch.zeros((), device=self.device)
         loss_acc, mse_acc = zero, zero
         survivors = []
+        kg = self._kgroup
+        grid, mmask = self._local(self.musX_grid), self._local(self.model_mask)
         for b in range(self.start_batches):
+            if not self._blocks.start <= b < self._blocks.stop:
+                if sample_n is not None:
+                    self._sample_uniform(self.bset.coords.shape[1])
+                continue
             coords, targets, lw, valid, sv_blk = self._block_inputs(
                 b, loss_w, sample_n)
             loss, (mse, surv, _, _) = _block_loss(
-                self.params, self.cfg, coords, targets, lists[b], valid, lw,
-                reg, self.musX_grid, self.bset.block_padded,
-                fused=self.fused, k_cap=k_cap, model_mask=self.model_mask,
-                sv_blk=sv_blk, thr_sv=thr_sv)
+                self.params, self.cfg, coords, targets, self._local(lists[b]),
+                valid, lw, reg, grid, self.bset.block_padded,
+                fused=self.fused, k_cap=k_cap, model_mask=mmask,
+                sv_blk=sv_blk, thr_sv=thr_sv, kernel_group=kg)
             loss.backward()
             loss_acc = loss_acc + bw * loss.detach()
             mse_acc = mse_acc + bw * mse.detach()
             survivors.append(surv)
-        return loss_acc, mse_acc, torch.stack(survivors)
+        survivors = torch.stack(survivors)
+        if self.mesh is None:
+            return loss_acc, mse_acc, survivors, num_pi
+        trained = self._trained()
+        if kg is not None:         # this rank's columns of the (B, K) lists
+            cols = survivors.new_zeros((survivors.shape[0],
+                                        self.cfg.capacity))
+            cols[:, self._krows] = survivors
+            survivors = cols
+        (*grads, loss_acc, mse_acc), (survivors,) = self._gather_blocks(
+            [p.grad for p in trained] + [loss_acc, mse_acc], [survivors])
+        for p, g in zip(trained, grads):
+            p.grad.copy_(g)
+        if kg is not None:
+            motion = self.params.motion if self.cfg.train_trafo else None
+            parts = [survivors.reshape(-1), num_pi.reshape(1).float()]
+            if motion is not None:
+                parts.append(motion.grad.reshape(-1))
+            buf = all_sum_(torch.cat(parts), kg)
+            n = survivors.numel()
+            survivors = buf[:n].reshape(survivors.shape)
+            num_pi = buf[n].round().long()
+            if motion is not None:
+                motion.grad.copy_(buf[n + 1:].reshape(motion.shape))
+        return loss_acc, mse_acc, survivors > 0.5, num_pi
 
     def _step(self, train_orig: bool = True, train_inc: bool = False) -> None:
         """One Adam step of the main optimizer on the main rows' gradients
@@ -871,13 +1075,12 @@ class Smoe:
         lists = self._kernel_lists
         rows = []
         for _ in range(int(n_steps)):
-            loss, mse, survivors = self._sweep_grads(lists, reg, lw, k_cap,
-                                                     sample_n, tsv)
+            loss, mse, survivors, num_pi = self._sweep_grads(
+                lists, reg, lw, k_cap, sample_n, tsv)
             with torch.no_grad():
                 # metrics of the params before this step's update
-                m = SweepMetrics(loss=loss, mse=mse, num_pi=torch.sum(
-                    apply_qat(self.params, self.cfg).pis > 0),
-                    num_sv=self._num_sv(), survivors=survivors)
+                m = SweepMetrics(loss=loss, mse=mse, num_pi=num_pi,
+                                 num_sv=self._num_sv(), survivors=survivors)
                 if train_orig or train_inc:
                     self._step(train_orig, train_inc)
                 lists = m.survivors
@@ -886,7 +1089,7 @@ class Smoe:
                     # (trainer.py:631-654); not while the inc rows train:
                     # their pis are 0 until apply_inc, so a refresh would
                     # drop them from every list and cut their gradients
-                    eff = effective_params(self.params, self.cfg,
+                    eff = effective_params(self._full_params(), self.cfg,
                                            self.musX_grid)
                     lists = update_kernel_lists(eff.A, eff.musX, eff.pis,
                                                 self.cfg, self.bset, lists,
@@ -935,7 +1138,10 @@ class Smoe:
         the graph built and dropped), bwd (forward + backward with the
         gradients accumulated, minus fwd), opt_metrics (the production
         sweep minus both) and step.  Like the JAX version, `step` trains
-        the model 2 * n_steps iterations as a side effect."""
+        the model 2 * n_steps iterations as a side effect.  One process
+        only, as in JAX (trainer.py:856)."""
+        if self.mesh is not None:
+            raise ValueError("phase_breakdown is a one-device diagnostic")
         if self.optimizer is None:
             self.set_optimizer()
         kcap = self._current_k_cap()
@@ -985,7 +1191,9 @@ class Smoe:
         must match the decoder, so they never take the fused op.  The SV
         residual (float SVs at thr_sv) joins every eval, with its penalty
         normalised by the block's pixels.  with_rec also returns each
-        block's sampling probabilities and SV map."""
+        block's sampling probabilities and SV map.  Under a mesh each rank
+        evaluates its blocks with the whole `eff` and one psum over 'b'
+        sums the loss and mse and gathers the per-block outputs."""
         cfg = self.cfg
         bw = self.block_weight
         plain = with_rec or exact
@@ -993,7 +1201,7 @@ class Smoe:
         loss_acc = torch.zeros((), device=self.device)
         mse_acc = torch.zeros((), device=self.device)
         res_l, wam_l, surv_l, prob_l, sv_l = [], [], [], [], []
-        for b in range(self.start_batches):
+        for b in range(self._blocks.start, self._blocks.stop):
             coords, kmask = self.bset.coords[b], klists[b]
             sv_add = sv_eff = None
             if cfg.train_svs and self.params.sv is not None:
@@ -1034,11 +1242,22 @@ class Smoe:
                 if sv_add is not None:
                     sv_l.append(sv_add)
         num_pi = torch.sum(eff.pis > 0)
+        outs = [torch.stack(surv_l)]
+        if with_rec:
+            outs += [torch.stack(res_l), torch.stack(wam_l),
+                     torch.stack(prob_l)] + ([torch.stack(sv_l)] if sv_l
+                                             else [])
+        if self.mesh is not None:
+            (loss_acc, mse_acc), outs = self._gather_blocks(
+                [loss_acc, mse_acc], outs)
+            outs[0] = outs[0] > 0.5
+            if with_rec:
+                outs[2] = outs[2].long()
         rec = None
         if with_rec:
-            rec = (torch.stack(res_l), torch.stack(wam_l),
-                   torch.stack(prob_l), torch.stack(sv_l) if sv_l else None)
-        return loss_acc, mse_acc, torch.stack(surv_l), num_pi, rec
+            rec = (outs[1], outs[2], outs[3],
+                   outs[4] if len(outs) > 4 else None)
+        return loss_acc, mse_acc, outs[0], num_pi, rec
 
     def run_batched(self, pis_l1=0.0, u_l1=0.0, sv_l1_sub_l2=0.0, train=True,
                     update_reconstruction=False, with_quantized_params=False,
@@ -1058,7 +1277,8 @@ class Smoe:
         lw = self.loss_mask if use_loss_mask else None
         with torch.no_grad():
             eff = self._eff_from_rparams() if with_quantized_params \
-                else effective_params(self.params, self.cfg, self.musX_grid)
+                else effective_params(self._full_params(), self.cfg,
+                                      self.musX_grid)
         kl = self.kernel_lists
         if self.cfg.in_graph_ukl:
             # dense validation: every active kernel (trainer.py:1375-1382)
@@ -1105,7 +1325,7 @@ class Smoe:
         """Probe block corners/edges and OR into the lists (trainer.py:
         1434-1463, reference smoe.py:2287-2365); replace=True makes the
         lists exactly the probe-near & active set."""
-        eff = effective_params(self.params, self.cfg, self.musX_grid)
+        eff = effective_params(self._full_params(), self.cfg, self.musX_grid)
         base = torch.zeros_like(self._kernel_lists) if replace \
             else self.kernel_lists
         self.kernel_lists = update_kernel_lists(
@@ -1145,8 +1365,11 @@ class Smoe:
         the current gating (trainer.py:1722-1731, fit/lsinit.py).  Returns
         the gated pixel mass."""
         from smoe_tpu_torch.fit.lsinit import ls_refresh_experts
-        return ls_refresh_experts(self, mode=mode, ridge=ridge, damp=damp,
-                                  timings=timings)
+        # whole on every rank, as JAX runs it outside the mesh
+        # (lsinit.py:405-406)
+        with self._all_rows():
+            return ls_refresh_experts(self, mode=mode, ridge=ridge,
+                                      damp=damp, timings=timings)
 
     # ---------------- training loop ----------------
 
@@ -1296,9 +1519,10 @@ class Smoe:
 
     def get_params(self) -> Dict[str, np.ndarray]:
         """Effective (fake-quantized) params as a numpy dict
-        (trainer.py:1656-1678), in one device-to-host copy."""
+        (trainer.py:1656-1678), in one device-to-host copy; under a 'k'
+        split every rank calls it (the rows are gathered first)."""
         with torch.no_grad():
-            eff = apply_qat(self.params, self.cfg)
+            eff = apply_qat(self._full_params(), self.cfg)
             dev = {"pis": eff.pis, "musX": eff.musX,
                    "A_diagonal": eff.a_diag, "A_corr": eff.a_corr,
                    "gamma_e": eff.gamma_e, "nu_e": eff.nu_e}
@@ -1371,9 +1595,13 @@ class Smoe:
 
     def checkpoint(self, path: str):
         """Full trainer-state save as pickled numpy and Python values
-        (trainer.py:1764-1786); no torch object is pickled."""
+        (trainer.py:1764-1786); no torch object is pickled.  Under a mesh
+        every rank calls it (the kernel rows and moments are gathered) and
+        rank 0 writes."""
+        from smoe_tpu_torch.parallel.multihost import primary
+        full = self._full_params()
         state = {
-            "params": {f: getattr(self.params, f).detach().cpu().numpy()
+            "params": {f: getattr(full, f).detach().cpu().numpy()
                        for f in self._fields},
             "opt_state": self.adam_state_numpy(),
             "inc_opt_state": self.adam_state_numpy(self.inc_optimizer),
@@ -1387,12 +1615,16 @@ class Smoe:
             "kernel_count": self.kernel_count,
             "cfg": self.cfg,
         }
+        if self.mesh is not None and not primary():
+            return
         with open(path, "wb") as fd:
             pickle.dump(state, fd)
         print(f"Model saved in file: {path}")
 
     def restore(self, path: str):
-        """Inverse of `checkpoint` (trainer.py:1788-1814)."""
+        """Inverse of `checkpoint` (trainer.py:1788-1814); every rank of a
+        mesh restores the same file, which resumes on a mesh of another
+        size where the block count divides it."""
         with open(path, "rb") as fd:
             state = pickle.load(fd)
         self.set_params(state["params"])
@@ -1440,10 +1672,10 @@ class Smoe:
     def re_normalize_pis(self):
         """pis /= the sum of the listed, active pis, after a restore
         (trainer.py:1837-1845, reference smoe.py:774-775)."""
-        pis = self.params.pis
+        pis = self._full_params().pis
         mask = torch.any(self.kernel_lists, dim=0) & (pis > 0)
         total = torch.sum(torch.where(mask, pis, torch.zeros_like(pis)))
-        pis.copy_(pis / torch.clamp(total, min=1e-30))
+        self.params.pis.copy_(self.params.pis / torch.clamp(total, min=1e-30))
 
     # ---------------- incremental kernels ----------------
 
@@ -1451,7 +1683,7 @@ class Smoe:
     def get_weight_matrix(self) -> np.ndarray:
         """The full (K, *spatial) gating map on the plain path, computed on
         demand (trainer.py:1733-1744)."""
-        eff = effective_params(self.params, self.cfg, self.musX_grid)
+        eff = effective_params(self._full_params(), self.cfg, self.musX_grid)
         w = torch.stack([_forward_eff(eff, self.cfg, self.bset.coords[b],
                                       self.kernel_lists[b],
                                       model_mask=self.model_mask).w_e
@@ -1463,6 +1695,10 @@ class Smoe:
         """nu_k <- mean image value over kernel k's argmax-gating region,
         0.5 where a kernel never wins (trainer.py:1848-1871, reference
         smoe.py:320-329).  `rows`: restrict the update to these rows."""
+        with self._all_rows():
+            self._reinit_nu_from_argmax(rows)
+
+    def _reinit_nu_from_argmax(self, rows):
         c = self.image.shape[-1]
         cap = self.params.capacity
         w = np.asarray(self.get_weight_matrix_argmax()).reshape(-1)
@@ -1489,6 +1725,10 @@ class Smoe:
         of reference smoe_test.py:123-207).  The draw is numpy's, as in the
         JAX package, so a seed picks the same rows and positions in both.
         Returns the activated row indices."""
+        with self._all_rows():
+            return self._reseed_time_slab(kk, rng)
+
+    def _reseed_time_slab(self, kk: int, rng):
         cfg = self.cfg
         if cfg.dim_domain != 3:
             raise ValueError("time-slab reseeding is a video feature")
@@ -1528,8 +1768,13 @@ class Smoe:
 
     def reinit_inc(self, plot_dir=None, threshold_rel=0.2):
         from smoe_tpu_torch.fit.incremental import reinit_inc as _reinit
-        _reinit(self, plot_dir=plot_dir, threshold_rel=threshold_rel)
+        with self._all_rows():
+            _reinit(self, plot_dir=plot_dir, threshold_rel=threshold_rel)
 
     def apply_inc(self):
         from smoe_tpu_torch.fit.incremental import apply_inc as _apply
-        _apply(self)
+        with self._all_rows():
+            _apply(self)
+        if self._kgroup is not None:
+            # on this rank's rows, not the gathered ones _apply reset it on
+            self.set_inc_optimizer(reset=True)

@@ -195,6 +195,21 @@ shutil.rmtree(d)
     _run(extra)
 
 
+def test_mesh_paths_run_without_jax():
+    """The parallel modules and a 2-rank world through the spawned
+    workers' entry module (smoe_tpu_torch.parallel.launch) and
+    tests/torch_worlds.py: no jax in the parent or in either worker."""
+    extra = """
+import tempfile
+from smoe_tpu_torch.parallel import compat, launch, multihost, sharded
+r = launch.run_world("tests/torch_worlds.py:world_grads_are_exact", 2,
+                     tempfile.mkdtemp(), timeout=120)
+assert [x["psum_grad"] for x in r] == [2.0, 2.0]
+assert not any(x["jax_loaded"] for x in r)
+"""
+    _run(extra)
+
+
 def test_chip_smoke_refuses_without_a_gpu():
     """chip_smoke.py measures the card or fails: without CUDA it exits
     non-zero and prints no result line."""
