@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port's serving decode, trainer, forward
-ablation variants, encode CLI, fit CLI, video path, light-field path, SV
-residual / subsampling and mesh paths on one NVIDIA GPU.
+ablation variants, encode CLI, fit CLI with its plots, video path,
+light-field path, SV residual / subsampling, mesh paths and applications
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -94,9 +95,13 @@ no result line) on any fault:
      fit's model_best.smoe through K1 within 1 LSB of its plain decode;
      both runs' first validation mse within 1e-3 of the JAX CLI's recorded
      in tests/data/ls_recipe512_ref.npz, its later ones printed beside;
+     the LS run's loss.png and iter_{n}.png panels (one per validation)
+     read back at the renderer's size, the last panel's orig tile equal
+     to the displayed image, the host ms of one render of each plotter;
  16. cli.fit's inc loop (-is 2 -ni 50 -na 50 -n 100 -qm 1: the kernel count
      grows by 256 per step to a capacity of 1,024, the model_best.smoe
-     decodes within 1 LSB), QAT mode 3 and the SSIM loss (-qm 3 / -ssim 1,
+     decodes within 1 LSB, one inc_{n}.png peak plot per step reads back
+     at its size), QAT mode 3 and the SSIM loss (-qm 3 / -ssim 1,
      -n 100: one K1 and one K2 launch per sweep), each of the last two also
      fitted in-process for 100 sweeps on the kernel path, every sweep also
      taken by the plain path from the same state, both updates within
@@ -175,6 +180,25 @@ no result line) on any fault:
      of phase 8's plain path; (3) s/iter and decode ms beside their
      one-card counterparts: the collectives' cost on one card, not a
      scaling result.
+ 21. the applications (smoe_tpu_torch/apps/) at their scripts'
+     default arguments: (1) each app's own trainer (smoke's 32^2 toy, the
+     denoise and inpaint 128^2 fits, superres 256^2 x 256 kernels,
+     exp_layers 192^2 x 100, rd_curve's 256^2 x 144 as is and after its
+     kernel-mode LS solve) for 20 sweeps on the kernel path against 20 on
+     the plain path from one init, mse within TRAJ_RTOL (reported for
+     smoke's 1,024-pixel toy, where one output-quantizer flip is ~7e-4 of
+     the mse), then 20 sweeps each taken by both paths from one state,
+     within TRAJ_RTOL for every app; one K1 and one K2 launch per sweep;
+     (2) smoke, demo_denoise with --plot-dir, demo_inpaint,
+     demo_superres, exp_layers and rd_curve (bench family,
+     as is and with --lsinit --lsri --prune, the latter cut to 500
+     iterations a point) through their main on the
+     card: finite JSON, K2 once per sweep and K1 once per sweep, per
+     light eval (the validations of an app without callbacks) and per
+     decode, the denoise panels read back at their size; every file an
+     app coded (the 256 / 512 super-resolution rasters, each tier prefix
+     of the layered files, each RD point's model at 256^2) decoded
+     through K1 within 1 LSB of its plain decode, >= 99.9 % identical.
 Launch counts are zeroed before each path and read after it; the launches
 made to compare a kernel with its plain version are not counted.  Then
 prints the card line, one JSON line of kernel results (each with its
@@ -187,6 +211,7 @@ them), and
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import json
@@ -197,6 +222,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -1535,6 +1561,57 @@ def decode_vs_plain(path):
     return (rec,) + lsb_stats(rec, plain)
 
 
+def display_tile(img, tile=256):
+    """The 8-bit tile the renderer shows of an (H, W, 3) image in [0, 1]:
+    nearest neighbour at the image's own aspect ratio, centred in the
+    tile; returns (row offset, column offset, tile)."""
+    h, w = img.shape[:2]
+    s = min(tile / h, tile / w)
+    oh, ow = max(1, int(round(h * s))), max(1, int(round(w * s)))
+    rows = np.minimum(((np.arange(oh) + 0.5) * h / oh).astype(int), h - 1)
+    cols = np.minimum(((np.arange(ow) + 0.5) * w / ow).astype(int), w - 1)
+    out = np.round(np.clip(img, 0, 1)[rows][:, cols] * 255).astype(np.uint8)
+    return (tile - oh) // 2, (tile - ow) // 2, out
+
+
+def cli_plots(smoe, d, tmp):
+    """Phase 15's plots: cli.fit wrote loss.png and an iter_{n}.png panel
+    per validation, each reading back at the renderer's size; the last
+    panel's orig tile is the displayed image (the PNG's YUV through
+    `_to_display`, resampled); and the host ms of one render of each
+    plotter, PNG write included."""
+    from smoe_tpu_torch.diag import plots, render
+    from smoe_tpu_torch.io.images import read_png
+    iters = sorted({r["iter"] for r in _metrics(d)})
+    names = sorted(n for n in os.listdir(d) if n.endswith(".png"))
+    want = sorted(["loss.png"] + [f"iter_{i}.png" for i in iters])
+    check(names == want, f"cli.fit wrote the plots {names}, expected "
+          f"{want}")
+    ip = plots.ImagePlotter(path=os.path.join(tmp, "render"))
+    lp = plots.LossPlotter(path=os.path.join(tmp, "render", "loss.png"))
+    panel_shape = render.canvas_shape(ip.panels(smoe), plots.TILE)
+    loss_shape = render.canvas_shape(lp.panels(smoe), plots.LOSS_TILE)
+    for n in want:
+        got = read_png(os.path.join(d, n)).shape
+        exp = loss_shape if n == "loss.png" else panel_shape
+        check(got == exp, f"{n} reads back at {got}, expected {exp}")
+    panel = read_png(os.path.join(d, f"iter_{iters[-1]}.png"))[..., ::-1]
+    r, c, tile = display_tile(plots._to_display(smoe.image,
+                                                smoe.cfg.use_yuv))
+    r += render.PAD + render.LINE_H
+    c += render.PAD
+    got = panel[r:r + tile.shape[0], c:c + tile.shape[1]]
+    check(np.array_equal(got, tile), "the orig tile of the panel is not "
+          "the displayed image")
+    out = {"files": len(want), "panel_shape": list(panel_shape),
+           "loss_shape": list(loss_shape),
+           "image_plotter_host_ms": host_ms_median(lambda: ip.plot(smoe), 3),
+           "loss_plotter_host_ms": host_ms_median(lambda: lp.plot(smoe), 3)}
+    print(f"cli.fit plots ({smoe.image.shape[0]}^2, 4 panels): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def fit_cli_recipe(img, launches):
     """Phase 15: the fit CLI's headline recipe at the flagship's full width
     (cli.fit -k 16 -n 500 -v 100 -qm 1 -lsinit auto -lsri 100 -iukl 1 on a
@@ -1552,11 +1629,13 @@ def fit_cli_recipe(img, launches):
     with tempfile.TemporaryDirectory() as tmp:
         png = write_image(img, os.path.join(tmp, "img"), 2, yuv=True)
         common = ["-n", str(n), "-v", "100", "-qm", "1", "-iukl", "1"]
+        smoes = {}
         for name, extra in (("ls", ["-lsinit", "auto", "-lsri", "100"]),
                             ("sample", [])):
-            _, out[name] = _fit_run(png, os.path.join(tmp, name),
-                                    common + extra, launches)
+            smoes[name], out[name] = _fit_run(png, os.path.join(tmp, name),
+                                              common + extra, launches)
         d = os.path.join(tmp, "ls")
+        out["plots"] = cli_plots(smoes["ls"], d, tmp)
         reset_counts()
         rec, _, enc_s = _cli(reconstruct.main, [
             "-i", png, "-p", os.path.join(d, "params_best.pkl"), "-r",
@@ -1610,14 +1689,15 @@ def fit_cli_recipe(img, launches):
     return out
 
 
-def stepped_from_kernel_path(s_k, s_p, n):
+def stepped_from_kernel_path(s_k, s_p, n, **kw):
     """n sweeps of the kernel-path trainer s_k, each also taken by the
     plain-path trainer s_p from the very state s_k starts it from (params,
     Adam moments, kernel lists copied over first); after each, both
     updated models are evaluated on the exact path.  Returns the per-sweep
     relative difference of those two mse values: the kernel path's step
     against the plain path's, without the chaos a free-running pair of
-    trajectories through a quantizer accumulates."""
+    trajectories through a quantizer accumulates.  kw: the sweeps'
+    run_batched_chunk arguments."""
     from smoe_tpu_torch.core.params import adam_state_from_numpy
     from smoe_tpu_torch.fit.trainer import PARAM_FIELDS
     rel = []
@@ -1629,14 +1709,37 @@ def stepped_from_kernel_path(s_k, s_p, n):
             s_p.load_adam_state(adam_state_from_numpy(
                 st["mu"], st["nu"], st["count"], device=s_p.device))
         s_p.kernel_lists = s_k.kernel_lists.clone()
-        s_k.run_batched_chunk(1)
-        s_p.run_batched_chunk(1)
+        s_k.run_batched_chunk(1, **kw)
+        s_p.run_batched_chunk(1, **kw)
         lists = s_k.kernel_lists.clone()
         mk = s_k.run_batched(train=False, update_reconstruction=True)[1]
         mp = s_p.run_batched(train=False, update_reconstruction=True)[1]
         s_k.kernel_lists = lists         # the eval leaves the fit's lists
         rel.append(abs(mk - mp) / mp)
     return rel
+
+
+def inc_plots(smoe, d, tmp):
+    """Phase 16's plots: one inc_{n}.png per insertion (-is 2), each
+    reading back at the renderer's size, and the host ms of one peak plot
+    of the fit's own error map (computed once, outside the timing)."""
+    from smoe_tpu_torch.diag import render
+    from smoe_tpu_torch.fit import incremental as inc
+    from smoe_tpu_torch.io.images import read_png
+    names = sorted(n for n in os.listdir(d) if n.startswith("inc_"))
+    check(len(names) == 2, f"cli.fit -is 2 wrote the peak plots {names}")
+    diff = inc.error_map(smoe)
+    peaks = inc.peak_local_max(diff, 256)
+    exp = render.canvas_shape(inc.peak_panels(diff, peaks))
+    for n in names:
+        got = read_png(os.path.join(d, n)).shape
+        check(got == exp, f"{n} reads back at {got}, expected {exp}")
+    out = {"files": names, "shape": list(exp), "peaks": int(len(peaks)),
+           "peak_plot_host_ms": host_ms_median(
+               lambda: inc._plot_peaks(diff, peaks, os.path.join(
+                   tmp, "render"), 0), 3)}
+    print(f"cli.fit inc plots: {json.dumps(out)}", flush=True)
+    return out
 
 
 def fit_cli_variants(img, launches):
@@ -1682,6 +1785,7 @@ def fit_cli_variants(img, launches):
                            "capacity": smoe.cfg.capacity,
                            "k1_widths": sorted(set(widths)),
                            "num_pi_last": smoe.get_num_pis()[-1][1]})
+        out["inc"]["plots"] = inc_plots(smoe, os.path.join(tmp, "inc"), tmp)
         reset_counts()
         _, lsb, same = decode_vs_plain(os.path.join(tmp, "inc",
                                                     "model_best.smoe"))
@@ -2923,6 +3027,276 @@ def mesh_phase(img, fit1080, t4k, sha4k, launches):
 _T0 = [time.perf_counter()]
 
 
+# phase 21: the applications (smoe_tpu_torch/apps/) at their
+# scripts' default arguments, each fit's sweeps and each decode counted.
+# One cut: rd_curve's second run (--lsinit --lsri --prune) fits each point
+# for 500 iterations instead of 1000, so that the phase stays under 120 s
+# on a slow host (the uncut phase took 105.7 s on one, 68.7 on another)
+RD_LS_ITERS = 500
+APP_SWEEPS = {"smoke": 100, "demo_denoise": 600, "demo_inpaint": 600,
+              "demo_superres": 600, "exp_layers": 500,
+              "rd_curve": 4 * 1000, "rd_curve_ls": 4 * RD_LS_ITERS}
+
+def app_trainers():
+    """{case: (make(use_pallas) -> the app's own trainer ready for its
+    first sweep, run_batched_chunk kwargs)} at the apps' default
+    arguments."""
+    from smoe_tpu_torch.apps import (content, demo_denoise, demo_inpaint,
+                                     demo_superres, exp_layers, rd_curve,
+                                     smoke)
+    bench = content.build_family("bench", 256)
+    img, mask = demo_inpaint.build(128)
+    corrupted = demo_inpaint.corrupt(img, mask)
+    _, noisy = demo_denoise.images(128, 0.05)
+    depths = (20, 18, 6, 10, 10)
+    return {
+        "smoke": (lambda m: smoke.trainer(DEVICE, use_pallas=m), {}),
+        "demo_denoise": (lambda m: demo_denoise.trainer(
+            noisy, 8, DEVICE, use_pallas=m), {}),
+        "demo_inpaint": (lambda m: demo_inpaint.trainer(
+            corrupted, mask, 8, DEVICE, use_pallas=m),
+            {"use_loss_mask": True}),
+        "demo_superres": (lambda m: demo_superres.trainer(
+            content.build_image(256), 16, DEVICE, use_pallas=m), {}),
+        "exp_layers": (lambda m: exp_layers.trainer(
+            content.build_image(192), 10, DEVICE, use_pallas=m), {}),
+        "rd_curve": (lambda m: rd_curve.trainer(
+            bench, 8, depths, False, False, False, DEVICE, use_pallas=m),
+            {"pis_l1": 1e-4}),
+        "rd_curve_ls": (lambda m: rd_curve.trainer(
+            bench, 8, depths, True, False, True, DEVICE, use_pallas=m),
+            {"pis_l1": 1e-4}),
+    }
+
+
+# the apps whose free-running kernel and plain paths are held to
+# TRAJ_RTOL over FIT_SWEEPS sweeps: on smoke's 32^2 toy (1,024 pixels at an
+# mse near 10 after 20 sweeps) one pixel crossing a rounding boundary of
+# the output quantizer moves the mse by ~7e-4, and the two trajectories
+# part from there (measured on the CPU, kernel path through the plain
+# versions: 5.2e-4 at sweep 9, 2.2e-3 at 18); there the stepped check holds
+FREE_RUN_HELD = ("demo_denoise", "demo_inpaint", "demo_superres",
+                 "exp_layers", "rd_curve", "rd_curve_ls")
+
+
+def app_fits(launches):
+    """Each app's trainer on the kernel path against the plain path from
+    one init, FIT_SWEEPS sweeps each (free-running: within TRAJ_RTOL for
+    FREE_RUN_HELD, reported for the others), then FIT_SWEEPS sweeps each
+    taken by both paths from the kernel path's state
+    (`stepped_from_kernel_path`), within TRAJ_RTOL for every app; one K1
+    and one K2 launch per block per sweep on the kernel path, none on the
+    plain path."""
+    out = {}
+    for name, (make, kw) in app_trainers().items():
+        s_k, s_p = make(KERNEL_MODE), make("off")
+        reset_counts()
+        mk = s_k.run_batched_chunk(FIT_SWEEPS, **kw)[1]
+        n1, n2 = read_counts()
+        mp = s_p.run_batched_chunk(FIT_SWEEPS, **kw)[1]
+        check(read_counts() == (n1, n2), f"{name}: the plain path "
+              "launched a kernel")
+        blocks = s_k.start_batches
+        check(n1 == n2 == FIT_SWEEPS * blocks, f"{name}: K1 / K2 launched "
+              f"{n1} / {n2} times in {FIT_SWEEPS} sweeps of {blocks} blocks")
+        r = np.abs(mk - mp) / mp
+        s_k, s_p = make(KERNEL_MODE), make("off")
+        reset_counts()
+        stepped = stepped_from_kernel_path(s_k, s_p, FIT_SWEEPS, **kw)
+        m1, m2 = read_counts()
+        launches[0] += n1 + m1
+        launches[1] += n2 + m2
+        out[name] = {"blocks": blocks, "k1_k2": [n1, n2],
+                     "mse_kernel_first_last": [float(mk[0]), float(mk[-1])],
+                     "free_run_mse_max_rel": float(r.max()),
+                     "free_run_sweeps_within_tol": int(
+                         np.argmax(r > TRAJ_RTOL)) if (r > TRAJ_RTOL).any()
+                     else int(r.size),
+                     "stepped_k1_k2": [m1, m2],
+                     "stepped_mse_max_rel": max(stepped)}
+        check(m2 == FIT_SWEEPS * blocks, f"{name}: the stepped run launched "
+              f"K2 {m2} times")
+        if name in FREE_RUN_HELD:
+            check(r.max() <= TRAJ_RTOL, f"{name}: kernel path mse off the "
+                  f"plain path by {r.max():.2e}")
+        check(max(stepped) <= TRAJ_RTOL, f"{name}: the kernel path's step "
+              f"off the plain path's by {max(stepped):.2e}")
+        del s_k, s_p
+    print(f"apps, kernel vs plain path over {FIT_SWEEPS} sweeps: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def app_recorders():
+    """Within: codec.bitstream.write_bitstream records each call's
+    arguments (the apps import it when they run), and the trainer's light
+    evals (the fused op at full width: one K1 launch a block) and the
+    serving decodes (one K1 launch each) are counted."""
+    from smoe_tpu_torch.codec import bitstream, serve
+    from smoe_tpu_torch.fit.trainer import Smoe
+    rec = {"writes": [], "light_eval_blocks": 0, "decodes": 0}
+    real = (bitstream.write_bitstream, Smoe._eval_sweep,
+            serve.decode_bitstream)
+
+    def write(path, qparams, cfg, extra=None, layers=None, importance=None):
+        rec["writes"].append({"qparams": qparams, "cfg": cfg, "extra": extra,
+                              "layers": layers, "importance": importance})
+        return real[0](path, qparams, cfg, extra=extra, layers=layers,
+                       importance=importance)
+
+    def eval_sweep(self, *a, **kw):
+        if not (kw["with_rec"] or kw["exact"]):
+            rec["light_eval_blocks"] += self._blocks.stop - self._blocks.start
+        return real[1](self, *a, **kw)
+
+    def decode(*a, **kw):
+        rec["decodes"] += 1
+        return real[2](*a, **kw)
+
+    bitstream.write_bitstream, Smoe._eval_sweep, serve.decode_bitstream = \
+        write, eval_sweep, decode
+    try:
+        yield rec
+    finally:
+        (bitstream.write_bitstream, Smoe._eval_sweep,
+         serve.decode_bitstream) = real
+
+
+def app_decodes(name, writes, tmp):
+    """Every file the app coded, written again beside its header fields
+    (an RD point's file has none: those of the bench family's 256^2
+    raster) and decoded through
+    K1 against its plain decode: each tier prefix of a layered file, the
+    super-resolution file natively and at 512^2.  Returns the decodes'
+    (label, max LSB, identical share)."""
+    from smoe_tpu_torch.codec.bitstream import write_bitstream
+    from smoe_tpu_torch.codec.serve import decode_bitstream
+    rows = []
+    for i, w in enumerate(writes):
+        extra = w["extra"] or {
+            "shape_of_img": [256, 256], "dim_of_output": 3,
+            "use_yuv": w["cfg"].use_yuv,
+            "use_determinant": w["cfg"].use_determinant}
+        path = os.path.join(tmp, f"{name}_{i}.smoe")
+        write_bitstream(path, w["qparams"], w["cfg"], extra=extra,
+                        layers=w["layers"], importance=w["importance"])
+        kws = [{}]
+        if w["layers"]:
+            kws = [{"layers": m} for m in range(1, w["layers"] + 1)]
+        if name == "demo_superres":
+            kws.append({"out_shape": (512, 512)})
+        for kw in kws:
+            rec = decode_bitstream(path, device=DEVICE, **kw)
+            plain = decode_bitstream(path, device=DEVICE, reference=True,
+                                     **kw)
+            rows.append([f"{i} {kw}", *lsb_stats(rec, plain)])
+    for label, lsb, same in rows:
+        check(lsb <= 1 and same >= 0.999, f"{name} decode {label}: K1 vs "
+              f"plain {lsb} LSB, {same:.5f} identical")
+    return rows
+
+
+def finite_numbers(x) -> bool:
+    if isinstance(x, dict):
+        return all(finite_numbers(v) for v in x.values())
+    if isinstance(x, list):
+        return all(finite_numbers(v) for v in x)
+    return not isinstance(x, float) or math.isfinite(x)
+
+
+def apps_phase(launches):
+    """Phase 21: `app_fits`, then each app's main at its script's default
+    arguments on the card (demo_denoise with --plot-dir; rd_curve on the
+    bench family as is and, for RD_LS_ITERS a point, with --lsinit --lsri
+    --prune): its JSON finite,
+    K2 launched once per sweep and K1 once per sweep, per light eval and
+    per decode (`app_recorders` counts those two), the denoise panels
+    reading back at their size; every decode of a coded
+    file through K1 within 1 LSB of its plain decode (`app_decodes`)."""
+    from smoe_tpu_torch.apps import (demo_denoise, demo_inpaint,
+                                     demo_superres, exp_layers, rd_curve,
+                                     smoke)
+    from smoe_tpu_torch.diag import plots, render
+    from smoe_tpu_torch.io.images import read_png
+    out = {"fits": app_fits(launches), "runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = (("smoke", smoke, []),
+                ("demo_denoise", demo_denoise,
+                 ["--plot-dir", os.path.join(tmp, "denoise")]),
+                ("demo_inpaint", demo_inpaint, []),
+                ("demo_superres", demo_superres, []),
+                ("exp_layers", exp_layers, []),
+                ("rd_curve", rd_curve, []),
+                ("rd_curve_ls", rd_curve, [str(RD_LS_ITERS), "--lsinit",
+                                           "--lsri", "--prune"]))
+        for name, app, argv in runs:
+            with app_recorders() as rec:
+                reset_counts()
+                res, log, wall = _cli(app.main, argv + ["--device", DEVICE])
+                n1, n2 = read_counts()
+            launches[0] += n1
+            launches[1] += n2
+            key = name.split("_ls")[0]
+            sweeps = APP_SWEEPS[name]
+            run = {"argv": argv, "wall_s": wall, "k1_k2": [n1, n2],
+                   "light_eval_blocks": rec["light_eval_blocks"],
+                   "decodes_in_app": rec["decodes"], "json": res,
+                   "files_coded": len(rec["writes"])}
+            print(f"app {name} ({wall:.1f} s, K1 / K2 {n1} / {n2}): "
+                  f"{json.dumps(res)}", flush=True)
+            check(isinstance(res, dict) and finite_numbers(res),
+                  f"{name}: bad result {res}")
+            check(n2 == sweeps and n1 == n2 + rec["light_eval_blocks"]
+                  + rec["decodes"], f"{name}: K1 / K2 launched {n1} / {n2} "
+                  f"times in {sweeps} one-block sweeps, "
+                  f"{rec['light_eval_blocks']} light evals and "
+                  f"{rec['decodes']} decodes")
+            run["decodes"] = app_decodes(key, rec["writes"], tmp)
+            out["runs"][name] = run
+        d = os.path.join(tmp, "denoise")
+        names = sorted(os.listdir(d))
+        n = APP_SWEEPS["demo_denoise"]
+        check(names == sorted(f"denoise_{i}.png"
+                              for i in range(0, n + 1, 100)),
+              f"demo_denoise --plot-dir wrote {names}")
+        shape = read_png(os.path.join(d, names[-1])).shape
+        # the panels' layout does not depend on the pictures: a 2x2 stub
+        z = np.zeros((2, 2, 3), np.float32)
+        stub = types.SimpleNamespace(
+            iter=0, image=z, get_reconstruction=lambda: z,
+            cfg=types.SimpleNamespace(use_yuv=True, precision=8))
+        exp = render.canvas_shape(plots.DenoisePlotter(z).panels(stub),
+                                  plots.TILE)
+        check(shape == exp, f"denoise panel reads back at {shape}, "
+              f"expected {exp}")
+    psnr = out["runs"]["demo_superres"]["json"]
+    check(psnr["psnr_sr512_db"] > 25 and psnr["psnr_256_db"] > 25,
+          f"superres decodes at {psnr}")
+    return out
+
+
+def apps_summary(apps, before, launches) -> dict:
+    """Phase 21's summary line: each run's wall s and launches, the
+    decodes' worst LSB and identical share, the fits' worst free-running
+    (FREE_RUN_HELD) and stepped mse, the phase's launches (`before`: the
+    counts when it began)."""
+    runs = apps["runs"]
+    return {
+        "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+        "k1_k2": {k: v["k1_k2"] for k, v in runs.items()},
+        "decodes_max_lsb": max(r[1] for v in runs.values()
+                               for r in v["decodes"]),
+        "decodes_min_identical": min(r[2] for v in runs.values()
+                                     for r in v["decodes"]),
+        "fits_free_run_mse_max_rel": max(
+            apps["fits"][k]["free_run_mse_max_rel"] for k in FREE_RUN_HELD),
+        "fits_stepped_mse_max_rel": max(
+            v["stepped_mse_max_rel"] for v in apps["fits"].values()),
+        "launches_k1_k2": [launches[0] - before[0],
+                           launches[1] - before[1]]}
+
+
 def clock(label: str) -> None:
     """Print the seconds since the previous mark, for the phase `label`."""
     now = time.perf_counter()
@@ -3244,6 +3618,12 @@ def main() -> int:
             max(g2["decode_4k_e2e_ms"]), g2["decode_4k_e2e_ms_one_card"]],
         "gloo2_flagship_bk_plain_s_per_iter_first_chunk":
             g2["flagship_bk_s_per_iter_first_chunk"]}), flush=True)
+    # phase 21: the applications at their scripts' defaults
+    before = list(launches)
+    apps = apps_phase(launches)
+    clock("phase 21")
+    print(f"apps ({card}): " + json.dumps(apps_summary(apps, before,
+                                                      launches)), flush=True)
     check(all(n > 0 for n in launches),
           f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
           f"{launches[2]} times")
@@ -3291,7 +3671,8 @@ def main() -> int:
          "sv_block_candidate_fraction_full_subsampled": [
              sv["raster"]["full"]["k1"]["candidate_fraction"],
              sv["raster"]["subsampled"]["k1"]["candidate_fraction"]],
-         "mesh_phase_launches": mesh["launches_k1_k2"][0]},
+         "mesh_phase_launches": mesh["launches_k1_k2"][0],
+         "apps_phase_launches": launches[0] - before[0]},
         {"name": "gate_expert_bwd", "route": "cuda", "source": BWD_SRC,
          "replaces": BWD_REPLACES, "launches": launches[1],
          "max_abs_err": max_err_bwd, "max_rel_err": max_rel_bwd,
@@ -3318,7 +3699,8 @@ def main() -> int:
          "sv_block_ms_full_subsampled": [
              sv["raster"]["full"]["k2"]["ms"],
              sv["raster"]["subsampled"]["k2"]["ms"]],
-         "mesh_phase_launches": mesh["launches_k1_k2"][1]},
+         "mesh_phase_launches": mesh["launches_k1_k2"][1],
+         "apps_phase_launches": launches[1] - before[1]},
         {"name": "gate_expert_variants", "route": "cuda", "source": VAR_SRC,
          "replaces": VAR_REPLACES, "launches": launches[2],
          "max_abs_err": max_err_var, "max_rel_err": max_rel_var,

@@ -1,0 +1,140 @@
+"""Synthetic content families for the RD curve and the demos (from
+scripts/content.py, and bench.py:29-44's build_image).
+
+  bench   - the sinusoid + blocks + noise headline image
+  pink    - 1/f spectral field (natural-image second-order statistics)
+  mosaic  - piecewise-constant Voronoi cells (cartoon / graphics class)
+  text    - high-contrast thin strokes on a smooth gradient (screen
+            content / document class)
+
+Each is deterministic (seeded), float32 in [0, 1], RGB, and the same array
+bit for bit as the JAX package's script gives.  The photo families `hopper`,
+`mri` and `dem` read matplotlib's sample data, which the card's machine
+does not have: they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+FAMILIES = ("bench", "pink", "mosaic", "text", "hopper", "mri", "dem")
+
+
+def build_image(size=512):
+    """Deterministic structured test image (edges + smooth texture +
+    gradients) representable at 32+ dB by the benchmark kernel budget."""
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[0:size, 0:size] / (size - 1)
+    img = np.stack([
+        0.5 + 0.3 * np.sin(4 * x + 1.5 * y),
+        0.5 + 0.25 * np.cos(3 * (x - 0.3) * (y + 0.4) * 4),
+        0.4 + 0.3 * np.sin(5 * x * y),
+    ], axis=-1)
+    # blocky structure (codec-relevant edges)
+    img[size // 4:size // 2, size // 3:size // 2, 0] += 0.2
+    img[size // 2:, : size // 4, 1] -= 0.15
+    img += rng.normal(0, 0.005, img.shape)
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def build_pink(size=256, seed=7, beta=1.8):
+    """1/f^beta spectral field per channel: the classic natural-image
+    power-law statistics (beta ~ 1.8-2.0)."""
+    rng = np.random.default_rng(seed)
+    fy = np.fft.fftfreq(size)[:, None]
+    fx = np.fft.fftfreq(size)[None, :]
+    f = np.sqrt(fy * fy + fx * fx)
+    f[0, 0] = 1.0 / size
+    amp = f ** (-beta / 2.0)
+    chans = []
+    for _ in range(3):
+        phase = rng.uniform(0, 2 * np.pi, (size, size))
+        spec = amp * np.exp(1j * phase)
+        x = np.real(np.fft.ifft2(spec))
+        x = (x - x.min()) / (x.max() - x.min() + 1e-12)
+        chans.append(x)
+    img = np.stack(chans, axis=-1).astype(np.float32)
+    # correlate the channels like natural content (shared luminance)
+    lum = img.mean(-1, keepdims=True)
+    return np.clip(0.7 * lum + 0.3 * img, 0, 1).astype(np.float32)
+
+
+def build_mosaic(size=256, seed=11, cells=40):
+    """Piecewise-constant Voronoi mosaic (cartoon class: flat regions,
+    sharp irregular boundaries)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, size, (cells, 2))
+    cols = rng.uniform(0.1, 0.9, (cells, 3)).astype(np.float32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    d2 = ((yy[..., None] - pts[:, 0]) ** 2
+          + (xx[..., None] - pts[:, 1]) ** 2)
+    img = cols[np.argmin(d2, axis=-1)]
+    img += rng.normal(0, 0.003, img.shape).astype(np.float32)
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def build_text(size=256, seed=13):
+    """Glyph-like thin strokes on a smooth two-tone gradient (screen /
+    document content): high-contrast 1-3 px structures at many
+    orientations, no font dependency."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size] / (size - 1)
+    img = np.stack([0.75 + 0.15 * x - 0.1 * y,
+                    0.78 + 0.1 * (x + y) / 2,
+                    0.8 - 0.12 * x], axis=-1).astype(np.float32)
+    ink = np.zeros((size, size), bool)
+    n_glyphs = max(6, size // 18) ** 2
+
+    def stamp_line(r0, c0, r1, c1, w):
+        n = int(max(abs(r1 - r0), abs(c1 - c0))) + 1
+        rr = np.clip(np.linspace(r0, r1, n).astype(int), 0, size - 1)
+        cc = np.clip(np.linspace(c0, c1, n).astype(int), 0, size - 1)
+        for dy in range(w):
+            for dx in range(w):
+                ink[np.clip(rr + dy, 0, size - 1),
+                    np.clip(cc + dx, 0, size - 1)] = True
+
+    grid = int(np.sqrt(n_glyphs))
+    cell = size // grid
+    for gi in range(grid):
+        for gj in range(grid):
+            if rng.uniform() < 0.25:          # word spacing
+                continue
+            r, c = gi * cell + 2, gj * cell + 2
+            h, w = int(cell * 0.6), int(cell * 0.5)
+            for _ in range(rng.integers(2, 5)):   # strokes per glyph
+                p = rng.integers(0, [h, w], 2)
+                q = rng.integers(0, [h, w], 2)
+                stamp_line(r + p[0], c + p[1], r + q[0], c + q[1],
+                           max(1, size // 256))
+    img[ink] = np.float32([0.08, 0.08, 0.12])
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def _photo(name: str):
+    raise NotImplementedError(
+        f"content family {name!r} reads matplotlib's sample data "
+        "(mpl-data/sample_data), which the card's machine does not have; "
+        f"choose from {FAMILIES[:4]}")
+
+
+def build_hopper(size=256):
+    _photo("hopper")
+
+
+def build_mri(size=256):
+    _photo("mri")
+
+
+def build_dem(size=256):
+    _photo("dem")
+
+
+def build_family(name: str, size=256):
+    builders = {"bench": build_image, "pink": build_pink,
+                "mosaic": build_mosaic, "text": build_text,
+                "hopper": build_hopper, "mri": build_mri, "dem": build_dem}
+    if name not in builders:
+        raise ValueError(f"unknown content family {name!r}; "
+                         f"choose from {FAMILIES}")
+    return builders[name](size)

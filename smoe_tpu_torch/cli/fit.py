@@ -14,7 +14,9 @@ error-proportional subsampling (-sp < 100), resume (-c, -orfc, -hpc,
 motion-compensated dual-model fit and the per-time-slab reseed loop (-ri);
 for a light field (a .mat file) the corner-view mask, weighted by -lfcw;
 and the outputs: metrics.jsonl, params/ and reconstructions/ (a PNG, .yuv
-or .mat) per validation, checkpoints/ every 100 iterations,
+or .mat), loss.png and the image panels iter_{n}.png per validation
+(inc_{n}.png, the error map's peaks, per -is step), checkpoints/ every 100
+iterations,
 params_best.pkl / params_last.pkl and, with -qm != 0, model_last.smoe and
 model_best.smoe (the global best), which smoe_tpu_torch.cli.reconstruct
 and smoe_tpu_torch.cli.decode read.  With `--device cuda` (the default)
@@ -26,9 +28,6 @@ convert them to .npz) or a .mat light field (a v7.3 file needs h5py).
 torchrun's environment) join a torch.distributed world, NCCL on the card
 and gloo with --device cpu.  As in JAX the CLI builds no mesh: every
 process runs the whole fit and rank 0 alone writes the results.
-
-Not ported, raising NotImplementedError with their ROADMAP.md Queue 1
-item: the loss and image plots and -lsrs (7).
 """
 
 from __future__ import annotations
@@ -162,7 +161,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="which train phases run the -lsri refresh: every "
                         "phase, or the first fit only")
     p.add_argument("-lsrs", "--ls_refresh_stop", type=_nonneg_int, default=0,
-                   help="not ported: a measured dead end")
+                   help="stop the -lsri refresh after this many iterations "
+                        "of the initial fit (0 = never), so Adam settles "
+                        "refresh-free for the rest of it")
     p.add_argument("-mask", "--loss_mask_path", type=str, default=None)
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the fit into DIR")
@@ -176,16 +177,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to fit on (default cuda)")
     return p
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported to smoe_tpu_torch yet "
-                              f"(ROADMAP.md Queue 1 item {item})")
-
-
-def _refuse_unported(args) -> None:
-    if args.ls_refresh_stop:
-        _not_ported("-lsrs (ls_refresh_stop, a measured dead end)", 7)
 
 
 def main(args=None):
@@ -205,7 +196,6 @@ def main(args=None):
         args.sampling_percentage = 100
     if not (0 < args.sampling_percentage <= 100):
         raise ValueError("Sampling percentage must be in (0, 100]")
-    _refuse_unported(args)
     quantize_pis = args.quantize_pis or args.quantization_mode >= 2
 
     import torch
@@ -222,6 +212,7 @@ def main(args=None):
     from smoe_tpu_torch.codec.container import load_params, save_model
     from smoe_tpu_torch.config import OptConfig
     from smoe_tpu_torch.diag.log import JsonlLogger, ModelLogger
+    from smoe_tpu_torch.diag.plots import ImagePlotter, LossPlotter
     from smoe_tpu_torch.fit.trainer import Smoe
     from smoe_tpu_torch.io.images import read_image, write_image
 
@@ -321,23 +312,44 @@ def main(args=None):
     lsri_later = lsri_first if args.ls_refresh_phases == "all" else None
     # the writers are no-ops off rank 0, but every rank keeps the same
     # callbacks list, so `bool(callbacks)` (and with it the evals each
-    # validation runs) agrees across ranks (cli/fit.py:340-346)
-    callbacks = [ModelLogger(path=args.results_path).log,
-                 JsonlLogger(os.path.join(args.results_path,
-                                          "metrics.jsonl")).log] \
-        if multihost.primary() else [lambda smoe: None] * 2
+    # validation runs) agrees across ranks (cli/fit.py:340-356)
+    if multihost.primary():
+        callbacks = [
+            LossPlotter(path=os.path.join(args.results_path,
+                                          "loss.png")).plot,
+            ImagePlotter(path=args.results_path,
+                         options=(["orig", "reconstruction", "gating",
+                                   "supportvectors", "pis_hist"]
+                                  if args.train_svs else
+                                  ["orig", "reconstruction", "gating",
+                                   "pis_hist"])).plot,
+            ModelLogger(path=args.results_path).log,
+            JsonlLogger(os.path.join(args.results_path,
+                                     "metrics.jsonl")).log]
+    else:
+        callbacks = [lambda smoe: None] * 4
 
     if args.iterations:
         from smoe_tpu_torch.diag.profile import trace
         prof = trace(args.profile_dir) if args.profile_dir \
             else contextlib.nullcontext()
         with prof:
-            smoe.train(args.iterations, val_iter=args.validation_iterations,
-                       ukl_iter=args.update_kernel_list_iterations,
-                       pis_l1=args.l1reg, sv_l1_sub_l2=args.svreg,
-                       sampling_percentage=args.sampling_percentage,
-                       use_loss_mask=loss_mask is not None,
-                       callbacks=callbacks, ls_refresh_iter=lsri_first)
+            common = dict(val_iter=args.validation_iterations,
+                          ukl_iter=args.update_kernel_list_iterations,
+                          pis_l1=args.l1reg, sv_l1_sub_l2=args.svreg,
+                          sampling_percentage=args.sampling_percentage,
+                          use_loss_mask=loss_mask is not None,
+                          callbacks=callbacks)
+            stop = args.ls_refresh_stop
+            if lsri_first and stop and stop < args.iterations:
+                # -lsrs: refresh for the first `stop` iterations, then let
+                # Adam settle refresh-free for the rest of the initial fit
+                smoe.train(stop, ls_refresh_iter=lsri_first, **common)
+                smoe.train(args.iterations - stop, ls_refresh_iter=None,
+                           **common)
+            else:
+                smoe.train(args.iterations, ls_refresh_iter=lsri_first,
+                           **common)
 
         # video: per-time-slab kernel reseeding and retrain, the pis
         # learning rate x 10 for the refits (cli/fit.py:384-410, reference
@@ -369,7 +381,9 @@ def main(args=None):
     if args.inc_steps and (not args.hpc_mode or args.iterations == 0):
         for i in range(args.inc_steps):
             print(f"[{i}/{args.inc_steps}]")
-            smoe.reinit_inc(threshold_rel=args.threshold_rel)
+            smoe.reinit_inc(threshold_rel=args.threshold_rel,
+                            plot_dir=args.results_path
+                            if multihost.primary() else None)
             smoe.apply_inc()
             if args.ls_init:
                 smoe.ls_init_experts(mode=args.ls_init)

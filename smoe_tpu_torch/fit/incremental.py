@@ -11,18 +11,21 @@ Reference flow (smoe.py:1312-1483, driver smoe_test.py:221-245):
 
 The error map and the peak picker run on the host in numpy and scipy, as
 in the JAX package; the splices write the trainer's parameter tensors in
-place, so the optimizers keep holding them.  The peak plot
-(`plot_dir`) needs matplotlib and waits for a renderer in numpy (ROADMAP.md
-Queue 1 item 7).
+place, so the optimizers keep holding them.  With `plot_dir` reinit_inc
+also draws the error map and its peaks (`inc_{iteration}.png`) through the
+port's numpy renderer.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 from scipy.ndimage import maximum_filter, uniform_filter
+
+from smoe_tpu_torch.diag.render import Dots, Image, Panel, render
 
 MIN_DISTANCE_PEAKS = 8    # reference smoe.py:1365
 
@@ -101,11 +104,8 @@ def reinit_inc(smoe, plot_dir: Optional[str] = None,
                threshold_rel: float = 0.2) -> None:
     """Refill the inc kernel block from error-map peaks (incremental.py:
     96-156, reference smoe.py:1405-1477).  threshold_rel is accepted and
-    unused, as in the reference's live path."""
-    if plot_dir:
-        raise NotImplementedError(
-            "the inc peak plot needs matplotlib; a numpy renderer is not "
-            "ported yet (ROADMAP.md Queue 1 item 7)")
+    unused, as in the reference's live path.  plot_dir: also write the
+    error map with its peaks there (`_plot_peaks`)."""
     cfg = smoe.cfg
     assert cfg.add_kernel_slots > 0, "model built without add_kernel_slots"
     num_inc = smoe.num_inc_kernels
@@ -138,6 +138,8 @@ def reinit_inc(smoe, plot_dir: Optional[str] = None,
         # (smoe.py:1428-1429): its inc path is written for 2D images
         for i in range(min(d, 2)):
             new["a_diag"][:n, i, i] = a
+    if plot_dir:
+        _plot_peaks(diff, peaks, plot_dir, smoe.iter)
     _write_rows(smoe, slice(cap - num_inc, cap), new)
     # every block sees every kernel until the next list refresh
     # (reference smoe.py:1477)
@@ -163,3 +165,19 @@ def apply_inc(smoe) -> None:
     smoe.set_inc_optimizer(reset=True)
     smoe.kernel_count += num_inc
     smoe.valid = False
+
+
+def peak_panels(diff: np.ndarray, peaks: np.ndarray):
+    """The peak plot's one panel (incremental.py:190-203): the error map in
+    gray over its own range, the peaks as dots, "num peaks: n"."""
+    items = [Image(diff if diff.ndim == 2 else diff[..., 0], "gray")]
+    if peaks.shape[0]:
+        items.append(Dots(peaks[:, 1], peaks[:, 0]))
+    return [Panel(f"num peaks: {peaks.shape[0]}", items)]
+
+
+def _plot_peaks(diff, peaks, plot_dir, iteration):
+    """Write `peak_panels` as `inc_{iteration}.png` in plot_dir."""
+    os.makedirs(plot_dir, exist_ok=True)
+    render(peak_panels(diff, peaks),
+           os.path.join(plot_dir, f"inc_{iteration}.png"))

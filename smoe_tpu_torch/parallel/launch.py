@@ -2,7 +2,9 @@
 
     results = run_world("path/to/file.py:fn", 2, workdir, device="cpu")
 
-starts `python -m smoe_tpu_torch.parallel.launch` N times.  Each process
+starts `python -m smoe_tpu_torch.parallel.launch` N times, each on
+`device`: "cuda" (the default, every rank on the current card) or "cpu"
+where the caller asks for it, as the CPU tests do.  Each process
 joins a torch.distributed world through a `file://` store in `workdir`
 (no TCP port to race for), calls `fn(rank, world, **kwargs)`, pickles its
 return value to `workdir/rank<r>.pkl` and leaves the world.  The backend
@@ -40,9 +42,14 @@ def _load(target: str):
     return getattr(mod, name)
 
 
-def run_world(target: str, world: int, workdir: str, device: str = "cpu",
+def run_world(target: str, world: int, workdir: str, device: str = "cuda",
               timeout: float = 120.0, threads: int = 1, **kwargs):
     """Results of `target` on ranks 0..world-1, in rank order."""
+    import torch
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"run_world: device {device!r}: no CUDA device is "
+                           "available (pass device=\"cpu\" to run the world "
+                           "on the CPU)")
     os.makedirs(workdir, exist_ok=True)
     store = os.path.join(workdir, "store")
     if os.path.exists(store):

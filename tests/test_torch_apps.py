@@ -1,0 +1,197 @@
+"""PyTorch port: the applications (smoe_tpu_torch/apps/) against
+the JAX package's scripts (scripts/*.py), both on the CPU at tiny sizes.
+
+Each JAX script runs in-process with its argv set and its output captured;
+the port's app runs with the same arguments and --device cpu on the same
+input.  Both must print the same JSON keys, and their values agree:
+  * strings, flags, integers (kernel counts, tiers, sizes, iterations, bit
+    depths) and the inputs' own numbers (hole fraction, the noisy input's
+    PSNR) exactly;
+  * a PSNR (a key ending in "db", "value") within DB_TOL = 0.1 dB;
+  * a rate (a key with "bits" or "bpp") within RATE_RTOL = 1 % relative;
+  * a layering overhead in percent within OVERHEAD_TOL = 1.5 points (the
+    difference of two rates each within 1 %) and the importance spread
+    within 10 % relative;
+  * the fit's wall seconds by key only.
+Two packages that fit the same model part by rounding: after an exact
+least-squares solve Adam's first steps follow rounding noise, and a value
+on a quantizer's rounding boundary takes a whole step.  Measured on these
+inputs: PSNRs within 0.06 dB, rates within 0.3 %, overheads within 0.8
+points."""
+
+import io
+import json
+import os
+import runpy
+import sys
+from contextlib import redirect_stdout
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+cv2 = pytest.importorskip("cv2")
+
+from smoe_tpu_torch.apps import (content, demo_denoise, demo_inpaint,  # noqa
+                                 demo_superres, exp_layers, rd_curve, smoke)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SCRIPTS = os.path.join(os.path.dirname(HERE), "scripts")
+DB_TOL, RATE_RTOL, OVERHEAD_TOL, SPREAD_RTOL = 0.1, 1e-2, 1.5, 0.1
+EXACT = {"noisy_input_psnr_db", "psnr_holes_input_db",
+         "psnr_bicubic_of_input_db"}
+
+
+def run_jax(name, argv, monkeypatch):
+    """scripts/<name>.py run as __main__ with `argv`: its stdout."""
+    monkeypatch.syspath_prepend(SCRIPTS)
+    monkeypatch.setattr(sys, "argv", [name + ".py"] + list(argv))
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        runpy.run_path(os.path.join(SCRIPTS, name + ".py"),
+                       run_name="__main__")
+    return buf.getvalue()
+
+
+def run_port(app, argv):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        app.main(list(argv))
+    return buf.getvalue()
+
+
+def last_json(out):
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def assert_close(t, j, key=""):
+    """The port's value t against JAX's j under the module's tolerances."""
+    if isinstance(j, dict):
+        assert list(t) == list(j), key
+        for k in j:
+            assert_close(t[k], j[k], k)
+    elif isinstance(j, list):
+        assert len(t) == len(j), key
+        for a, b in zip(t, j):
+            assert_close(a, b, key)
+    elif key == "fit_wallclock_s":
+        assert isinstance(t, float)
+    elif key in EXACT or isinstance(j, (str, bool, int)) and not (
+            "bits" in key or "bpp" in key):
+        assert t == j, (key, t, j)
+    elif key.endswith("db") or key == "value":
+        assert abs(t - j) <= DB_TOL, (key, t, j)
+    elif "bits" in key or "bpp" in key:
+        assert abs(t - j) <= RATE_RTOL * abs(j), (key, t, j)
+    elif key.endswith("overhead_pct"):
+        assert abs(t - j) <= OVERHEAD_TOL, (key, t, j)
+    elif key == "importance_spread":
+        assert abs(t - j) <= SPREAD_RTOL * abs(j), (key, t, j)
+    else:
+        assert t == j, (key, t, j)
+
+
+@pytest.fixture(scope="module")
+def png(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("apps") / "img.png")
+    y, x = np.mgrid[0:32, 0:32] / 31.0
+    img = np.stack([0.5 + 0.3 * np.sin(5 * x),
+                    0.5 + 0.3 * np.cos(4 * y),
+                    0.4 + 0.2 * np.sin(3 * (x + y))], -1)
+    cv2.imwrite(path, np.uint8(img * 255))
+    return path
+
+
+def test_smoke_tracks_jax(monkeypatch):
+    """The toy's eval before the fit, then 100 sweeps: the printed PSNRs
+    (the first equal, the last within DB_TOL)."""
+    def psnrs(out):
+        return [float(line.split("psnr ")[1].split()[0])
+                for line in out.splitlines() if "psnr" in line]
+    j = psnrs(run_jax("smoke", [], monkeypatch))
+    t = psnrs(run_port(smoke, ["--device", "cpu"]))
+    assert len(t) == len(j) == 2
+    assert t[0] == j[0]
+    assert abs(t[1] - j[1]) <= DB_TOL and t[1] > t[0] + 10
+
+
+def test_demo_denoise_tracks_jax(monkeypatch, tmp_path):
+    args = ["--size", "32", "--k", "4", "--n", "20", "--val", "10"]
+    j = last_json(run_jax("demo_denoise", args + [
+        "--plot-dir", str(tmp_path / "jax")], monkeypatch))
+    t = last_json(run_port(demo_denoise, args + [
+        "--plot-dir", str(tmp_path / "torch"), "--device", "cpu"]))
+    assert_close(t, j)
+    names = sorted(os.listdir(tmp_path / "torch"))
+    assert names == sorted(os.listdir(tmp_path / "jax")) == \
+        ["denoise_0.png", "denoise_10.png", "denoise_20.png"]
+
+
+@pytest.mark.parametrize("app,name,args", [
+    (demo_inpaint, "demo_inpaint",
+     ["--size", "32", "--iters", "20", "--k", "4", "--cpu"]),
+    (demo_superres, "demo_superres", ["--iters", "20", "--k", "4", "--cpu"]),
+    (exp_layers, "exp_layers",
+     ["--size", "32", "--iters", "20", "--k", "4", "--layers", "2"]),
+])
+def test_app_tracks_jax(monkeypatch, app, name, args):
+    j = last_json(run_jax(name, args, monkeypatch))
+    port_args = [a for a in args if a != "--cpu"] + ["--device", "cpu"]
+    t = last_json(run_port(app, port_args))
+    assert_close(t, j)
+    if name == "exp_layers":
+        assert [r["tiers"] for r in t["importance"]] == [1, 2]
+
+
+@pytest.mark.parametrize("flags", [[], ["--lsinit", "--prune", "--lean"],
+                                   ["--dp"]])
+def test_rd_curve_tracks_jax(monkeypatch, png, flags):
+    """The four pis_l1 points on a 32^2 PNG after 20 sweeps each: one line
+    per point and the summary.  --dp: JAX fans the models out over its 8
+    virtual CPU devices, the port (no torch.distributed world) fits them
+    one after another."""
+    jout = run_jax("rd_curve", [png, "20"] + flags, monkeypatch)
+    tout = run_port(rd_curve, [png, "20", "--device", "cpu"] + flags)
+    jl, tl = (out.strip().splitlines() for out in (jout, tout))
+    j = [json.loads(x) for x in jl if x.startswith("{")]
+    t = [json.loads(x) for x in tl if x.startswith("{")]
+    assert len(t) == len(j) == 5
+    for a, b in zip(t, j):
+        assert_close(a, b)
+    assert [p["pis_l1"] for p in t[-1]["points"]] == list(rd_curve.PIS_L1)
+
+
+def test_inpaint_cpu_flag_means_device_cpu():
+    a = demo_inpaint.main(["--size", "16", "--iters", "2", "--k", "2",
+                           "--cpu"])
+    b = demo_inpaint.main(["--size", "16", "--iters", "2", "--k", "2",
+                           "--device", "cpu"])
+    assert a == b
+
+
+@pytest.mark.parametrize("app,args", [
+    (smoke, []), (demo_denoise, []), (demo_inpaint, []),
+    (demo_superres, []), (exp_layers, []), (rd_curve, ["5"])])
+def test_apps_refuse_cuda_without_a_gpu(monkeypatch, app, args):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        app.main(args)
+
+
+@pytest.mark.parametrize("family", ["bench", "pink", "mosaic", "text"])
+def test_content_families_are_bit_identical(monkeypatch, family):
+    monkeypatch.syspath_prepend(SCRIPTS)
+    import content as jcontent
+    a, b = content.build_family(family, 48), jcontent.build_family(family,
+                                                                   48)
+    assert a.dtype == b.dtype == np.float32
+    np.testing.assert_array_equal(a, b)
+    assert jcontent.FAMILIES == content.FAMILIES
+
+
+@pytest.mark.parametrize("family", ["hopper", "mri", "dem"])
+def test_photo_families_raise(family):
+    with pytest.raises(NotImplementedError, match="sample data"):
+        content.build_family(family, 32)
+    with pytest.raises(ValueError, match="unknown content family"):
+        content.build_family("nope", 32)

@@ -180,7 +180,18 @@ def test_renormalize_weights_and_argmax_nu_match_jax():
                                   np.asarray(js.params.nu_e))
 
 
-def test_peak_plot_is_not_ported():
-    _, ts = _pair()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ts.reinit_inc(plot_dir="plots")
+def test_reinit_inc_with_plot_dir_plots_the_peaks(tmp_path):
+    """reinit_inc(plot_dir=) writes the peak plot under JAX's name and
+    inserts the same rows as JAX's: the plot changes nothing else."""
+    from smoe_tpu_torch.io.images import read_png
+    js, ts = _pair()
+    js.reinit_inc(plot_dir=str(tmp_path / "jax"))
+    ts.reinit_inc(plot_dir=str(tmp_path / "torch"))
+    jp, tp = _params_np(js), _params_np(ts)
+    for f in PARAM_FIELDS:
+        np.testing.assert_array_equal(tp[f], jp[f], err_msg=f)
+    name = f"inc_{ts.iter}.png"
+    assert sorted(tmp_path.joinpath("torch").iterdir()) == \
+        [tmp_path / "torch" / name]
+    assert (tmp_path / "jax" / name).exists()
+    assert read_png(str(tmp_path / "torch" / name)).ndim == 3

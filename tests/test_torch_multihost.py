@@ -128,13 +128,14 @@ def fleets(tmp_path_factory):
          ("run1", "bk", "run2", "runa", "runb")}
     with ThreadPoolExecutor(3) as ex:
         first = ex.submit(run_world, f"{FLEET}:fleet", 2, d["run1"],
-                          out_dir=d["run1"])
+                          out_dir=d["run1"], device="cpu")
         bk = ex.submit(run_world, f"{FLEET}:fleet_bk", 4, d["bk"],
-                       out_dir=d["bk"])
+                       out_dir=d["bk"], device="cpu")
         run1 = first.result()
         ck = os.path.join(d["run1"], "ckpt_0.pkl")
         resumed = {n: ex.submit(run_world, f"{FLEET}:fleet", w, d[name],
-                                out_dir=d[name], resume_from=ck)
+                                out_dir=d[name], resume_from=ck,
+                                device="cpu")
                    for n, w, name in (("run2", 2, "run2"),
                                       ("a", 1, "runa"), ("b", 4, "runb"))}
         out = {"run1": run1, "bk": bk.result(), "dirs": d}

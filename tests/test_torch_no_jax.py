@@ -13,7 +13,7 @@ pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_IMPORT_ALL = """
+_IMPORT_ALL = """{prelude}
 import importlib, pkgutil, sys
 import smoe_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(smoe_tpu_torch.__path__,
@@ -29,9 +29,22 @@ print(len(names))
 """
 
 
-def _run(extra=""):
+# a finder ahead of every other that refuses the packages the card's
+# machine lacks: an import of any of them fails at once
+_BLOCK = """
+import importlib.abc, sys
+class _Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "optax", "smoe_tpu",
+                                  "matplotlib", "cv2"):
+            raise ImportError(f"{name} is blocked")
+sys.meta_path.insert(0, _Blocked())
+"""
+
+
+def _run(extra="", prelude=""):
     out = subprocess.run([sys.executable, "-c",
-                          _IMPORT_ALL.format(extra=extra)],
+                          _IMPORT_ALL.format(extra=extra, prelude=prelude)],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
@@ -203,11 +216,51 @@ def test_mesh_paths_run_without_jax():
 import tempfile
 from smoe_tpu_torch.parallel import compat, launch, multihost, sharded
 r = launch.run_world("tests/torch_worlds.py:world_grads_are_exact", 2,
-                     tempfile.mkdtemp(), timeout=120)
+                     tempfile.mkdtemp(), device="cpu", timeout=120)
 assert [x["psum_grad"] for x in r] == [2.0, 2.0]
 assert not any(x["jax_loaded"] for x in r)
 """
     _run(extra)
+
+
+def test_plots_and_apps_run_with_jax_matplotlib_and_cv2_blocked():
+    """diag.render, diag.plots, the inc peak plot and every apps module
+    run a step on the CPU in a process where jax, smoe_tpu, matplotlib and
+    cv2 cannot be imported at all."""
+    extra = """
+import os, tempfile
+import numpy as np
+from smoe_tpu_torch.apps import (content, demo_denoise, demo_inpaint,
+                                 demo_superres, exp_layers, rd_curve, smoke)
+from smoe_tpu_torch.diag import plots, render
+from smoe_tpu_torch.fit.trainer import Smoe
+from smoe_tpu_torch.io.images import read_png, write_png
+d = tempfile.mkdtemp()
+img = content.build_image(16)
+s = Smoe(img, kernels_per_dim=[2], add_kernel_slots=4, device="cpu")
+cbs = [plots.ImagePlotter(d).plot,
+       plots.LossPlotter(os.path.join(d, "loss.png")).plot,
+       plots.DenoisePlotter(img, d).plot]
+s.train(2, val_iter=1, callbacks=cbs)
+s.reinit_inc(plot_dir=d)
+names = sorted(os.listdir(d))
+assert {"loss.png", "iter_2.png", "denoise_2.png", "inc_2.png"} <= set(names)
+assert read_png(os.path.join(d, "iter_2.png")).ndim == 3
+for fam in ("bench", "pink", "mosaic", "text"):
+    assert content.build_family(fam, 16).shape == (16, 16, 3)
+cpu = ["--device", "cpu"]
+smoke.main(cpu)
+demo_denoise.main(["--size", "16", "--k", "2", "--n", "2", "--val", "1",
+                   "--plot-dir", d] + cpu)
+demo_inpaint.main(["--size", "16", "--iters", "2", "--k", "2", "--cpu"])
+demo_superres.main(["--iters", "1", "--k", "2"] + cpu)
+exp_layers.main(["--size", "16", "--iters", "2", "--k", "2", "--layers",
+                 "2"] + cpu)
+png = os.path.join(d, "img.png")
+write_png(png, np.uint8(np.round(img * 255))[..., ::-1])
+rd_curve.main([png, "2", "--prune"] + cpu)
+"""
+    _run(extra, prelude=_BLOCK)
 
 
 def test_chip_smoke_refuses_without_a_gpu():

@@ -49,7 +49,8 @@ def worlds(tmp_path_factory):
     with ThreadPoolExecutor(2) as ex:
         futs = {n: ex.submit(run_world, f"{WORLDS}:parallel_world", n,
                              str(tmp_path_factory.mktemp(f"world{n}")),
-                             timeout=120) for n in (2, 4)}
+                             device="cpu", timeout=120)
+                for n in (2, 4)}
         return {n: f.result() for n, f in futs.items()}
 
 
@@ -206,3 +207,15 @@ def test_fit_many_matches_jax(worlds):
                                    rtol=RTOL, err_msg=f)
     p1 = worlds[2][1]["fits"]["fit_many"][0]
     np.testing.assert_array_equal(p1.pis, params.pis)
+
+
+def test_run_world_defaults_to_the_card(tmp_path, monkeypatch):
+    """run_world's ranks run on the card unless the caller asks for the
+    CPU; without a GPU the default raises before any process starts."""
+    import inspect
+    assert inspect.signature(run_world).parameters["device"].default \
+        == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_world(f"{WORLDS}:world_grads_are_exact", 2, str(tmp_path))
+    assert not os.path.exists(tmp_path / "rank0.log")

@@ -40,7 +40,8 @@ RTOL = 2e-3
 def world(tmp_path_factory):
     return run_world(f"{os.path.join(HERE, 'torch_worlds.py')}:"
                      "serve_and_variants", 2,
-                     str(tmp_path_factory.mktemp("serve")), timeout=120,
+                     str(tmp_path_factory.mktemp("serve")), device="cpu",
+                     timeout=120,
                      smoe_path=FIXTURE, roi=[list(r) for r in ROI])
 
 
