@@ -12,7 +12,8 @@ no result line) on any fault:
   2. builds the Hopper kernels K1 (gate+expert forward,
      smoe_tpu_torch/kernels/csrc/gate_expert_fwd.cu), K2 (its backward,
      csrc/gate_expert_bwd.cu) and K3 (the forward's ablation variants,
-     csrc/gate_expert_variants.cu), one nvcc each, in parallel;
+     csrc/gate_expert_variants.cu; K1 and K3 are instances of one forward
+     body, csrc/gate_expert_fwd_body.cuh), one nvcc each, in parallel;
   3. holds K1 against its plain torch version at three shapes (the
      512^2 x 256-kernel flagship, d = 4, K = 2304; pixels drawn at random):
      res <= 1e-5 absolute, surv <= 1e-6, cull flips counted; K1's
@@ -20,21 +21,31 @@ no result line) on any fault:
      surviving pairs, each kernel's time beside its bound; then K1 at
      K = 16384 and K = 60000 (two and eight segments of 8192 kernels; 40009
      random pixels at K = 60000) against plain, as above, and bit for bit
-     against K3 `full`, and K2 at K = 60000 fed K1's denominator against
-     its plain version (<= 1e-4 relative), the K = 60000 times beside their
-     bounds;
+     (xe = 1, mask = 1) against the witness, the forward body's `full`
+     without compaction (one loop over every kernel, divided and culled
+     per pair, reached through K3's C interface as mode 5), and against K3
+     `full`, and K2 at K = 60000 fed K1's denominator against its plain
+     version (<= 1e-4 relative), the K = 60000 times beside their bounds;
   4. holds K2, fed the denominator K1 wrote for the same inputs (as the
      trainer feeds it), against its plain version at the same shapes:
      max |dq', dG, dpi error| / max |plain| <= 1e-4 each, reruns
      bit-identical; without the denominator it must raise;
-  5. holds K3 against its plain version at the same shapes, every mode:
-     <= 1e-5 absolute where the weights are normalised (full, exp2,
-     no_cull), <= 1e-5 of max |plain| for no_norm and no_exp, cull flips
-     counted as in phase 3; `full` bit-identical to K1 with xe = 1,
-     mask = 1; then runs the attribution tool (diag.contraction at
-     512^2 x 256: K1 and every K3 mode beside their plain versions, the
-     elementwise share), K3's main path, and checks that the tool's timer
-     reads phase 3's K1 time within 3 % on phase 3's inputs;
+  5. holds K3 against its plain version at the same shapes, every mode,
+     through the attribution tool (diag.contraction.run): <= 1e-5 absolute
+     where the weights are normalised (full, exp2, no_cull), <= 1e-5 of
+     max |plain| for no_norm and no_exp, rows with a pair at the cull
+     threshold counted apart (<= 1e-4 of the rows); `full` bit-identical
+     to K1 with xe = 1, mask = 1; each mode's time beside its bound
+     (diag/contraction.py:mode_bound: fp32 flops against bytes, the MUFU
+     work beside).  Then the attribution, K3's main path, on four input
+     sets: (a) here, the JAX script's inputs at 512^2 x 256 (K1 and every
+     mode beside their plain versions' times), then the main path's raster
+     operands where they are built: (b) the flagship fit's block after 20
+     sweeps (phase 8), (c) the CIF video fit's at F = 26, cap 640 (phase
+     17), (d) the 4K decode's (phase 7; plain check on every 8th row); on
+     each, K1 and `full` timed in turns, K1 - full and the elementwise
+     share, every mode checked as above.  Also checks that the tool's
+     timer reads phase 3's K1 time within 3 % on phase 3's inputs;
   6. decodes the committed fixture tests/data/bench512_k256.smoe (written
      by the JAX package, scripts/make_torch_fixture.py) natively, at
      scale 2 and in a window, through K1; checks that the decode is within
@@ -46,7 +57,8 @@ no result line) on any fault:
      card through K1 and checks it against the plain version on a strided
      row subset; then K1 and K2 on that decode's raster-ordered operands
      against their plain versions (as phases 3 and 4, the plain versions
-     in row chunks), with the candidate fraction and times;
+     in row chunks), with the candidate fraction and times, and the
+     attribution's set (d) on them;
   8. fits the bench flagship (bench.py:46-54: 512^2 RGB, 16x16 kernels,
      YUV loss, determinant gating, one block, Adam 1e-3 / pis /100 /
      A x1000) for 20 sweeps on the kernel path and 20 on the plain path
@@ -55,7 +67,7 @@ no result line) on any fault:
      the JAX fit recorded in tests/data/bench512_train20_ref.npz
      (scripts/make_torch_train_fixture.py); one host sync per chunk; then
      K1 and K2 on the fit's raster-ordered operands after the 20 sweeps,
-     as in phase 7;
+     as in phase 7, and the attribution's set (b) on them;
   9. runs bench.py's recipe on the kernel path (bench.py:129-167): s/iter
      at the settled width, then reinit and chunks of 20 sweeps with
      update_kernel_list every 100 until 32 dB (three fits); the plain
@@ -121,7 +133,8 @@ no result line) on any fault:
      K2 once per sweep and one host sync per chunk, and kernel against
      plain path over 20 sweeps in two blocks: mse within TRAJ_RTOL, the
      same survivor lists; K1 and K2 on the fit's own operands after 20
-     sweeps against plain, with times and bounds; (3) the cut clip's fit
+     sweeps against plain, with times and bounds, and the attribution's
+     set (c) on them; (3) the cut clip's fit
      (144x176x4, [6, 6, 2]) against the JAX fit recorded in
      tests/data/video_cut_ref.npz (scripts/make_torch_video_fixture.py);
      (4) reseed_time_slab(0, rng=0): the recorded rows from the recorded
@@ -205,7 +218,8 @@ prints the card line, one JSON line of kernel results (each with its
 launches, error, time, plain time, bound, what binds it and library_ms,
 null: no single PyTorch call computes these functions; K1's and K2's
 raster-ordered and K = 60000 times and K1's candidate fractions beside
-them), and
+them; K3's `ms` and bound are `full`'s on phase 5's random flagship, its
+per-mode times and bounds on sets (a)-(d) beside them), and
 {"ok": true, "device": {...}} as the last line.
 """
 
@@ -251,10 +265,11 @@ BWD_SRC = "smoe_tpu_torch/kernels/csrc/gate_expert_bwd.cu"
 BWD_REPLACES = "smoe_tpu/kernels/gate_expert.py:236"
 VAR_SRC = "smoe_tpu_torch/kernels/csrc/gate_expert_variants.cu"
 VAR_REPLACES = "scripts/bench_contraction.py:50"
-# K3 against its plain version: absolute for the modes whose weights are
-# normalised (res is O(1)); relative to max |plain| for no_norm (weights
-# pi*det, up to ~1e2 here) and no_exp (weights -maha/2, up to ~1e4)
-VAR_ABS_TOL, VAR_REL_TOL = 1e-5, 1e-5
+# K3's C interface takes mode 5, the forward body's FULL_DENSE
+# (csrc/gate_expert_fwd_body.cuh: `full` without compaction, the one loop
+# over every kernel), which gate_expert_variant does not offer: the witness
+# that K1's compaction and segments keep that loop's bits
+FULL_DENSE_MODE = 5
 # the LS solves against the recorded JAX ones, as a share of max |expert|
 # and relative in the blend mse.  The per-kernel (3x3) solves agree to
 # ~1e-3 of max, which moves some 60 of the 786,432 output values across a
@@ -271,9 +286,6 @@ PLAIN_ROWS = 32768
 
 def plain_rows(k: int) -> int:
     return min(PLAIN_ROWS, max(256, (1 << 28) // max(k, 1)))
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): fp32
-# outside the tensor cores and HBM3 bandwidth; the bounds below use them
-FP32_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -501,21 +513,15 @@ def k1_stats(args, thr, floor):
     return visited / (phi.shape[0] * q.shape[0]), survivors
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms, what binds): the larger of the operations over the fp32
-    peak and the bytes over the memory bandwidth."""
-    t_op, t_b = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-    return max(t_op, t_b) * 1e3, "operations" if t_op >= t_b else "bytes"
-
-
-def k1_bound(n, k, f, e, c, survivors, mix=True):
-    """K1's least work: every pair F maha FMAs, min, exp, multiply and the
-    denominator add (2F + 4 flops); every survivor the division and the E*C
-    mixing FMAs (1 + 2 E*C).  Bytes: phi, xe, res and the parameters once.
-    mix=False is K3's `full`, which reads no xe."""
-    flops = n * k * (2 * f + 4) + survivors * (1 + 2 * e * c)
-    nbytes = 4 * (n * (f + (e if mix else 0) + c) + k * (f + e * c + 2))
-    return bound(flops, nbytes)
+def k1_bound(n, k, f, e, c, survivors):
+    """(least ms, what binds) of K1's least work: every pair F maha FMAs,
+    min, exp, multiply and the denominator add (2F + 4 flops); every
+    survivor the division and the E*C mixing FMAs (1 + 2 E*C).  Bytes:
+    phi, xe, res and the parameters once (diag/contraction.py:mode_work,
+    "production", the peaks the card's data sheet gives)."""
+    from smoe_tpu_torch.diag.contraction import mode_bound
+    b = mode_bound("production", n, k, f, e, c, survivors)
+    return b["bound_ms"], b["bound_by"]
 
 
 def k2_bound(n, k, f, e, c, survivors, with_denom=False):
@@ -523,6 +529,7 @@ def k2_bound(n, k, f, e, c, survivors, with_denom=False):
     gate (2F + 4), dn, dpi, the clamp factor and the F dq' FMAs (2F + 6);
     every survivor the dw dot, s_n, dG and the division (4 E*C + 4).  Bytes:
     phi, xe, g (and K1's denominator) read once, the gradients written."""
+    from smoe_tpu_torch.diag.contraction import bound
     flops = n * k * (4 * f + 10) + survivors * (4 * e * c + 4)
     nbytes = 4 * (n * (f + e + c + (1 if with_denom else 0))
                   + 2 * k * (f + e * c + 1))
@@ -716,12 +723,33 @@ def compare_raster(name, fargs, thr, floor, seed, cancelling=False):
     return {"k1": fwd, "k2": bwd}
 
 
+def full_dense_witness(phi, q, G, pi_det, thr, floor):
+    """K3's mode FULL_DENSE through the C interface (the wrapper does not
+    offer it): `full` over every kernel in one loop, divided and culled per
+    pair, with no candidates and no certain-cull skip.  Returns res (N, 3);
+    not counted as a launch (it is a comparison)."""
+    import torch
+    from smoe_tpu_torch.kernels import gate_expert_variants as tgv
+    lib = tgv._library()
+    n, f = phi.shape
+    q_s = tgv._prescale(q, "full").contiguous()
+    res = torch.empty((n, 3), dtype=torch.float32, device=phi.device)
+    err = lib.smoe_gate_expert_variant(
+        phi.data_ptr(), q_s.data_ptr(), G.data_ptr(), pi_det.data_ptr(),
+        res.data_ptr(), n, f, G.shape[1], q.shape[0], FULL_DENSE_MODE, thr,
+        floor, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, "the full-dense witness did not launch: "
+          + lib.smoe_cuda_error_string(err).decode())
+    return res
+
+
 def compare_large_k(thr, floor):
     """Phase 3, last cases: K1 takes its kernels in segments of 8192, so
     any K runs.  K1 at K = 16384 (two segments) and K = 60000 (eight; past
     the 53,236 kernels whose per-kernel maxima would fill the card's shared
-    memory per block) against its plain version, and bit for bit against
-    K3 `full` (xe = 1, mask = 1), which streams every K in one loop; K2 at
+    memory per block) against its plain version, and bit for bit (xe = 1,
+    mask = 1) against the witness `full_dense_witness`, which streams every
+    K in one loop without candidates, and against K3 `full`; K2 at
     K = 60000, fed K1's denominator, against its plain version.  The
     K = 60000 times beside their bounds."""
     import torch
@@ -737,11 +765,15 @@ def compare_large_k(thr, floor):
         phi, _, q, G, pi_det, _ = random_case(n, k, 2, 1, 3, seed, "cuda")
         k1, _ = gate_expert_fwd(phi, torch.ones_like(phi[:, :1]), q, G,
                                 pi_det, torch.ones_like(pi_det), thr, floor)
+        witness = full_dense_witness(phi, q, G, pi_det, thr, floor)
         k3 = gate_expert_variant(phi, q, G, pi_det, "full", thr, floor)
+        o["witness_bit_identical"] = bool(torch.equal(k1, witness))
         o["k3_full_bit_identical"] = bool(torch.equal(k1, k3))
+        check(o["witness_bit_identical"],
+              f"{name}: K1 is not bit-identical to the full-dense witness")
         check(o["k3_full_bit_identical"],
               f"{name}: K1 is not bit-identical to K3 full")
-        del phi, q, G, pi_det, k1, k3
+        del phi, q, G, pi_det, k1, witness, k3
         out[name] = o
     fargs = random_case(40009, 60000, 2, 3, 3, 6, "cuda")
     bwd, args, den = bwd_vs_plain(fargs, 6, thr, floor, "K60000 d2")
@@ -756,76 +788,80 @@ def compare_large_k(thr, floor):
     return out
 
 
-def var_tol(mode: str, max_abs_plain: float) -> float:
-    if mode in ("no_norm", "no_exp"):
-        return VAR_REL_TOL * max_abs_plain
-    return VAR_ABS_TOL
+def attribution_summary(out) -> dict:
+    """One input set of the attribution for the kernels line: per mode ms,
+    bound (what binds), MUFU ms and max |kernel - plain|; K1's ms and
+    bound, K1 - full, the elementwise share and K1's candidate fraction."""
+    p = out["production"]
+    return {"n": out["n"], "k": out["k"], "f": out["f"], "e": out["e"],
+            "k1_ms": p["ms"], "k1_bound_ms": p["bound_ms"],
+            "k1_minus_full_ms": out["k1_minus_full_ms"],
+            "elementwise_share": out["elementwise_share"],
+            "candidate_fraction": out["candidate_fraction"],
+            "modes": {mode: {key: m[key] for key in (
+                "ms", "bound_ms", "bound_by", "mufu_ms", "max_abs_err")}
+                for mode, m in out["variants"].items()}}
 
 
-def compare_variants(name, n, k, d, e, seed, time_it):
-    """K3 against its plain version on model-shaped inputs, every mode;
-    `full` against K1 (xe = 1, mask = 1), bit for bit.  A row whose plain
-    weights hold a pair within 1e-5 relative of the cull threshold may
-    flip it (as in phase 3); such rows are counted, never absorbed."""
-    import torch
-    from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
-    from smoe_tpu_torch.kernels.gate_expert_variants import (
-        VARIANTS, gate_expert_variant, gate_expert_variant_reference)
-    from smoe_tpu_torch.diag.contraction import FLOOR as floor, THR as thr
-    phi, _, q, G, pi_det, _ = random_case(n, k, d, e, 3, seed, "cuda")
-    args = (phi, q, G, pi_det)
-    near = None
-    out = {"shape": name, "n": n, "k": k, "f": phi.shape[1], "e": e,
-           "modes": {}}
-    for mode in VARIANTS:
-        got = gate_expert_variant(*args, mode, thr, floor)
-        torch.cuda.synchronize()
-        ref = gate_expert_variant_reference(*args, mode, thr, floor)
-        check(torch.isfinite(got).all().item(), f"{name} {mode}: non-finite")
-        d_row = (got - ref).abs().amax(1)
-        scale = float(ref.abs().max())
-        tol = var_tol(mode, scale)
-        bad = d_row > tol
-        flips = 0
-        if mode in ("full", "exp2") and bool(bad.any()):
-            if near is None:
-                mh = torch.minimum(phi @ (q * -0.5).T, phi.new_zeros(()))
-                n_w = torch.exp(mh) * pi_det[None, :]
-                w = n_w / torch.clamp(n_w.sum(1, keepdim=True), min=floor)
-                near = ((w - thr).abs() <= 1e-5 * thr).any(1)
-                del mh, n_w, w
-            flips = int((bad & near).sum())
-            bad = bad & ~near
-        m = {"max_abs_err": float(d_row.max()),
-             "max_rel_err": float(d_row.max()) / max(scale, 1e-30),
-             "max_abs_plain": scale, "tol": tol, "cull_flip_rows": flips,
-             "rows_over_tol": int(bad.sum())}
-        if mode == "full":
-            k1_args = (phi, torch.ones_like(phi[:, :e]), q, G, pi_det,
-                       torch.ones_like(pi_det))
-            k1, _ = gate_expert_fwd(*k1_args, thr, floor)
-            m["bit_identical_to_k1"] = bool(torch.equal(got, k1))
-            _, survivors = k1_stats(k1_args, thr, floor)
-            m["bound_ms"], m["bound_by"] = k1_bound(
-                n, k, phi.shape[1], e, 3, survivors, mix=False)
-        if time_it:
-            # every mode on model-shaped inputs, where most pairs are culled
-            # (the attribution tool's inputs cull few)
-            m["ms"] = cuda_ms(lambda: gate_expert_variant(
-                *args, mode, thr, floor), 20)
-            m["plain_ms"] = cuda_ms(lambda: gate_expert_variant_reference(
-                *args, mode, thr, floor), 5)
-        out["modes"][mode] = m
-        del got, ref
-    print(f"K3-vs-plain {json.dumps(out)}", flush=True)
-    for mode, m in out["modes"].items():
+def check_attribution(name, out):
+    """Every K3 mode of a `diag.contraction.run` within its tolerance of the
+    plain version (rows holding a pair at the cull threshold counted apart,
+    at most 1e-4 of the rows checked), finite, and `full` bit-identical to
+    K1 with xe = 1, mask = 1."""
+    for mode, m in out["variants"].items():
+        check(np.isfinite(m["max_abs_err"]), f"{name} {mode}: non-finite")
         check(m["rows_over_tol"] == 0,
               f"{name} {mode}: {m['rows_over_tol']} rows off the plain "
               f"version by more than {m['tol']:.3g} without a cull flip")
-        check(m["cull_flip_rows"] <= 1e-4 * n,
+        check(m["cull_flip_rows"] <= 1e-4 * m["rows_checked"],
               f"{name} {mode}: {m['cull_flip_rows']} cull-flip rows")
-    check(out["modes"]["full"]["bit_identical_to_k1"],
+    check(out["variants"]["full"]["bit_identical_to_k1"],
           f"{name}: K3 full is not bit-identical to K1")
+
+
+def compare_variants(name, n, k, d, e, seed, time_it):
+    """Phase 5: K3 against its plain version on model-shaped inputs
+    (`random_case`, thr 1e-4 as the attribution's), every mode, through
+    the attribution (`diag.contraction.run`: the times and bounds beside,
+    the plain versions timed too with `time_it`); `full` against K1
+    (xe = 1, mask = 1), bit for bit.  A comparison: its launches are not
+    counted."""
+    from smoe_tpu_torch.diag import contraction
+    out = contraction.run(
+        operands=random_case(n, k, d, e, 3, seed, "cuda"),
+        iters=20 if time_it else 2, reps=3 if time_it else 1,
+        plain_ms=time_it, log=lambda m: None)
+    out["shape"] = name
+    print(f"K3-vs-plain {json.dumps(out)}", flush=True)
+    check_attribution(name, out)
+    return out
+
+
+def attribution(name, operands, thr, floor, launches, iters, reps=3,
+                stride=1, plain_ms=False):
+    """Phase 5's attribution, K3's main path, on one input set: K1's
+    operands as a main path gives them (phases 7, 8 and 17: a decode's
+    raster, a fit's block), or None for the JAX script's inputs at
+    512^2 x 256.  K1 and every K3 mode timed beside their bounds (K1 and
+    `full` in turns), each mode held against its plain version (row
+    chunks, every `stride`-th row), `full` bit for bit against K1; with
+    plain_ms the plain versions timed too.  Its K1 and K3 launches count."""
+    from smoe_tpu_torch.diag import contraction
+    from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
+    from smoe_tpu_torch.kernels.gate_expert_variants import \
+        gate_expert_variant
+    reset_counts()
+    out = contraction.run(operands=operands, thr=thr, floor=floor,
+                          iters=iters, reps=reps, plain_ms=plain_ms,
+                          stride=stride, log=lambda m: print(m, flush=True))
+    n1, n3 = gate_expert_fwd.launches, gate_expert_variant.launches
+    launches[0] += n1
+    launches[2] += n3
+    out["name"] = name
+    print(f"attribution {name}: {json.dumps(out)}", flush=True)
+    check(n1 > 0 and n3 > 0,
+          f"attribution {name} launched K1 {n1} / K3 {n3} times")
+    check_attribution(name, out)
     return out
 
 
@@ -1344,24 +1380,21 @@ def trainer_1080p(img, launches):
 
 
 def contraction_phase(flagship, launches):
-    """Phase 5, second half: the attribution tool (diag.contraction.run at
-    512^2 x 256, the JAX script's inputs): K3's main path.  Also times K1
-    on phase 3's flagship inputs with the tool's timer and with phase 3's,
-    in turns (phase 3, tool, tool, phase 3), which must agree within 3 %:
-    at a quarter of a millisecond per launch the wrapper's host work is a
-    good part of a launch, and the host's speed drifts between phases; K1
-    on the tool's own inputs is reported beside it (K1's time depends on
-    the data: the cull and the exp underflow)."""
+    """Phase 5, second half: the attribution tool on its input set (a), the
+    JAX script's inputs at 512^2 x 256 (diag.contraction.run as its CLI
+    runs it, the plain versions timed beside): K3's main path; sets (b)-(d)
+    follow in phases 8, 17 and 7 (`attribution`).  Also times K1 on phase
+    3's flagship inputs with the tool's timer and with phase 3's, in turns
+    (phase 3, tool, tool, phase 3), which must agree within 3 %: at a
+    quarter of a millisecond per launch the wrapper's host work is a good
+    part of a launch, and the host's speed drifts between phases; K1 on the
+    tool's own inputs is reported beside it (K1's time depends on the data:
+    the cull and the exp underflow)."""
     from smoe_tpu_torch.diag import contraction
     from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
-    from smoe_tpu_torch.kernels.gate_expert_variants import \
-        gate_expert_variant
-    reset_counts()
-    out = contraction.run(512 * 512, 256, log=lambda m: print(m, flush=True))
-    n1, n3 = gate_expert_fwd.launches, gate_expert_variant.launches
-    launches[0] += n1
-    launches[2] += n3
-    print(f"attribution: {json.dumps(out)}", flush=True)
+    out = attribution("(a) script inputs 512^2 x K256", None,
+                      contraction.THR, contraction.FLOOR, launches, iters=50,
+                      reps=5, plain_ms=True)
     args = random_case(512 * 512, 256, 2, 3, 3, 1, "cuda")
     thr, floor = 0.5 / 2 ** 8, 1e-11
     k1 = lambda: gate_expert_fwd(*args, thr, floor)         # noqa: E731
@@ -1378,13 +1411,13 @@ def contraction_phase(flagship, launches):
           f"(readings {phase3[1]} / {tool[1]}; {ratio:.4f}x); "
           f"{flagship['ms']:.4f} ms in phase 3; on the tool's inputs "
           f"{out['production']['ms']:.4f} ms", flush=True)
-    check(n1 > 0 and n3 > 0, f"attribution launched K1 {n1} / K3 {n3} times")
     check(abs(ratio - 1) <= 0.03, f"K1 by the tool's timer {k1_tool_timer} "
           f"ms vs phase 3's {phase3[0]} ms")
+    # on the script's inputs no row may sit off, cull flip or not
     for mode, m in out["variants"].items():
-        tol = var_tol(mode, m["max_abs_plain"])
-        check(m["max_abs_err"] <= tol, f"attribution {mode}: kernel off its "
-              f"plain version by {m['max_abs_err']} > {tol}")
+        check(m["max_abs_err"] <= m["tol"], f"attribution (a) {mode}: "
+              f"kernel off its plain version by {m['max_abs_err']} > "
+              f"{m['tol']}")
     return out
 
 
@@ -2315,6 +2348,8 @@ def video_phase(thr, floor, launches):
         raster = compare_raster("CIF video fit, sweep 20 (F26)", fargs,
                                 thr_f, floor_f, 17, cancelling=True)
         raster["k1"]["mh_rounding"] = mh_rounding(fargs)
+        attr = attribution("(c) CIF video fit, sweep 20 (F26, cap 640)",
+                           fargs, thr_f, floor_f, launches, iters=10)
         del fargs
         recorded = video_recorded(launches)
         trafo = video_train_trafo(vid)
@@ -2322,7 +2357,8 @@ def video_phase(thr, floor, launches):
     del s_k
     torch.cuda.empty_cache()
     return {"kernels": kern, "fit": fit, "raster": raster,
-            "recorded": recorded, "train_trafo": trafo, "roundtrip": trip}
+            "attribution": attr, "recorded": recorded,
+            "train_trafo": trafo, "roundtrip": trip}
 
 
 def build_lf(views=15, s=48, seed=3):
@@ -3388,11 +3424,13 @@ def main() -> int:
            compare_variants("K2304 d2", 3840 * 17 + 5, 2304, 2, 3, 3,
                             time_it=True)]
     max_err_var = max(m["max_abs_err"] for o in var
-                      for mode, m in o["modes"].items()
+                      for mode, m in o["variants"].items()
                       if mode not in ("no_norm", "no_exp"))
     max_rel_var = max(m["max_rel_err"] for o in var
-                      for m in o["modes"].values())
-    attribution = contraction_phase(flagship, launches)
+                      for m in o["variants"].values())
+    # the attribution's input sets: (a) here, (d) in phase 7, (b) in phase
+    # 8, (c) in phase 17
+    attr = {"a_script_inputs": contraction_phase(flagship, launches)}
     clock("phases 3-5")
 
     # phase 6: the decode path on the committed fixture
@@ -3491,6 +3529,10 @@ def main() -> int:
         *fargs4, thr4, floor4 = decode_kernel_args(path4k)
         raster = {"uhd": compare_raster("4K decode 2160x3840 x K2304",
                                         fargs4, thr4, floor4, 7)}
+        # the plain check on every 8th row: 1.04 M rows x 2304 kernels
+        attr["d_decode_4k"] = attribution(
+            "(d) 4K decode 2160x3840 x K2304", fargs4, thr4, floor4,
+            launches, iters=2, stride=8)
         del fargs4
         torch.cuda.empty_cache()
     print(f"4K decode: 2160x3840 x 2304 kernels, kernel vs plain on "
@@ -3505,6 +3547,8 @@ def main() -> int:
     # K1 and K2 on the flagship fit's operands after its 20 sweeps
     raster["flagship"] = compare_raster("flagship fit, sweep 20", fargs,
                                         thr_f, floor_f, 8)
+    attr["b_flagship_fit"] = attribution("(b) flagship fit, sweep 20", fargs,
+                                         thr_f, floor_f, launches, iters=20)
     del fargs
     clock("phase 8")
     trainer_bench_recipe(s_k, s_p, launches)
@@ -3533,6 +3577,7 @@ def main() -> int:
     # phase 17: motion-compensated video at the CIF width, K1 and K2 at the
     # dual-model feature width F = 26
     video = video_phase(thr, floor, launches)
+    attr["c_video_cif_fit"] = video["attribution"]
     v_k1 = video["kernels"]["F26 E4 C3"]["k1"]
     v_k2 = video["kernels"]["F26 E4 C3"]["k2"]
     r_k1, r_k2 = video["raster"]["k1"], video["raster"]["k2"]
@@ -3630,7 +3675,7 @@ def main() -> int:
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
-    full = var[0]["modes"]["full"]
+    full = var[0]["variants"]["full"]
     print(json.dumps({"kernels": [
         {"name": "gate_expert_fwd", "route": "cuda", "source": KERNEL_SRC,
          "replaces": KERNEL_REPLACES, "launches": launches[0],
@@ -3707,7 +3752,8 @@ def main() -> int:
          "ms": full["ms"], "plain_ms": full["plain_ms"],
          "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
          "library_ms": None,
-         "elementwise_share": attribution["elementwise_share"]}]}))
+         "attribution": {key: attribution_summary(o)
+                         for key, o in attr.items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

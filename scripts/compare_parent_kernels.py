@@ -29,7 +29,8 @@ for bit with the earlier kernels'; then each kernel timed with CUDA events
 old, new, new, old (each reading the mean over `reps` launches, both
 through the same thin call of the C interface), with K1's candidate
 fraction.  --quick skips the timing and the raster cases.  Prints
-the card and one JSON line per case; --json FILE also writes them all
+the card, the F = 26 instances' ptxas registers and spills of both
+builds, and one JSON line per case; --json FILE also writes them all
 there.
 """
 
@@ -68,6 +69,15 @@ def build_parent(csrc: str, with_denom: bool) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the earlier {name}:\n{log}")
         libs[name] = ctypes.CDLL(so)
+        # the F = 26 instances' registers, spills and shared memory, as
+        # chip_smoke.build_all prints the current ones
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "Li26E" in line:
+                entry = line.split("_cu_")[-1].split("EEv")[0]
+                print(f"  earlier ptxas F26 {entry}: " + " | ".join(
+                    x.replace("ptxas info    :", "").strip()
+                    for x in lines[i + 2:i + 4]), flush=True)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = libs["gate_expert_fwd"], libs["gate_expert_bwd"]
     extra = 2 if with_denom else 0

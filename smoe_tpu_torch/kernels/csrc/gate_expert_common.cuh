@@ -1,8 +1,8 @@
-// Device code shared by the gate+expert kernels: K1 (gate_expert_fwd.cu),
-// its ablation variants K3 (gate_expert_variants.cu) and the backward K2
-// (gate_expert_bwd.cu).  Sharing the maha product and the staging constants
-// keeps the variant `full` on K1's exact arithmetic, so the two give the
-// same bits, and keeps K2's recomputed gate on K1's bits.
+// Device code shared by the gate+expert kernels: the forward body
+// (gate_expert_fwd_body.cuh), of which K1 (gate_expert_fwd.cu) and its
+// ablation variants K3 (gate_expert_variants.cu) are instances, and the
+// backward K2 (gate_expert_bwd.cu).  Sharing the maha product and the
+// staging constants keeps K2's recomputed gate on K1's bits.
 //
 // kernels/build.py rebuilds every library when a csrc/*.cuh header is
 // newer than it.
@@ -37,20 +37,10 @@ __device__ __forceinline__ float cull_cut(float thr, float d) {
 // FP floats with zeros, so one row is FP / 4 16-byte shared loads
 __host__ __device__ constexpr int pad4(int f) { return (f + 3) & ~3; }
 
-template <int F>
-__device__ __forceinline__ float maha_term(const float (&ph)[F],
-                                           const float* __restrict__ qk) {
-  // min(phi . q', 0): q' carries the -0.5 * mask scale, so this is
-  // -0.5 * max(maha, 0), the maha >= 0 clamp of the reference.
-  float mh = 0.f;
-#pragma unroll
-  for (int j = 0; j < F; ++j) mh = fmaf(ph[j], qk[j], mh);
-  return fminf(mh, 0.f);
-}
-
 // phi . q' with q' (or phi) a padded row in shared memory, 16-byte aligned:
-// the same FMA chain as maha_term (j = 0 .. F-1 in order, the padding never
-// enters), read as float4s.  Returns the raw product, before the clamp.
+// one FMA a feature, j = 0 .. F-1 in order (the padding never enters), read
+// as float4s.  Returns the raw product; min(., 0) of it is -0.5 * max(maha,
+// 0), the maha >= 0 clamp of the reference (q' carries the -0.5 * mask).
 template <int F>
 __device__ __forceinline__ float dot_padded(const float (&x)[F],
                                             const float* __restrict__ row) {

@@ -15,9 +15,14 @@ removed, so that timing the modes tells where K1's time goes
 with mh = min(phi . q', 0), q' = -0.5 q (times log2 e in exp2), and the
 tail res = sum_j (w @ G)[:, 3j:3j+3] for every mode (no xe mix).
 
-Unlike the TPU script, whose maha dot runs at the TPU's default one-pass
-bf16 precision, every maha product here is exact fp32, as in production
-K1, so that `full` times K1's own arithmetic.
+On the card every mode is an instance of the body K1 is built from
+(csrc/gate_expert_fwd_body.cuh): full and exp2 keep K1's per-CTA
+candidates and skip the division of a certainly culled pair, and `full`
+gives K1's bits for xe = 1, mask = 1.  Unlike the TPU script, whose maha
+dot runs at the TPU's default one-pass bf16 precision, every maha product
+here is exact fp32, as in production K1, so that `full` times K1's own
+arithmetic.  Widths: K1's C = 3 instances, F = 7 / 13 / 21 (d = 2, 3, 4)
+and the dual-model F = 26, E = d + 1 or 1.
 
 `gate_expert_variant` dispatches on where its tensors lie: CPU tensors go
 to `gate_expert_variant_reference`, CUDA tensors launch the CUDA C++
@@ -54,6 +59,27 @@ def _prescale(q: torch.Tensor, mode: str) -> torch.Tensor:
     return q * (-0.5 * (LOG2E if mode == "exp2" else 1.0))
 
 
+def variant_weights(phi, q, pi_det, mode: str, thr: float = 1e-4,
+                    floor: float = 1e-11, cull: bool = True) -> torch.Tensor:
+    """The mode's gating weights w (N, K) in `_variant_kernel`'s op order
+    (:53-67); cull=False gives full's and exp2's before the cull."""
+    _mode_index(mode)
+    _refuse_tf32(phi)
+    mh = torch.minimum(phi @ _prescale(q, mode).T, phi.new_zeros(()))
+    if mode == "no_exp":
+        return mh
+    e = torch.exp2(mh) if mode == "exp2" else torch.exp(mh)
+    n_w = e * pi_det[None, :]
+    if mode == "no_norm":
+        return n_w
+    denom = torch.maximum(phi.new_full((), floor),
+                          torch.sum(n_w, dim=1, keepdim=True))
+    w = n_w / denom
+    if mode == "no_cull" or not cull:
+        return w
+    return torch.where(w > thr, w, torch.zeros_like(w))
+
+
 def gate_expert_variant_reference(phi, q, G, pi_det, mode: str,
                                   thr: float = 1e-4,
                                   floor: float = 1e-11) -> torch.Tensor:
@@ -61,24 +87,8 @@ def gate_expert_variant_reference(phi, q, G, pi_det, mode: str,
 
     phi (N, F) quadratic features; q (K, F) kernel quadratics (unscaled);
     G (K, E*3); pi_det (K,).  Returns res (N, 3)."""
-    _mode_index(mode)
-    _refuse_tf32(phi)
-    mh = torch.minimum(phi @ _prescale(q, mode).T, phi.new_zeros(()))
-    if mode == "no_exp":
-        w = mh
-    else:
-        e = torch.exp2(mh) if mode == "exp2" else torch.exp(mh)
-        n_w = e * pi_det[None, :]
-        if mode == "no_norm":
-            w = n_w
-        else:
-            denom = torch.maximum(phi.new_full((), floor),
-                                  torch.sum(n_w, dim=1, keepdim=True))
-            w = n_w / denom
-            if mode != "no_cull":
-                w = torch.where(w > thr, w, torch.zeros_like(w))
-    wg = w @ G
-    res = torch.zeros((w.shape[0], C_DIM), dtype=w.dtype, device=w.device)
+    wg = variant_weights(phi, q, pi_det, mode, thr, floor) @ G
+    res = torch.zeros((wg.shape[0], C_DIM), dtype=wg.dtype, device=wg.device)
     for j in range(G.shape[1] // C_DIM):
         res = res + wg[:, j * C_DIM:(j + 1) * C_DIM]
     return res
@@ -122,8 +132,8 @@ def gate_expert_variant(phi, q, G, pi_det, mode: str, thr: float = 1e-4,
     lib = _library()
     if not lib.smoe_gate_expert_variant_supported(f, ec, m):
         raise ValueError(f"gate_expert_variant: no kernel instance for "
-                         f"F={f}, E*C={ec} (d = 2, 3, 4; E = d + 1 or 1; "
-                         f"C = 3)")
+                         f"F={f}, E*C={ec} (F = 7, 13, 21 for d = 2, 3, 4 "
+                         f"or the dual-model F = 26; E = d + 1 or 1; C = 3)")
     q_s = _prescale(q, mode).contiguous()
     res = torch.empty((n, C_DIM), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -55,9 +55,12 @@ def test_other_files_do_not_rebuild(tree):
 
 
 def test_every_header_of_the_repo_is_watched():
-    """The shared header exists and is among the build's dependencies."""
-    hdr = os.path.join(build.SRC_DIR, "gate_expert_common.cuh")
-    assert os.path.exists(hdr)
+    """The shared header and the forward body exist and are among the
+    build's dependencies (every csrc/*.cuh)."""
+    import glob
+    watched = glob.glob(os.path.join(build.SRC_DIR, "*.cuh"))
+    for name in ("gate_expert_common.cuh", "gate_expert_fwd_body.cuh"):
+        assert os.path.join(build.SRC_DIR, name) in watched
     for name in ("gate_expert_fwd", "gate_expert_bwd", "gate_expert_variants"):
         src = open(os.path.join(build.SRC_DIR, name + ".cu")).read()
         assert '#include "gate_expert_common.cuh"' in src

@@ -4,13 +4,15 @@
 whose Pallas kernel runs here in interpret mode (SMOE_BENCH_INTERPRET=1).
 
 On the CPU the port's wrapper takes its plain torch version; the CUDA
-kernel is held against that version on the card by chip_smoke.py.
-Tolerance: 1e-5 of max |JAX| (fp32; exp and the gating sum round
+kernel is held against that version on the card by chip_smoke.py, and its
+sources (one forward body for K1 and K3) are held here to their instance
+lists.  Tolerance: 1e-5 of max |JAX| (fp32; exp and the gating sum round
 differently in the two frameworks; JAX's f32 dot on the CPU is exact fp32,
 as the port's maha)."""
 
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -40,23 +42,44 @@ def bench(monkeypatch):
     return mod
 
 
-def _inputs(d, n, k, seed=0):
+def _features(x):
+    n = x.shape[0]
+    return np.concatenate([np.einsum("ni,nj->nij", x, x).reshape(n, -1), x,
+                           np.ones((n, 1), np.float32)], 1)
+
+
+def _inputs(layout, n, k, seed=0):
     """phi (N, F) of random coordinates in [0,1]^d; q, G, pi_det drawn as
-    the JAX script draws them (E = d + 1, C = 3)."""
+    the JAX script draws them (E = d + 1, C = 3).  layout "dual-e4" /
+    "dual-e1": the dual-model video features (F = 26, two 13-wide d = 3
+    halves from two coordinate sets), each q row nonzero in one half only,
+    E = 4 or 1."""
     rng = np.random.default_rng(seed)
-    x = rng.uniform(0, 1, (n, d)).astype(np.float32)
-    phi = np.concatenate([np.einsum("ni,nj->nij", x, x).reshape(n, -1), x,
-                          np.ones((n, 1), np.float32)], 1)
-    q = rng.normal(0, 3, (k, d * d + d + 1)).astype(np.float32)
-    G = rng.normal(0, .1, (k, (d + 1) * 3)).astype(np.float32)
+    if isinstance(layout, int):
+        d = layout
+        phi = _features(rng.uniform(0, 1, (n, d)).astype(np.float32))
+        q = rng.normal(0, 3, (k, d * d + d + 1)).astype(np.float32)
+        e = d + 1
+    else:
+        phi = np.concatenate([_features(rng.uniform(
+            0, 1, (n, 3)).astype(np.float32)) for _ in range(2)], 1)
+        half = rng.normal(0, 3, (k, 13)).astype(np.float32)
+        first = rng.uniform(size=k) < 0.5
+        q = np.zeros((k, 26), np.float32)
+        q[first, :13] = half[first]
+        q[~first, 13:] = half[~first]
+        e = int(layout[-1])
+    G = rng.normal(0, .1, (k, e * 3)).astype(np.float32)
     pi_det = np.full((k,), 1.0 / k, np.float32)
     return phi, q, G, pi_det
 
 
-@pytest.mark.parametrize("d,n,k", [(2, 2048, 200), (4, 300, 40)])
+@pytest.mark.parametrize("layout,n,k", [(2, 2048, 200), (4, 300, 40),
+                                        ("dual-e4", 1024, 64),
+                                        ("dual-e1", 1024, 64)])
 @pytest.mark.parametrize("mode", tgv.VARIANTS)
-def test_variant_matches_jax_interpret(bench, mode, d, n, k):
-    phi, q, G, pi_det = _inputs(d, n, k)
+def test_variant_matches_jax_interpret(bench, mode, layout, n, k):
+    phi, q, G, pi_det = _inputs(layout, n, k)
     ref = np.asarray(bench.variant_call(jnp.asarray(phi), jnp.asarray(q),
                                         jnp.asarray(G), jnp.asarray(pi_det),
                                         mode))
@@ -69,13 +92,13 @@ def test_variant_matches_jax_interpret(bench, mode, d, n, k):
     assert err <= REL_TOL * scale, (mode, err, scale)
 
 
-@pytest.mark.parametrize("d", [2, 4])
-def test_full_is_the_production_forward(d):
+@pytest.mark.parametrize("layout", [2, 4, "dual-e4"])
+def test_full_is_the_production_forward(layout):
     """`full` is K1's chain with xe = 1 and mask = 1 (its tail sums the
     w @ G column groups)."""
-    phi, q, G, pi_det = map(torch.as_tensor, _inputs(d, 1024, 64))
+    phi, q, G, pi_det = map(torch.as_tensor, _inputs(layout, 1024, 64))
     full = tgv.gate_expert_variant(phi, q, G, pi_det, "full")
-    ones_e = torch.ones((phi.shape[0], d + 1))
+    ones_e = torch.ones((phi.shape[0], G.shape[1] // 3))
     res, _ = tge.gate_expert_reference(phi, ones_e, q, G, pi_det,
                                        torch.ones(q.shape[0]), 1e-4, 1e-11)
     assert float((full - res).abs().max()) <= 1e-7
@@ -148,10 +171,160 @@ def test_tool_refuses_without_cuda(capsys, monkeypatch):
         contraction.run(1024, 8)
 
 
+def _csrc(name):
+    from smoe_tpu_torch.kernels import build
+    with open(os.path.join(build.SRC_DIR, name)) as fd:
+        return fd.read()
+
+
+def _code(src):
+    """The source without its // comments."""
+    return "\n".join(line.split("//")[0] for line in src.splitlines())
+
+
 def test_kernel_source_is_exact_fp32():
     from smoe_tpu_torch.kernels import build
-    src = open(os.path.join(build.SRC_DIR, "gate_expert_variants.cu")).read()
-    assert "__expf" not in src and "__fdividef" not in src
+    src = _csrc("gate_expert_variants.cu")
+    for text in (src, _csrc("gate_expert_fwd_body.cuh")):
+        assert "__expf" not in text and "__fdividef" not in text
+        assert "__exp2f" not in text and "fast_math" not in _code(text)
+    assert not any("fast" in flag for flag in build.NVCC_FLAGS)
     assert '#include "gate_expert_common.cuh"' in src
     assert "smoe_gate_expert_variant(" in src
     assert "scripts/bench_contraction.py::_variant_kernel" in src
+
+
+def test_k1_and_k3_are_instances_of_one_body():
+    """Both kernel files include the forward body and call it, K1 as
+    MODE_PRODUCTION; the variants file keeps no loop of its own."""
+    for name in ("gate_expert_fwd.cu", "gate_expert_variants.cu"):
+        code = _code(_csrc(name))
+        assert '#include "gate_expert_fwd_body.cuh"' in code, name
+        assert "smoe::gate_expert_fwd_body<" in code, name
+    assert ("gate_expert_fwd_body<F, E, C, smoe::MODE_PRODUCTION>"
+            in _code(_csrc("gate_expert_fwd.cu")))
+    var = _code(_csrc("gate_expert_variants.cu"))
+    for loop in ("for (", "while (", "__syncthreads", "dot_padded",
+                 "expf(", "fmaf("):
+        assert loop not in var, loop
+    body = _code(_csrc("gate_expert_fwd_body.cuh"))
+    modes = dict((m, int(v)) for m, v in re.findall(
+        r"MODE_([A-Z0-9_]+) = (\d+),", body))
+    # modes 0-4 are the wrapper's VARIANTS in order
+    assert [modes[v.upper()] for v in tgv.VARIANTS] == list(range(5))
+    assert modes["PRODUCTION"] not in range(6)
+
+
+def test_k3_instances_cover_k1_c3_widths():
+    """Every C = 3 instance of K1 (gate_expert_fwd.cu SMOE_WIDTHS) has a K3
+    instance, the dual-model F = 26 among them, and `*_supported` takes
+    F = 26 as d = 3."""
+    k1 = set(re.findall(r"X\((\d+), (\d+), 3\)", _csrc("gate_expert_fwd.cu")))
+    var = _csrc("gate_expert_variants.cu")
+    macro = var[var.index("#define SMOE_VARIANT_WIDTHS"):]
+    macro = macro[:macro.index("extern")]
+    k3 = set(re.findall(r"X\((\d+), (\d+)\)", macro))
+    assert len(k1) == 8 and k1 == k3
+    assert ("26", "4") in k3 and ("26", "1") in k3
+    assert "(f == 13 || f == 26) ? 3" in var
+
+
+def test_witness_mode_is_the_bodys_dense_full():
+    """chip_smoke.py reaches the witness (full without compaction) through
+    the C interface by its number; the wrapper does not offer it."""
+    import chip_smoke
+    m = re.search(r"MODE_FULL_DENSE = (\d+),",
+                  _code(_csrc("gate_expert_fwd_body.cuh")))
+    assert m and int(m.group(1)) == chip_smoke.FULL_DENSE_MODE
+    assert chip_smoke.FULL_DENSE_MODE >= len(tgv.VARIANTS)
+    phi, q, G, pi_det = map(torch.as_tensor, _inputs(2, 64, 8))
+    with pytest.raises(ValueError, match="unknown mode"):
+        tgv.gate_expert_variant(phi, q, G, pi_det, "full_dense")
+
+
+# (F, E, C, N, K, S) hand counts: per pair 2F maha flops + clamp, exp
+# (MUFU), pi multiply, denominator add; per mixed pair the division (1 flop,
+# 1 MUFU) and 2EC mixing flops; bytes 4 * (N (F + C [+ E]) + K (F + EC
+# [+ pi_det] [+ K1's surv]))
+_TINY = dict(n=10, k=4, f=7, e=3, c=3, survivors=6)
+_HAND = {
+    # P = 40: 18 * 40 + 19 * 6, 40 + 6, 4 * (10 * 13 + 4 * 18)
+    "production": (834, 46, 808),
+    "full": (834, 46, 4 * (10 * 10 + 4 * 17)),
+    "exp2": (834, 46, 4 * (10 * 10 + 4 * 17)),
+    # 18 * 40 + 19 * 40, 80
+    "no_cull": (1480, 80, 4 * (10 * 10 + 4 * 17)),
+    # 16 * 40 + 18 * 40, 40
+    "no_norm": (1360, 40, 4 * (10 * 10 + 4 * 17)),
+    # 15 * 40 + 18 * 40, 0; no pi_det
+    "no_exp": (1320, 0, 4 * (10 * 10 + 4 * 16)),
+}
+
+
+@pytest.mark.parametrize("mode", list(_HAND))
+def test_mode_bound_hand_counts(mode):
+    flops, mufu, nbytes = contraction.mode_work(mode, **_TINY)
+    assert (flops, mufu, nbytes) == _HAND[mode]
+    b = contraction.mode_bound(mode, **_TINY)
+    assert b["flops"] == flops and b["mufu_ops"] == mufu
+    assert b["bytes"] == nbytes
+    # a tiny shape moves more bytes than it computes
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(nbytes / 3.35e12 * 1e3)
+    # 16 MUFU results a clock per SM against 256 fp32 flops
+    assert b["mufu_ms"] == pytest.approx(mufu / (67e12 / 16) * 1e3)
+
+
+def test_full_bound_is_k1_bound_without_the_mix():
+    """At the flagship (P = 6.7e7 pairs, S = 767943) `full`'s bound is the
+    one K1's bound gave K3 before, (2F + 4) P + (1 + 2EC) S flops over the
+    fp32 peak with xe left out, and K1's bound is chip_smoke.k1_bound's."""
+    import chip_smoke
+    n, k, f, e, c, s = 512 * 512, 256, 7, 3, 3, 767943
+    flops = n * k * (2 * f + 4) + s * (1 + 2 * e * c)
+    nbytes = 4 * (n * (f + c) + k * (f + e * c + 2))
+    ms = max(flops / 67e12, nbytes / 3.35e12) * 1e3
+    b = contraction.mode_bound("full", n, k, f, e, c, s)
+    assert b["bound_by"] == "operations" and b["bound_ms"] == ms
+    assert b["flops"] == flops
+    k1 = contraction.mode_bound("production", n, k, f, e, c, s)
+    assert chip_smoke.k1_bound(n, k, f, e, c, s) == (k1["bound_ms"],
+                                                     k1["bound_by"])
+    assert k1["bound_ms"] == ms
+    with pytest.raises(ValueError, match="unknown mode"):
+        contraction.mode_work("no_matmul", n, k, f, e, c, s)
+
+
+@pytest.mark.parametrize("stride", [1, 3])
+def test_versus_plain_counts_rows(stride):
+    """The attribution's check against the plain version, on CPU tensors:
+    in row chunks and on a strided subset; a row off by more than the
+    tolerance is counted, one that holds a pair at the cull threshold is
+    counted as a flip instead."""
+    phi, q, G, pi_det = map(torch.as_tensor, _inputs(2, 300, 16))
+    thr, floor = contraction.THR, contraction.FLOOR
+    ref = tgv.gate_expert_variant_reference(phi, q, G, pi_det, "full", thr,
+                                            floor)
+    m = contraction.versus_plain(phi, q, G, pi_det, "full", ref, thr, floor,
+                                 rows=64, stride=stride)
+    assert m["rows_checked"] == len(range(0, 300, stride))
+    assert m["max_abs_err"] == 0 and m["rows_over_tol"] == 0
+    assert m["tol"] == contraction.VAR_ABS_TOL
+    got = ref.clone()
+    got[0, 1] += 1e-3
+    got[3 * stride, 0] -= 1e-3
+    m = contraction.versus_plain(phi, q, G, pi_det, "full", got, thr, floor,
+                                 rows=64, stride=stride)
+    assert m["rows_over_tol"] == 2 and m["cull_flip_rows"] == 0
+    # a threshold on one of row 0's weights: row 0 off is a flip
+    w = tgv.variant_weights(phi, q, pi_det, "full", thr, floor, cull=False)
+    thr0 = float(w[0, 5])
+    got = tgv.gate_expert_variant_reference(phi, q, G, pi_det, "full", thr0,
+                                            floor)
+    got[0, 2] += 1e-3
+    m = contraction.versus_plain(phi, q, G, pi_det, "full", got, thr0, floor,
+                                 rows=64, stride=stride)
+    assert m["cull_flip_rows"] == 1 and m["rows_over_tol"] == 0
+    m = contraction.versus_plain(phi, q, G, pi_det, "no_exp", got, thr,
+                                 floor, rows=64, stride=stride)
+    assert m["tol"] == contraction.VAR_REL_TOL * m["max_abs_plain"]

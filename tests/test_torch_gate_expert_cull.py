@@ -197,10 +197,14 @@ def test_margin_constant_in_the_kernel_sources():
                   hdr)
     assert m and int(m.group(1)) == 20 and MARGIN == f32(1 - 2.0 ** -20)
     assert "__fmul_rn(__fmul_rn(thr, d), CULL_MARGIN)" in hdr
+    body = pathlib.Path(build.SRC_DIR, "gate_expert_fwd_body.cuh").read_text()
+    assert '#include "gate_expert_common.cuh"' in body
     for name in ("gate_expert_fwd", "gate_expert_bwd"):
         src = pathlib.Path(build.SRC_DIR, name + ".cu").read_text()
         assert '#include "gate_expert_common.cuh"' in src
-        assert "smoe::cull_cut(thr, " in src
+        if '#include "gate_expert_fwd_body.cuh"' in src:
+            src += body              # K1's loop is the forward body's
+        assert "cull_cut(thr, " in src
         code = "\n".join(line.split("//")[0] for line in src.splitlines())
         assert "0x1p-" not in code                # no second constant
 
