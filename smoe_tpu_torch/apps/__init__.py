@@ -1,7 +1,10 @@
 """The applications of the port (from the JAX package's scripts/):
 the workload demos (denoise, inpaint, super-resolution), the RD curve, the
-layered-bitstream study, the quick smoke drive and the content families
-they read.  Each keeps its script's name, flags and JSON keys and runs as
+layered-bitstream studies (images, video), the studies that build on the
+bench modules (exp_lsinit, exp_lsri_quant, exp_recode_matrix,
+exp_a_domain, dryrun_tp_bigk), the quick smoke drive and the content
+they read (the families, the bench images, clips and light fields).  Each
+keeps its script's name, flags and JSON keys and runs as
 `python -m smoe_tpu_torch.apps.<name>`, on the card unless `--device cpu`
 is given."""
 

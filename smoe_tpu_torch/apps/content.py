@@ -1,5 +1,7 @@
-"""Synthetic content families for the RD curve and the demos (from
-scripts/content.py, and bench.py:29-44's build_image).
+"""Synthetic content: the families of the RD curve and the demos (from
+scripts/content.py, and bench.py:29-44's build_image), and the bench
+inputs: images, clips and light fields (scripts/bench_1080p.py,
+bench_4k.py, bench_video.py, bench_lf.py).
 
   bench   - the sinusoid + blocks + noise headline image
   pink    - 1/f spectral field (natural-image second-order statistics)
@@ -10,7 +12,9 @@ scripts/content.py, and bench.py:29-44's build_image).
 Each is deterministic (seeded), float32 in [0, 1], RGB, and the same array
 bit for bit as the JAX package's script gives.  The photo families `hopper`,
 `mri` and `dem` read matplotlib's sample data, which the card's machine
-does not have: they raise NotImplementedError.
+does not have: they raise NotImplementedError, as do the bench clips'
+`texture="hopper"` (the same sample data) and `rot` (cv2.warpAffine),
+which ROADMAP.md lists under "Blocked, not queued".
 """
 
 from __future__ import annotations
@@ -138,3 +142,121 @@ def build_family(name: str, size=256):
         raise ValueError(f"unknown content family {name!r}; "
                          f"choose from {FAMILIES}")
     return builders[name](size)
+
+
+def _blocked(what: str):
+    raise NotImplementedError(
+        f"{what} needs matplotlib's sample data or OpenCV, which the card's "
+        "machine does not have (ROADMAP.md, \"Blocked, not queued\"); use "
+        "the synthetic texture")
+
+
+def build_1080p():
+    """scripts/bench_1080p.py:17-31: the 1920x1080 RGB block-fit image."""
+    rng = np.random.default_rng(0)
+    h, w = 1080, 1920
+    y, x = np.mgrid[0:h, 0:w]
+    y = y / (h - 1)
+    x = x / (w - 1)
+    img = np.stack([
+        0.5 + 0.3 * np.sin(4 * x + 1.5 * y),
+        0.5 + 0.25 * np.cos(5 * x * y + 1.0),
+        0.4 + 0.3 * np.sin(3 * (x + y)),
+    ], axis=-1)
+    img[200:500, 400:900, 0] += 0.2
+    img[600:, 1200:, 1] -= 0.15
+    img += rng.normal(0, 0.005, img.shape)
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def build_4k():
+    """scripts/bench_4k.py:23-36: the 3840x2160 RGB scaling image."""
+    rng = np.random.default_rng(0)
+    h, w = 2160, 3840
+    y, x = np.mgrid[0:h, 0:w]
+    y = y / (h - 1)
+    x = x / (w - 1)
+    img = np.stack([
+        0.5 + 0.3 * np.sin(6 * x + 2 * y),
+        0.5 + 0.25 * np.cos(7 * x * y + 1.0),
+        0.4 + 0.3 * np.sin(4 * (x + y)),
+    ], axis=-1)
+    img[400:1000, 800:1800, 0] += 0.2
+    img[1200:, 2400:, 1] -= 0.15
+    img += rng.normal(0, 0.005, img.shape)
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def build_video(h=288, w=352, t=8, shift=2.0, moving_obj=False,
+                texture="synth", rot=0.0):
+    """scripts/bench_video.py:18-94: the CIF panning scene, a sinusoid
+    canvas panned by `shift` pixels a frame with its known per-frame
+    affines; moving_obj adds a textured square moving against the pan,
+    which global motion cannot explain.  Returns (vid (h, w, t, 3) float32
+    RGB in [0, 1], affines (t, 2, 3)).  texture="hopper" and rot != 0
+    raise (module docstring)."""
+    if texture == "hopper":
+        _blocked("build_video(texture='hopper')")
+    if rot:
+        _blocked("build_video(rot=...)")
+    rng = np.random.default_rng(0)
+    wide_w = w + int(shift * t) + 4
+    y, x = np.mgrid[0:h, 0:wide_w]
+    y = y / (h - 1)
+    x = x / (w - 1)
+    wide = np.stack([
+        0.5 + 0.3 * np.sin(6 * x + 2 * y),
+        0.5 + 0.25 * np.cos(4 * x * y + 1.0),
+        0.4 + 0.3 * np.sin(3 * (x + y)),
+    ], axis=-1).astype(np.float32)
+    wide += rng.normal(0, 0.005, wide.shape).astype(np.float32)
+    frames = [wide[:, int(shift * i):int(shift * i) + w].copy()
+              for i in range(t)]
+    if moving_obj:
+        oy, ox, s = 60, 40, 56
+        yy, xx = np.mgrid[0:s, 0:s] / (s - 1)
+        patch = np.stack([0.2 + 0.6 * yy, 0.7 - 0.5 * xx,
+                          0.5 + 0.4 * yy * xx], -1).astype(np.float32)
+        for i in range(t):
+            py, px = oy + 6 * i, ox + 9 * i       # against the pan
+            frames[i][py:py + s, px:px + s] = patch
+    vid = np.clip(np.stack(frames, axis=2), 0, 1)
+    affines = np.zeros((t, 2, 3), np.float32)
+    affines[:, 0, 0] = 1.0
+    affines[:, 1, 1] = 1.0
+    affines[:, 0, 2] = -shift * np.arange(t)
+    return vid, affines
+
+
+def build_lf(views: int = 15, s: int = 48, seed: int = 3,
+             texture: str = "synth"):
+    """scripts/bench_lf.py:28-79: a (views, views, s, s, 1) grayscale light
+    field in [0, 1] with two disparity planes, a textured background at
+    +1.5 px a view and a foreground square at -2.5 px a view, each view an
+    exact shift.  texture="hopper" raises (module docstring)."""
+    if texture == "hopper":
+        _blocked("build_lf(texture='hopper')")
+    rng = np.random.default_rng(seed)
+    pad = int(3.0 * views) + 8
+    side = s + 2 * pad
+    yy, xx = np.mgrid[0:side, 0:side] / s
+    tex = (0.55 + 0.25 * np.sin(5.1 * yy + 1.0) * np.cos(4.3 * xx)
+           + 0.12 * np.sin(11.0 * (yy + xx)))
+    ftex = 0.35 + 0.3 * np.cos(7.0 * yy) * np.sin(6.2 * xx + 0.5)
+    lf = np.empty((views, views, s, s), np.float32)
+    uc = (views - 1) / 2
+    d_bg, d_fg = 1.5, -2.5
+    fy0, fx0, fs = int(0.30 * s), int(0.36 * s), int(0.30 * s)
+    for u in range(views):
+        for v in range(views):
+            oy_b = pad + int(round(d_bg * (u - uc)))
+            ox_b = pad + int(round(d_bg * (v - uc)))
+            view = tex[oy_b:oy_b + s, ox_b:ox_b + s].copy()
+            oy_f = pad + int(round(d_fg * (u - uc)))
+            ox_f = pad + int(round(d_fg * (v - uc)))
+            fg = ftex[oy_f:oy_f + s, ox_f:ox_f + s]
+            view[fy0:fy0 + fs, fx0:fx0 + fs] = fg[fy0:fy0 + fs,
+                                                  fx0:fx0 + fs]
+            lf[u, v] = view
+    lf += rng.normal(0, 0.004, lf.shape).astype(np.float32)
+    return np.clip(lf, 0.0, 1.0)[..., None]

@@ -242,7 +242,8 @@ def read_image(path: str, use_yuv: bool = True
         raise NotImplementedError(
             f"{path}: smoe_tpu_torch reads video from .npz bundles only "
             "(imgs (T, H, W, C) uint8 RGB + affines): decoding a container "
-            "needs OpenCV; convert it to .npz (ROADMAP.md Queue 1 item 10)")
+            "needs OpenCV (see ROADMAP.md, \"Blocked, not queued\"); "
+            "convert it to .npz")
     elif p.endswith(".mat"):
         orig = read_mat(path)[..., 0:3]
         if use_yuv and orig.shape[-1] == 3:      # grayscale LFs skip YUV

@@ -105,8 +105,11 @@ def _worker(argv) -> int:
     import torch.distributed as dist
     torch.set_num_threads(int(a.threads))
     rank, world = int(a.rank), int(a.world)
-    if torch.device(a.device).type == "cuda":
-        torch.cuda.set_device(torch.device(a.device))
+    dev = torch.device(a.device)
+    if dev.type == "cuda":
+        # "cuda" without an index: every rank on the current card
+        torch.cuda.set_device(dev.index if dev.index is not None
+                              else torch.cuda.current_device())
     dist.init_process_group(
         "gloo", init_method="file://" + os.path.join(a.workdir, "store"),
         rank=rank, world_size=world,

@@ -52,7 +52,15 @@ def _run(extra="", prelude=""):
 
 
 def test_every_module_imports_without_jax():
-    assert int(_run().split()[-1]) >= 26
+    """Every module, the bench modules (smoe_tpu_torch.bench) and the
+    studies of apps/ included, imports with jax, smoe_tpu, matplotlib and
+    cv2 refused."""
+    out = _run(extra="""
+assert {"smoe_tpu_torch.bench.flagship", "smoe_tpu_torch.bench.decode",
+        "smoe_tpu_torch.apps.exp_a_domain",
+        "smoe_tpu_torch.apps.dryrun_tp_bigk"} <= set(names)
+""", prelude=_BLOCK)
+    assert int(out.split()[-1]) >= 68
 
 
 def test_decode_path_runs_without_jax():
@@ -259,6 +267,54 @@ exp_layers.main(["--size", "16", "--iters", "2", "--k", "2", "--layers",
 png = os.path.join(d, "img.png")
 write_png(png, np.uint8(np.round(img * 255))[..., ::-1])
 rd_curve.main([png, "2", "--prune"] + cpu)
+"""
+    _run(extra, prelude=_BLOCK)
+
+
+def test_bench_and_studies_run_with_jax_matplotlib_and_cv2_blocked():
+    """The bench modules (bench.video, whose [12, 12, 4] fit is slow on the
+    CPU, and the two fixed 1080p / 4K fits aside: they import above) and
+    every study of apps/ run through their main on the CPU at cut sizes in
+    a process where jax, smoe_tpu, matplotlib and cv2 cannot be
+    imported."""
+    extra = """
+import os, pickle, tempfile
+import torch
+torch.set_num_threads(1)
+from smoe_tpu_torch.apps import (content, dryrun_tp_bigk, exp_a_domain,
+                                 exp_layers_video, exp_lsinit,
+                                 exp_lsri_quant, exp_recode_matrix)
+from smoe_tpu_torch.bench import decode, flagship, lf, video_quality
+from smoe_tpu_torch.fit.trainer import Smoe
+cpu = ["--device", "cpu"]
+os.environ["SMOE_BENCH_SIZE"] = "16"
+assert flagship.main(cpu)["metric"] == "cpu_s_per_iter_16x16_rgb_256k"
+image, clip = content.build_image, content.build_video
+content.build_image = lambda size=512: image(16)
+content.build_video = lambda moving_obj=False, **kw: clip(
+    h=144 if moving_obj else 8, w=176 if moving_obj else 12, t=4,
+    moving_obj=moving_obj)
+decode.SIZES, decode.N_FRAMES, decode.N_VIDEO = ((32, 4, 2), (64, 4, 2)), 1, 1
+assert len(decode.main(cpu)) == 5
+vq = video_quality.main(["--k", "2", "--n", "2", "--ri", "1", "--val", "2",
+                         "--static", "--auto"] + cpu)
+exp_layers_video.main(["--params", os.path.join(
+    vq[0]["workdir"], "out", "params_best.pkl"), "--layers", "2",
+    "--static"] + cpu)
+wd = lf.main(["--s", "4", "--n", "2", "--val", "2", "--k", "2", "--kt",
+              "2"] + cpu)["workdir"]
+assert len(exp_recode_matrix.main([wd, "--lf"] + cpu)) == 10
+exp_lsinit.main(["--size", "16", "--max", "20"] + cpu)
+exp_lsri_quant.main(["--size", "16", "--iters", "10"] + cpu)
+s = Smoe(image(16), kernels_per_dim=[4], use_yuv=True, device="cpu")
+s.run_batched_chunk(2)
+pkl = os.path.join(tempfile.mkdtemp(), "fit.pkl")
+with open(pkl, "wb") as f:
+    pickle.dump({"params": s.get_params(), "cfg": s.cfg}, f)
+exp_a_domain.main([pkl, "--size", "16"] + cpu)
+r = dryrun_tp_bigk.main(["--k", "4", "--size", "16", "--nk", "2",
+                         "--world", "2"] + cpu)
+assert r["per_rank_widths"][1]["pis"] == 8
 """
     _run(extra, prelude=_BLOCK)
 

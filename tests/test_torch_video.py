@@ -219,8 +219,9 @@ def test_dual_model_concat_copy():
 
 
 def test_smoke_script_clip_is_bench_video_s():
-    """chip_smoke.py carries its own copy of scripts/bench_video.py's
-    synthetic clip (the card has no JAX side to import it from)."""
+    """chip_smoke.py's clip is the port's copy of scripts/bench_video.py's
+    synthetic clip (apps/content.py:build_video; the card has no JAX side
+    to import it from)."""
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import bench_video
