@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port's serving decode, trainer, forward
 ablation variants, encode CLI, fit CLI with its plots, video path,
-light-field path, SV residual / subsampling, mesh paths, applications and
-bench modules on one NVIDIA GPU.
+light-field path, SV residual / subsampling, mesh paths, applications,
+bench modules and the graphed training chunk on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -233,8 +233,31 @@ no result line) on any fault:
      within 1 LSB (>= 99.9 % identical) of its plain-path decode (the
      images' PSNR within 0.01 dB), every encode's model.smoe within 1 LSB
      of the encoder's reconstruction, the per-rank widths K / nk.
+ 23. the training chunk as one program: on the card `run_batched_chunk`
+     runs its first sweep eagerly, captures one sweep as a CUDA graph and
+     replays it for the rest (smoe_tpu_torch/fit/graph.py), which phases
+     8-22 run through.  Here each configuration runs twice from the same
+     state (two trainers made alike), graphed and under
+     smoe_tpu_torch.fit.trainer.eager(): the flagship, 1080p in 16 blocks
+     (capped), the 4K fit in 32 blocks, the CIF video (40 sweeps to its
+     settled cap, then two chunks of 10), the full-width light field, the
+     SV fit in 64 blocks at 100 % and at 50 %, and cli.fit with LS, with
+     inc rows, with QAT 3 and with SSIM: params, both optimizers' state,
+     lists and every chunk's per-sweep metrics bit-identical, the K1 / K2
+     launches equal (a replay counts the launches its graph holds), one
+     host sync per chunk after the first, as many as the witness's.  Then
+     on the graphed trainers of the first six, chunks of 10 in turns
+     eager, graph, graph, eager (after one graphed chunk that settles the
+     capped width and its graph): s/iter, CUDA-event ms a sweep, peak
+     memory, captures, and a profiled window of each (the card's kernel ms
+     a sweep, its busy share, the runtime calls a sweep that launch work),
+     graphs and capture seconds.  First, the flagship's 20 sweeps eagerly
+     with the capturable Adam the card's trainer uses and with a host-counted
+     one: whether the bits move, the mse within TRAJ_RTOL.
 Launch counts are zeroed before each path and read after it; the launches
-made to compare a kernel with its plain version are not counted.  Then
+made to compare a kernel with its plain version are not counted.  Under a
+graph a capture takes back the launches it counted and each replay adds
+them, so the counts are launches on the card.  Then
 prints the card line, one JSON line of kernel results (each with its
 launches, error, time, plain time, bound, what binds it and library_ms,
 null: no single PyTorch call computes these functions; K1's and K2's
@@ -2768,6 +2791,9 @@ def sv_phase(img, launches):
     full, s_full = sv_pair(img, 100, launches)
     sub, s_sub = sv_pair(img, 50, launches)
     s0 = sv_smoe(img, KERNEL_MODE)
+    # two chunks: the first settles the capped width, the second captures
+    # the sweep at it, so the timed chunk only replays
+    s0.run_batched_chunk(2)
     s0.run_batched_chunk(2)
     reset_counts()
     t0, _ = host_s(lambda: s0.run_batched_chunk(SV_TIMED))
@@ -2826,6 +2852,346 @@ def sv_phase(img, launches):
 
 MESH_RANKS = 2
 MESH_BK_SWEEPS = 10
+
+
+# phase 23: the graphed chunk against its eager witness
+GRAPH_CHUNKS = (10, 10)     # the witness: two chunks, the second capped
+GRAPH_TIMED = 10            # sweeps of each timed turn
+# sweeps of a profiled window, eager and graphed: the eager SV sweep makes
+# ~20,000 launches, while a graphed window must be long beside the chunk's
+# fixed cost (the lists copied in, the pull)
+GRAPH_PROFILED = (2, GRAPH_TIMED)
+# the runtime calls that put work on the card, counted by the profiler
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def trainer_state(s) -> dict:
+    """What a chunk leaves for the next one, as numpy: the params, both
+    optimizers' moments and step counts, the kernel lists."""
+    out = {f: getattr(s.params, f).detach().cpu().numpy() for f in s._fields}
+    for name, opt in (("adam", s.optimizer), ("adam_inc", s.inc_optimizer)):
+        for g in opt.param_groups if opt is not None else ():
+            for f, p in zip(g["fields"], g["params"]):
+                for k, v in opt.state.get(p, {}).items():
+                    out[f"{name}.{f}.{k}"] = v.detach().cpu().numpy()
+    out["kernel_lists"] = s.kernel_lists.cpu().numpy()
+    return out
+
+
+def same_bits(a, b) -> bool:
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.tobytes() == b.tobytes()
+
+
+def differing(state_g, state_e, rows_g, rows_e) -> list:
+    """The names of the state entries and chunk outputs that are not
+    bit-identical between the graphed run and its eager witness."""
+    bad = sorted(k for k in set(state_g) | set(state_e)
+                 if k not in state_g or k not in state_e
+                 or not same_bits(state_g[k], state_e[k]))
+    if len(rows_g) != len(rows_e):
+        return bad + [f"chunks {len(rows_g)} != {len(rows_e)}"]
+    return bad + [f"chunk {i} metrics" for i, (a, b) in
+                  enumerate(zip(rows_g, rows_e)) if not same_bits(a, b)]
+
+
+def graph_witness(name, make, launches, chunks=GRAPH_CHUNKS, **kw):
+    """Two trainers made alike (the same state): one runs `chunks` graphed,
+    the other under eager().  Params, Adam state, lists and every per-sweep
+    metric bit-identical, the K1 / K2 launches equal, one host sync per
+    chunk after the first (which reads the capped width), as many as the
+    witness's.  Returns (report, the graphed trainer)."""
+    from smoe_tpu_torch.fit.trainer import eager
+    runs = {}
+    for mode in ("graph", "eager"):
+        s = make()
+        rows, syncs = [], []
+        reset_counts()
+        with (eager() if mode == "eager" else contextlib.nullcontext()):
+            for n in chunks:
+                k, out = syncs_of(lambda: s.run_batched_chunk(n, **kw))
+                syncs.append(k)
+                rows.append(np.stack(out))
+        counts = read_counts()
+        launches[0] += counts[0]
+        launches[1] += counts[1]
+        runs[mode] = (s, trainer_state(s), rows, counts, syncs)
+    (s_g, st_g, rows_g, c_g, sy_g), (_, st_e, rows_e, c_e, sy_e) = \
+        runs["graph"], runs["eager"]
+    bad = differing(st_g, st_e, rows_g, rows_e)
+    out = {"sweeps": sum(chunks), "k_cap": s_g._current_k_cap(),
+           "graphs": len(s_g._graphs),
+           "capture_s": [g.capture_s for g in s_g._graphs.values()],
+           "launches_k1_k2_graph_eager": [list(c_g), list(c_e)],
+           "host_syncs_per_chunk_graph_eager": [sy_g, sy_e],
+           "mse_last": float(rows_g[-1][1][-1]), "not_bit_identical": bad}
+    print(f"graph witness {name}: {json.dumps(out)}", flush=True)
+    check(not bad, f"{name}: the graphed chunks differ from the eager "
+          f"witness in {bad}")
+    check(c_g == c_e, f"{name}: K1 / K2 launches {c_g} graphed, {c_e} eager")
+    # the first chunk also reads the capped width's list count once
+    check(sy_g == sy_e and sy_g[1:] == [1] * (len(chunks) - 1),
+          f"{name}: chunks synced {sy_g} times graphed, {sy_e} eager")
+    return out, s_g
+
+
+@contextlib.contextmanager
+def recorded_chunks():
+    """The outputs of every Smoe.run_batched_chunk call in the block."""
+    from smoe_tpu_torch.fit.trainer import Smoe
+    real, rows = Smoe.run_batched_chunk, []
+
+    def recording(self, *a, **kw):
+        out = real(self, *a, **kw)
+        rows.append(np.stack(out))
+        return out
+
+    Smoe.run_batched_chunk = recording
+    try:
+        yield rows
+    finally:
+        Smoe.run_batched_chunk = real
+
+
+def cli_witness(png, name, flags, launches):
+    """cli.fit with `flags` twice, graphed and under eager(): the trainers
+    it leaves and every chunk's metrics bit-identical, launches equal."""
+    from smoe_tpu_torch.cli import fit
+    from smoe_tpu_torch.fit.trainer import eager
+    runs = {}
+    for mode in ("graph", "eager"):
+        with tempfile.TemporaryDirectory() as d, recorded_chunks() as rows:
+            reset_counts()
+            with (eager() if mode == "eager" else contextlib.nullcontext()):
+                smoe, _, wall = _cli(fit.main, ["-i", png, "-r", d, "-k",
+                                                "16", "--device", DEVICE]
+                                     + flags)
+            counts = read_counts()
+        launches[0] += counts[0]
+        launches[1] += counts[1]
+        runs[mode] = (trainer_state(smoe), rows, counts, wall,
+                      len(smoe._graphs), smoe.iter)
+    (st_g, rows_g, c_g, w_g, n_g, it), (st_e, rows_e, c_e, w_e, _, _) = \
+        runs["graph"], runs["eager"]
+    bad = differing(st_g, st_e, rows_g, rows_e)
+    out = {"flags": flags, "sweeps": it, "chunks": len(rows_g),
+           "graphs": n_g, "launches_k1_k2_graph_eager": [list(c_g),
+                                                         list(c_e)],
+           "wall_s_graph_eager": [w_g, w_e], "not_bit_identical": bad}
+    print(f"graph witness cli.fit {name}: {json.dumps(out)}", flush=True)
+    check(not bad, f"cli.fit {name}: graphed vs eager differ in {bad}")
+    check(c_g == c_e, f"cli.fit {name}: launches {c_g} / {c_e}")
+    return out
+
+
+def profiled(s, n, **kw) -> dict:
+    """One chunk of n sweeps under torch.profiler: the card's kernel time
+    a sweep, its busy share of the wall time, and the runtime calls a sweep
+    that put work on the card (kernel and graph launches, copies, sets)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.run_batched_chunk(n, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages()
+              if not e.key.startswith("Optimizer.")]
+    kernels = [e for e in events if "CUDA" in str(getattr(
+        e, "device_type", "")) and dev_us(e) > 0]
+    dev = sum(dev_us(e) for e in kernels) / 1e6
+    calls = sum(e.count for e in events if e.key in HOST_LAUNCH_CALLS)
+    return {"wall_ms_per_sweep": wall / n * 1e3,
+            "kernel_ms_per_sweep": dev / n * 1e3,
+            "busy_share": dev / wall, "host_launches_per_sweep": calls / n,
+            "device_kernels_per_sweep": sum(e.count for e in kernels) / n}
+
+
+def graph_turns(name, s, n=GRAPH_TIMED, **kw) -> dict:
+    """Chunks of n sweeps on one trainer in turns eager, graph, graph,
+    eager, after one graphed chunk that settles the capped width and its
+    graph (a turn that still captures says so): each turn's s/iter (host
+    clock around the chunk and its pull), event ms a sweep (CUDA events
+    around the chunk), peak memory and captures; then a profiled window of
+    each kind (GRAPH_PROFILED sweeps)."""
+    import torch
+    from smoe_tpu_torch.fit.trainer import eager
+
+    def turn(graph):
+        ctx = contextlib.nullcontext() if graph else eager()
+        before = set(s._graphs)
+        with ctx:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            s.run_batched_chunk(n, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        new = [g for k, g in s._graphs.items() if k not in before]
+        return {"s_per_iter": wall / n,
+                "event_ms_per_sweep": e0.elapsed_time(e1) / n,
+                # a replay allocates nothing: its pool shows in reserved
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                "captures": len(new),
+                "capture_s": sum(g.capture_s for g in new)}
+
+    s.run_batched_chunk(n, **kw)
+    turns = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        turns[mode].append(turn(mode == "graph"))
+    with eager():
+        prof_e = profiled(s, GRAPH_PROFILED[0], **kw)
+    prof_g = profiled(s, GRAPH_PROFILED[1], **kw)
+    out = {"s_per_iter_eager_graph": [
+               statistics.mean(t["s_per_iter"] for t in turns[m])
+               for m in ("eager", "graph")],
+           "turns": turns, "eager": prof_e, "graph": prof_g,
+           "graphs": len(s._graphs), "k_cap": s._current_k_cap()}
+    print(f"graph turns {name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def adam_forms(img, launches, n=FIT_SWEEPS):
+    """The flagship's first n sweeps eagerly with the capturable Adam the
+    card's trainer uses and with torch.optim.Adam counting its steps on
+    the host (the same param groups, capturable off, as on the CPU):
+    whether the bits move, and how far the mse does (held to
+    TRAJ_RTOL)."""
+    import torch
+    from smoe_tpu_torch.fit.trainer import eager
+    runs = {}
+    for form in ("capturable", "host_step"):
+        s = flagship_smoe(img, KERNEL_MODE)
+        if form == "host_step":
+            s.optimizer = torch.optim.Adam(
+                [dict(g, capturable=False) for g in s.optimizer.param_groups])
+        reset_counts()
+        with eager():
+            runs[form] = (np.stack(s.run_batched_chunk(n)), trainer_state(s))
+        launches[0] += read_counts()[0]
+        launches[1] += read_counts()[1]
+    (m_c, st_c), (m_h, st_h) = runs["capturable"], runs["host_step"]
+    params = [f for f in st_c if "." not in f and f != "kernel_lists"]
+    out = {"sweeps": n, "mse_max_rel": max_rel(m_c[1], m_h[1]),
+           "params_bit_identical": all(same_bits(st_c[f], st_h[f])
+                                       for f in params),
+           "params_max_abs_diff": max(float(np.max(np.abs(
+               st_c[f] - st_h[f]))) for f in params),
+           "metrics_bit_identical": same_bits(m_c, m_h)}
+    print(f"Adam, capturable against host-counted: {json.dumps(out)}",
+          flush=True)
+    check(out["mse_max_rel"] <= TRAJ_RTOL, f"capturable Adam moves the "
+          f"flagship's mse by {out['mse_max_rel']:.2e}")
+    return out
+
+
+def graph_phase(img, launches):
+    """Phase 23: the chunk captured once and replayed as a CUDA graph
+    against the same sweeps under eager(), from the same state, bit for
+    bit: the flagship, 1080p in 16 blocks (capped), the 4K fit in 32 blocks,
+    the CIF video at its settled cap, the full-width light field, the SV
+    fit in 64 blocks at 100 % and at 50 %, and cli.fit with LS, the inc
+    rows, QAT 3 and SSIM; then s/iter graphed against eager in turns, the
+    device time, launches and busy share of each, on all but the CLI runs."""
+    import torch
+    from smoe_tpu_torch.apps.content import build_4k
+    from smoe_tpu_torch.fit.trainer import Smoe
+    from smoe_tpu_torch.io.images import read_image, write_image
+    out = {"witness": {}, "turns": {}, "adam": adam_forms(img, launches)}
+    img1080 = load_1080p()
+    img4k = build_4k()
+    rgb, aff = build_video(moving_obj=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.npz")
+        np.savez(clip, imgs=np.uint8(np.round(np.moveaxis(rgb, 2, 0) * 255)),
+                 affines=aff)
+        vid, _, aff = read_image(clip)
+    lf = build_lf()
+    configs = {
+        "flagship": (lambda: flagship_smoe(img, KERNEL_MODE), {}, None),
+        "1080p": (lambda: Smoe(
+            img1080, kernels_per_dim=[24, 24], batch_size=(270, 480),
+            use_yuv=True, use_determinant=True, device=DEVICE), {}, None),
+        "4k": (lambda: Smoe(
+            img4k, kernels_per_dim=[48, 48], batch_size=(540, 480),
+            use_yuv=True, use_determinant=True, probe_maha_threshold=800.0,
+            device=DEVICE), {}, None),
+        "video_cif": (lambda: video_smoe(vid, aff, KERNEL_MODE), {},
+                      (40, 10, 10)),
+        "lf": (lambda: lf_smoe(lf, KERNEL_MODE), {}, None),
+        "sv64_100": (lambda: sv_smoe(img, KERNEL_MODE, train_svs=True), {},
+                     None),
+        "sv64_50": (lambda: sv_smoe(img, KERNEL_MODE, train_svs=True),
+                    {"sampling_percentage": 50}, None)}
+    for name, (make, kw, chunks) in configs.items():
+        out["witness"][name], s = graph_witness(
+            name, make, launches, chunks=chunks or GRAPH_CHUNKS, **kw)
+        if name != "sv64_50":
+            out["turns"][name] = graph_turns(name, s, **kw)
+        del s
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        png = write_image(img, os.path.join(tmp, "img"), 2, yuv=True)
+        for name, flags in (
+                ("ls", ["-n", "20", "-v", "10", "-qm", "1", "-iukl", "1",
+                        "-lsinit", "auto", "-lsri", "10"]),
+                ("inc", ["-is", "1", "-ni", "10", "-na", "10", "-n", "20",
+                         "-qm", "1"]),
+                ("qm3", ["-qm", "3", "-n", "20"]),
+                ("ssim", ["-ssim", "1", "-n", "20"])):
+            out["witness"]["cli_" + name] = cli_witness(png, name, flags,
+                                                        launches)
+    return out
+
+
+def graph_summary(graphs, before, launches) -> dict:
+    """Phase 23's summary line: per configuration s/iter eager and graphed
+    (means of the turns), the card's kernel ms a sweep, busy shares, host
+    launches a sweep (the profiled windows), event ms a sweep and peak GB
+    (the last turn of each kind), graphs; the Adam comparison; the phase's
+    launches."""
+    t = graphs["turns"]
+
+    def pair(key):
+        return {k: [v["eager"][key], v["graph"][key]] for k, v in t.items()}
+
+    def last(key):
+        return {k: [v["turns"]["eager"][-1][key], v["turns"]["graph"][-1][key]]
+                for k, v in t.items()}
+
+    return {
+        "s_per_iter_eager_graph": {k: v["s_per_iter_eager_graph"]
+                                   for k, v in t.items()},
+        "kernel_ms_per_sweep_eager_graph": pair("kernel_ms_per_sweep"),
+        "busy_share_eager_graph": pair("busy_share"),
+        "host_launches_per_sweep_eager_graph": pair(
+            "host_launches_per_sweep"),
+        "event_ms_per_sweep_eager_graph": last("event_ms_per_sweep"),
+        "peak_gb_eager_graph": last("peak_gb"),
+        "captures_in_turns": {k: sum(x["captures"] for m in ("eager", "graph")
+                                     for x in v["turns"][m])
+                              for k, v in t.items()},
+        "adam_capturable_vs_host_step": graphs["adam"],
+        "graphs": {k: v["graphs"] for k, v in graphs["witness"].items()},
+        "bit_identical": all(not v["not_bit_identical"]
+                             for v in graphs["witness"].values()),
+        "launches_k1_k2": [launches[0] - before[0],
+                           launches[1] - before[1]]}
 
 
 def sha_of(a) -> str:
@@ -3348,15 +3714,17 @@ def bench_recorders():
     make_decoder, which decode_bitstream calls too) keeps its arguments
     and its first call's inputs and output; every cli.reconstruct run its
     directory and reconstruction; every trainer sweep on the fused path
-    its blocks (one K2 launch each); the last Smoe made is kept."""
+    its blocks (one K2 launch each; a captured sweep's at each replay, as
+    the launch counters count them); the last Smoe made is kept."""
     import torch
     from smoe_tpu_torch.cli import reconstruct
     from smoe_tpu_torch.codec import serve
+    from smoe_tpu_torch.fit.graph import SweepGraph
     from smoe_tpu_torch.fit.trainer import Smoe
     rec = {"decoders": [], "reconstructs": [], "fused_blocks": 0,
            "last": None}
     real = (serve.make_decoder, reconstruct.main, Smoe._sweep_grads,
-            Smoe.__init__)
+            Smoe.__init__, SweepGraph.__init__, SweepGraph.replay)
 
     def make_decoder(*a, **kw):
         fn = real[0](*a, **kw)
@@ -3390,13 +3758,25 @@ def bench_recorders():
         real[3](self, *a, **kw)
         rec["last"] = self
 
+    def capture(graph, *a, **kw):
+        before = rec["fused_blocks"]
+        real[4](graph, *a, **kw)
+        # a capture runs nothing on the card: each replay counts
+        graph.fused_blocks = rec["fused_blocks"] - before
+        rec["fused_blocks"] = before
+
+    def replay(graph):
+        real[5](graph)
+        rec["fused_blocks"] += graph.fused_blocks
+
     (serve.make_decoder, reconstruct.main, Smoe._sweep_grads,
-     Smoe.__init__) = make_decoder, rec_main, sweep_grads, init
+     Smoe.__init__, SweepGraph.__init__, SweepGraph.replay) = (
+        make_decoder, rec_main, sweep_grads, init, capture, replay)
     try:
         yield rec
     finally:
         (serve.make_decoder, reconstruct.main, Smoe._sweep_grads,
-         Smoe.__init__) = real
+         Smoe.__init__, SweepGraph.__init__, SweepGraph.replay) = real
 
 
 def bench_decodes(rec):
@@ -3521,6 +3901,8 @@ def bench_phase(launches):
               "kernel-path decodes")
         row = {"wall_s": wall, "k1_k2": [n1, n2],
                "fused_block_sweeps": rec["fused_blocks"],
+               # the captured sweeps the module's last trainer keeps
+               "graphs": None if last is None else len(last._graphs),
                "kernel_decodes": n_dec, "peak_memory_gb": peak_gb,
                "decodes": bench_decodes(rec), "json": lines}
         print(f"bench {key} ({wall:.1f} s, K1 / K2 {n1} / {n2}, peak "
@@ -3560,8 +3942,9 @@ def bench_phase(launches):
 
 
 def bench_summary(bench, before, launches) -> dict:
-    """Phase 22's summary line: each module's wall s, launches and headline
-    numbers, the decodes' worst LSB and identical share, the 4K fit's peak
+    """Phase 22's summary line: each module's wall s, launches, its last
+    trainer's graphs and headline numbers, the decodes' worst LSB and
+    identical share, the 4K fit's peak
     memory and settled cap, the phase's launches."""
     head = {}
     for name, row in bench.items():
@@ -3572,6 +3955,8 @@ def bench_summary(bench, before, launches) -> dict:
     return {
         "wall_s": {k: v["wall_s"] for k, v in bench.items()},
         "k1_k2": {k: v["k1_k2"] for k, v in bench.items()},
+        "graphs": {k: v["graphs"] for k, v in bench.items()
+                   if v["graphs"] is not None},
         "headline": head,
         "decodes": len(decs),
         "decodes_max_lsb": max(d[0] for d in decs),
@@ -3923,6 +4308,12 @@ def main() -> int:
     clock("phase 22")
     print(f"bench ({card}): " + json.dumps(bench_summary(
         bench, before_bench, launches)), flush=True)
+    # phase 23: the graphed chunk against its eager witness, and its times
+    before_graphs = list(launches)
+    graphs = graph_phase(img, launches)
+    clock("phase 23")
+    print(f"graphs ({card}): " + json.dumps(graph_summary(
+        graphs, before_graphs, launches)), flush=True)
     check(all(n > 0 for n in launches),
           f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
           f"{launches[2]} times")

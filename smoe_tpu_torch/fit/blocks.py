@@ -15,6 +15,7 @@ routed to their own domain's probes by the model mask.
 
 from __future__ import annotations
 
+import functools
 from itertools import product
 from typing import NamedTuple, Optional, Tuple
 
@@ -201,20 +202,32 @@ def initialize_kernel_lists(A: torch.Tensor, musX: torch.Tensor,
     return update_kernel_lists(A, musX, pis, cfg, bset, lists)
 
 
+def _probe_grid(grid: int, d: int):
+    """(fractions (g,), index product (g^d, d), dims (d,)) as numpy."""
+    fr = np.linspace(0.0, 1.0, grid).astype(np.float32)
+    idx = np.array(list(product(range(grid), repeat=d)))
+    return fr, idx, np.arange(d)
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_grid_on(grid: int, d: int, device: torch.device):
+    """`_probe_grid` on a device, copied there once: the in-graph list
+    refresh of a video fit runs inside a captured sweep, where a copy
+    from the host would sync."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _probe_grid(grid, d))
+
+
 def probe_points(mins, maxs, grid: int = 3):
     """(B, d) min/max per block -> (B, grid^d, d) per-dim-linspace product
     probe points (blocks.py:227-243).  grid=3 gives the reference's
     {min, max, mid} set (smoe.py:2332-2354).  numpy in gives numpy out;
     a tensor gives a tensor on its device."""
     d = mins.shape[1]
-    fr = np.linspace(0.0, 1.0, grid).astype(np.float32)    # (g,)
-    idx = np.array(list(product(range(grid), repeat=d)))   # (g^d, d)
     if torch.is_tensor(mins):
-        fr = torch.as_tensor(fr, device=mins.device)
-        idx = torch.as_tensor(idx, device=mins.device)
-        dims = torch.arange(d, device=mins.device)
+        fr, idx, dims = _probe_grid_on(grid, d, mins.device)
     else:
-        dims = np.arange(d)
+        fr, idx, dims = _probe_grid(grid, d)
     tt = mins[:, :, None] + (maxs - mins)[:, :, None] * fr  # (B, d, g)
     return tt[:, dims[None, :], idx]                       # (B, g^d, d)
 

@@ -10,9 +10,14 @@ then the kernel lists become that sweep's influence-culling survivors
 its update (trainer.py:1248-1251).  `run_batched_chunk` runs n such steps
 and pulls its metrics to the host once, at the end of the chunk.
 
-The JAX package compiles a chunk into one XLA program; PyTorch runs
-eagerly, and the launches of a chunk are queued on the card without a
-host sync in between.
+The JAX package compiles a chunk into one XLA program (trainer.py:1-16).
+Here a sweep reads and writes only tensors that live across sweeps (the
+params and their gradients, Adam's state, one lists buffer, one metrics
+row), so on the card a chunk captures one sweep as a CUDA graph and
+replays it (fit/graph.py): one graph per cap bucket, keyed by every value
+and tensor address it bakes in.  On the CPU, under `eager()` and under a
+mesh (whose gloo collectives cannot be captured) the same sweep runs
+eagerly.
 
 Beside Adam, the fit can re-solve the experts in closed form
 (`ls_init_experts`, `train(ls_refresh_iter=N)`; fit/lsinit.py), train on
@@ -84,6 +89,10 @@ from smoe_tpu_torch.fit.blocks import (_block_view, build_blockset,
                                        initialize_kernel_lists, probe_points,
                                        row_chunks, stitch_blocks,
                                        update_kernel_lists)
+from smoe_tpu_torch.fit.graph import (SweepGraph, graphed, tensor_key,
+                                      warm_up)
+# trainer.eager(): the chunk's eager witness on the card
+from smoe_tpu_torch.fit.graph import eager  # noqa: F401
 from smoe_tpu_torch.parallel.compat import (all_sum_, gather_rows,
                                             group_of, psum, rank_range,
                                             size_rank)
@@ -101,15 +110,6 @@ class RegWeights(NamedTuple):
     pis_l1: float
     u_l1: float
     sv_l1_sub_l2: float
-
-
-class SweepMetrics(NamedTuple):
-    """One sweep's metrics, on the device until the chunk's pull."""
-    loss: torch.Tensor
-    mse: torch.Tensor
-    num_pi: torch.Tensor
-    num_sv: torch.Tensor
-    survivors: torch.Tensor      # (B, K)
 
 
 class EffParams(NamedTuple):
@@ -324,6 +324,19 @@ def _block_loss(params: SmoeParams, cfg: SmoeConfig, coords: torch.Tensor,
     return loss, (la.mse, out.survivors, la.err_map, num_active)
 
 
+def _optimizer_key(opt) -> Optional[tuple]:
+    """What a captured step bakes in of an optimizer: its groups'
+    hyperparameters and the tensors of its state."""
+    if opt is None:
+        return None
+    return tuple(
+        (tuple((k, v) for k, v in sorted(g.items()) if k != "params"),
+         tuple((tensor_key(p), tuple((k, tensor_key(v)) for k, v in
+                                     sorted(opt.state.get(p, {}).items())))
+               for p in g["params"]))
+        for g in opt.param_groups)
+
+
 def make_optimizer(params: SmoeParams, cfg: SmoeConfig,
                    opt_cfg: OptConfig, inc: bool = False) -> torch.optim.Adam:
     """One torch.optim.Adam over the reference's learning-rate groups,
@@ -352,8 +365,11 @@ def make_optimizer(params: SmoeParams, cfg: SmoeConfig,
         if enabled and lr != 0:
             groups.append({"params": [getattr(params, f) for f in fields],
                            "lr": lr, "name": name, "fields": fields})
-    # optax.adam's defaults; eps sits outside the sqrt in both
-    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    # optax.adam's defaults; eps sits outside the sqrt in both.  On the
+    # card the step count and bias corrections live on the device
+    # (capturable), as optax's count does, so a CUDA graph replays the step
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=params.pis.device.type == "cuda")
 
 
 def fit_mesh_to_blocks(mesh, num_blocks: int):
@@ -526,6 +542,11 @@ class Smoe:
                 _block_view(lm.astype(np.float32), cfg.block_shape,
                             cfg.overlap)[..., 0], device=self.device)
         self.optimizer: Optional[torch.optim.Adam] = None
+        # the captured sweeps (graph key -> SweepGraph) and their pool; the
+        # sweep's (B, K) lists buffer and metrics row (`_sweep_buffers`)
+        self._graphs: Dict[tuple, SweepGraph] = {}
+        self._graph_pool = None
+        self._sweep_bufs = None
         self._init_kernel_lists()
 
         # histories (reference smoe.py:183-194)
@@ -707,6 +728,7 @@ class Smoe:
         for f, t in vals.items():
             t.requires_grad_(f != "motion" or self.cfg.train_trafo)
         self.params = SmoeParams(**vals)
+        self._masked_grads = None     # _step's inc split, per params
 
     def set_params(self, params) -> None:
         """Overwrite the raw parameters in place (the optimizer keeps its
@@ -786,11 +808,23 @@ class Smoe:
         opt = self.inc_optimizer if inc else self.optimizer
         for g in opt.param_groups:
             for f, p in zip(g["fields"], g["params"]):
-                if f in state:
-                    opt.state[p] = {
-                        k: (self._local(v) if f in PARAM_FIELDS
-                            else v).to(p.device) if k != "step" else v
-                        for k, v in state[f].items()}
+                if f not in state:
+                    continue
+                new = {k: (self._local(v) if f in PARAM_FIELDS
+                           else v).to(p.device) if k != "step"
+                       # capturable Adam counts on the device
+                       else v.to(p.device) if g["capturable"] else v
+                       for k, v in state[f].items()}
+                old = opt.state.get(p, {})
+                if old.keys() == new.keys() and all(
+                        old[k].shape == v.shape and old[k].device == v.device
+                        for k, v in new.items()):
+                    # in place: a captured sweep keeps reading them
+                    with torch.no_grad():
+                        for k, v in new.items():
+                            old[k].copy_(v)
+                else:
+                    opt.state[p] = new
 
     def load_state_numpy(self, params, model_mask=None, musX_grid=None,
                          kernel_lists=None, num_2d_kernels=None,
@@ -1003,7 +1037,9 @@ class Smoe:
     def _step(self, train_orig: bool = True, train_inc: bool = False) -> None:
         """One Adam step of the main optimizer on the main rows' gradients
         and, with train_inc, one of the inc optimizer on the inc rows'
-        (trainer.py:602-617); without inc slots every row is a main row."""
+        (trainer.py:602-617); without inc slots every row is a main row.
+        Each optimizer reads its rows' gradients from buffers that live as
+        long as the params, and .grad is the summed gradient again after."""
         clip = self.opt_cfg.grad_clip_value_abs
         params = [getattr(self.params, f) for f in PARAM_FIELDS]
         if clip is not None:
@@ -1020,13 +1056,16 @@ class Smoe:
                 self.optimizer.step()
             return
         grads = [p.grad for p in params]
+        if self._masked_grads is None:
+            self._masked_grads = [torch.empty_like(g) for g in grads]
         for opt, rows, on in ((self.optimizer, self._main_rows, train_orig),
                               (self.inc_optimizer, ~self._main_rows,
                                train_inc)):
             if not on:
                 continue
-            for p, g in zip(params, grads):
-                p.grad = g * rows.reshape((-1,) + (1,) * (g.ndim - 1))
+            for p, g, m in zip(params, grads, self._masked_grads):
+                p.grad = torch.mul(
+                    g, rows.reshape((-1,) + (1,) * (g.ndim - 1)), out=m)
             opt.step()
         for p, g in zip(params, grads):
             p.grad = g
@@ -1056,6 +1095,71 @@ class Smoe:
         return {"probes": probes, "probes_raw": self.bset.probes,
                 "model_mask": self.model_mask}
 
+    def _sweep_buffers(self):
+        """The sweep's (B, K) lists buffer and its (5,) metrics row,
+        allocated once: a captured sweep reads and writes them in place."""
+        if self._sweep_bufs is None:
+            self._sweep_bufs = (
+                torch.zeros_like(self._kernel_lists, dtype=torch.bool),
+                torch.zeros((5,), device=self.device))
+        return self._sweep_bufs
+
+    def _sweep(self, lists, row, reg: RegWeights, loss_w, k_cap, sample_n,
+               thr_sv: float, train_orig: bool, train_inc: bool,
+               refresh: bool) -> None:
+        """One training sweep (trainer.py:602-671) on the lists in `lists`:
+        the gradients, the Adam step(s), then the next lists (the
+        survivors, | probe-near under `refresh`) written into `lists` and
+        (loss, mse, num_pi, num_sv, the largest list count) into `row`,
+        both in place.  The metrics describe the params before the update."""
+        loss, mse, survivors, num_pi = self._sweep_grads(
+            lists, reg, loss_w, k_cap, sample_n, thr_sv)
+        with torch.no_grad():
+            num_sv = self._num_sv()
+            if train_orig or train_inc:
+                self._step(train_orig, train_inc)
+            new = survivors
+            if refresh:
+                # survivors | probe-near under the updated params
+                # (trainer.py:631-654)
+                eff = effective_params(self._full_params(), self.cfg,
+                                       self.musX_grid)
+                new = update_kernel_lists(eff.A, eff.musX, eff.pis,
+                                          self.cfg, self.bset, new,
+                                          **self._probe_args(eff))
+            kmax = torch.max(torch.sum(new, dim=1))
+            row.copy_(torch.stack([loss, mse, num_pi.float(),
+                                   num_sv.float(), kmax.float()]))
+            lists.copy_(new)
+
+    def _graph_key(self, args) -> tuple:
+        """Everything a captured `_sweep(*args)` bakes in: the Python values
+        it branched on or took as constants, and the address and layout of
+        every tensor it reads or writes."""
+        lists, row, reg, loss_w, k_cap, sample_n, thr_sv, train_orig, \
+            train_inc, refresh = args
+        t = tensor_key
+        fields = tuple((f, t(v), v.requires_grad, t(v.grad)) for f, v in (
+            (f, getattr(self.params, f)) for f in self._fields))
+        return (self.cfg, self.fused, self.opt_cfg.grad_clip_value_abs,
+                k_cap, sample_n, thr_sv, train_orig, train_inc, refresh, reg,
+                self.block_weight, self.num_inc_kernels, fields,
+                _optimizer_key(self.optimizer),
+                _optimizer_key(self.inc_optimizer),
+                tuple(t(m) for m in self._masked_grads or ()),
+                t(lists), t(row), t(loss_w), t(self.musX_grid),
+                t(self.model_mask), t(self._main_rows),
+                t(self.sampling_probs) if sample_n is not None else None,
+                tuple(t(v) if torch.is_tensor(v) else v for v in self.bset),
+                self._gen)
+
+    def _new_graph(self, fn) -> SweepGraph:
+        """fn captured into the pool the trainer's graphs share, with the
+        subsampling generator registered."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return SweepGraph(fn, self._graph_pool, generators=(self._gen,))
+
     def run_batched_chunk(self, n_steps, pis_l1=0.0, u_l1=0.0,
                           sv_l1_sub_l2=0.0, sampling_percentage=100,
                           train_orig=True, train_inc=False, thr_sv=None,
@@ -1064,7 +1168,11 @@ class Smoe:
         (trainer.py:1240-1294).  Returns per-step numpy arrays (loss, mse,
         num_pi, num_sv); each step's metrics describe the params before
         that step's update.  The SVs train at thr_sv (None: 0, as the
-        reference trains, smoe.py:1552)."""
+        reference trains, smoe.py:1552).
+
+        On the card (one process, outside `eager()`) the sweeps after the
+        first replay one captured graph: a chunk whose key has no graph
+        runs its first sweep eagerly as the warm-up, then captures one."""
         if self.optimizer is None:
             self.set_optimizer()
         reg = RegWeights(float(pis_l1), float(u_l1), float(sv_l1_sub_l2))
@@ -1072,35 +1180,40 @@ class Smoe:
         tsv = 0.0 if thr_sv is None else float(thr_sv)
         sample_n = self._sample_n(sampling_percentage)
         k_cap = self._current_k_cap()
-        lists = self._kernel_lists
-        rows = []
-        for _ in range(int(n_steps)):
-            loss, mse, survivors, num_pi = self._sweep_grads(
-                lists, reg, lw, k_cap, sample_n, tsv)
-            with torch.no_grad():
-                # metrics of the params before this step's update
-                m = SweepMetrics(loss=loss, mse=mse, num_pi=num_pi,
-                                 num_sv=self._num_sv(), survivors=survivors)
-                if train_orig or train_inc:
-                    self._step(train_orig, train_inc)
-                lists = m.survivors
-                if self.cfg.in_graph_ukl and not train_inc:
-                    # survivors | probe-near under the updated params
-                    # (trainer.py:631-654); not while the inc rows train:
-                    # their pis are 0 until apply_inc, so a refresh would
-                    # drop them from every list and cut their gradients
-                    eff = effective_params(self._full_params(), self.cfg,
-                                           self.musX_grid)
-                    lists = update_kernel_lists(eff.A, eff.musX, eff.pis,
-                                                self.cfg, self.bset, lists,
-                                                **self._probe_args(eff))
-                kmax = torch.max(torch.sum(lists, dim=1))
-                rows.append(torch.stack([m.loss, m.mse, m.num_pi.float(),
-                                         m.num_sv.float(), kmax.float()]))
+        # the in-graph refresh does not run while the inc rows train: their
+        # pis are 0 until apply_inc, so a refresh would drop them from every
+        # list and cut their gradients
+        refresh = bool(self.cfg.in_graph_ukl and not train_inc)
+        lists, row = self._sweep_buffers()
+        lists.copy_(self._kernel_lists)
+        args = (lists, row, reg, lw, k_cap, sample_n, tsv, bool(train_orig),
+                bool(train_inc), refresh)
+
+        def sweep():
+            self._sweep(*args)
+
+        n = int(n_steps)
+        ys = torch.empty((n, 5), device=self.device)
+        done, graph = 0, None
+        if n and self.mesh is None and graphed(self.device):
+            graph = self._graphs.get(self._graph_key(args))
+            if graph is None:
+                warm_up(sweep)
+                ys[0].copy_(row)
+                done = 1
+                # keyed after the warm-up, which made Adam's state
+                graph = self._graphs[self._graph_key(args)] = \
+                    self._new_graph(sweep)
+        for i in range(done, n):
+            if graph is None:
+                sweep()
+            else:
+                graph.replay()
+            ys[i].copy_(row)
         # survivor feedback only shrinks the lists: keep the cached cap
-        self._kernel_lists = lists
+        self._kernel_lists = lists.clone()
         self.valid = False
-        ys = torch.stack(rows).cpu().numpy()       # the one host pull
+        ys = ys.cpu().numpy()                      # the one host pull
         loss_a, mse_a = ys[:, 0], ys[:, 1]
         npi_a, nsv_a = ys[:, 2].astype(np.int32), ys[:, 3].astype(np.int32)
         kmax_last = int(ys[-1, 4]) if len(ys) else 0
@@ -1137,35 +1250,46 @@ class Smoe:
         width (trainer.py:1296-1339): fwd (forward + loss of every block,
         the graph built and dropped), bwd (forward + backward with the
         gradients accumulated, minus fwd), opt_metrics (the production
-        sweep minus both) and step.  Like the JAX version, `step` trains
-        the model 2 * n_steps iterations as a side effect.  One process
-        only, as in JAX (trainer.py:856)."""
+        sweep minus both) and step.  On the card each piece is a sweep
+        captured as `run_batched_chunk` captures its sweep (JAX jits
+        fwd_multi / fwdbwd_multi, trainer.py:915-927), so the pieces time
+        the path that trains.  Like the JAX version, `step` trains the
+        model 2 * n_steps iterations as a side effect.  One process only,
+        as in JAX (trainer.py:856)."""
         if self.mesh is not None:
             raise ValueError("phase_breakdown is a one-device diagnostic")
         if self.optimizer is None:
             self.set_optimizer()
         kcap = self._current_k_cap()
         reg = RegWeights(0.0, 0.0, 0.0)
-        lists = self.kernel_lists
+        lists, _ = self._sweep_buffers()
+        lists.copy_(self._kernel_lists)
 
         def fwd():
-            for _ in range(n_steps):
-                for b in range(self.start_batches):
-                    coords, targets, _, valid, sv_blk = self._block_inputs(
-                        b, None, None)
-                    _block_loss(self.params, self.cfg, coords, targets,
-                                lists[b], valid, None, reg, self.musX_grid,
-                                self.bset.block_padded, fused=self.fused,
-                                k_cap=kcap, model_mask=self.model_mask,
-                                sv_blk=sv_blk)
+            for b in range(self.start_batches):
+                coords, targets, _, valid, sv_blk = self._block_inputs(
+                    b, None, None)
+                _block_loss(self.params, self.cfg, coords, targets,
+                            lists[b], valid, None, reg, self.musX_grid,
+                            self.bset.block_padded, fused=self.fused,
+                            k_cap=kcap, model_mask=self.model_mask,
+                            sv_blk=sv_blk)
 
         def fwd_bwd():
-            for _ in range(n_steps):
-                self._sweep_grads(lists, reg, None, kcap)
+            self._sweep_grads(lists, reg, None, kcap)
 
-        fwd_bwd()                                 # warm-up
-        t_fwd = self._time_s(fwd) / n_steps
-        t_fb = self._time_s(fwd_bwd) / n_steps
+        pieces = [fwd, fwd_bwd]
+        if graphed(self.device):
+            for i, fn in enumerate(pieces):
+                warm_up(fn)
+                pieces[i] = self._new_graph(fn).replay
+
+        def repeat(fn):
+            return lambda: [fn() for _ in range(n_steps)]
+
+        repeat(pieces[1])()                       # warm-up
+        t_fwd = self._time_s(repeat(pieces[0])) / n_steps
+        t_fb = self._time_s(repeat(pieces[1])) / n_steps
         self.run_batched_chunk(n_steps)           # warm at this cap
         t_step = self._time_s(lambda: self.run_batched_chunk(n_steps)) \
             / n_steps
@@ -1292,7 +1416,8 @@ class Smoe:
                          self._num_sv().float()]).cpu().numpy()
         if update_reconstruction:
             res, wam, probs, sv_map = rec
-            self.sampling_probs = probs
+            # in place: a captured subsampled sweep reads this tensor
+            self.sampling_probs.copy_(probs)
             if sv_map is not None:
                 self.reconstruction_sv = stitch_blocks(
                     sv_map[..., None], self.bset)[..., 0].cpu().numpy()

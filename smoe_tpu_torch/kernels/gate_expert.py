@@ -20,7 +20,10 @@ lie:
     csrc/gate_expert_bwd.cu (built by kernels/build.py at first use) or
     raise — there is no fallback.
 `gate_expert_fwd.launches` / `gate_expert_bwd.launches` count kernel
-launches (plain ints; the plain versions do not count).
+launches (plain ints; the plain versions do not count).  A CUDA graph
+replays launches without running the wrappers: `launch_counts` and
+`add_launches` let a graph take back what its capture counted and add it
+at each replay (fit/graph.py).
 
 On the card the backward reuses the forward's work: `GateExpert` has K1
 write each pixel's gating denominator into an (N,) buffer and hands it to
@@ -289,6 +292,18 @@ def gate_expert_bwd(phi, xe, q_s, G, pi_det, g, thr: float, floor: float,
 
 
 gate_expert_bwd.launches = 0
+
+
+def launch_counts() -> Tuple[int, int]:
+    """(K1, K2) launches counted so far."""
+    return gate_expert_fwd.launches, gate_expert_bwd.launches
+
+
+def add_launches(k1: int, k2: int) -> None:
+    """Add launches the wrappers did not count (a graph's replay) or take
+    back ones that did not run (a capture)."""
+    gate_expert_fwd.launches += k1
+    gate_expert_bwd.launches += k2
 
 
 class GateExpert(torch.autograd.Function):
