@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port's serving decode, trainer, forward
 ablation variants, encode CLI, fit CLI with its plots, video path,
 light-field path, SV residual / subsampling, mesh paths, applications,
-bench modules and the graphed training chunk on one NVIDIA GPU.
+bench modules, the graphed training chunk and the other graphed programs
+(evals, LS refresh, encode, decoder, NCCL mesh sweep) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -254,6 +255,27 @@ no result line) on any fault:
      graphs and capture seconds.  First, the flagship's 20 sweeps eagerly
      with the capturable Adam the card's trainer uses and with a host-counted
      one: whether the bits move, the mse within TRAJ_RTOL.
+ 24. the JAX package's other compiled programs as programs on the card
+     (smoe_tpu_torch/fit/graph.py:Programs: a key's first call eager, its
+     second captured and replayed, later ones replayed), each against
+     its eager() witness on two trainers made alike: the light eval, the
+     eval with the reconstruction and the quantized eval with it on the
+     flagship, 1080p in 16 blocks, the 4K fit in 32 blocks, the CIF video
+     and the full-width light field, three calls each with the params
+     changed between them (every output bit-identical, launches and host
+     syncs equal, one capture); the LS refresh in kernel, coupled and
+     damped kernel mode on the flagship and kernel mode on the light
+     field (three refreshes with sweeps between, the experts and the
+     gated mass bit-identical, one host pull); cli.reconstruct's
+     automatic encode of phase 11's and phase 18's fits (model.smoe
+     byte-identical, the same choices); the decoder at 512^2 (50 frames
+     alternating two models), its quarter window and the 4K decode, every
+     frame bit-identical to the eager decode of its params; the mesh
+     sweep under NCCL at world size 1, captured, bit-identical to its
+     eager witness and to phase 8, with the mesh decoder replayed; and
+     apps/exp_em_refresh at its defaults.  Each beside its ms eager and
+     graphed (CUDA events and host clock, in turns eager, graph, graph,
+     eager after a settling call), its captures and the reserved memory.
 Launch counts are zeroed before each path and read after it; the launches
 made to compare a kernel with its plain version are not counted.  Under a
 graph a capture takes back the launches it counted and each replay adds
@@ -271,6 +293,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import hashlib
 import json
 import math
@@ -339,6 +362,16 @@ def plain_rows(k: int) -> int:
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def free_card() -> None:
+    """Release the card's cached memory after a phase: first the objects
+    only a reference cycle keeps (a trainer and the graphs whose captured
+    functions refer to it), whose graph pools hold each capture's
+    temporaries until they go, then the allocator's cache."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -832,7 +865,7 @@ def compare_large_k(thr, floor):
     bwd["ms"] = cuda_ms(lambda: gate_expert_bwd(*args, denom=den), 3)
     out["K2 K60000 d2"] = bwd
     del fargs, args, den
-    torch.cuda.empty_cache()
+    free_card()
     print(f"large K: {json.dumps(out)}", flush=True)
     return out
 
@@ -1042,6 +1075,11 @@ def read_counts():
     from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
                                                     gate_expert_fwd)
     return gate_expert_fwd.launches, gate_expert_bwd.launches
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def host_s(fn):
@@ -1290,6 +1328,8 @@ def encode_cli(img, launches, sweeps=200):
               f"K1 {n1} / K2 {n2} times in {sweeps} sweeps")
         pkl = os.path.join(tmp, "params.pkl")
         save_model(pkl, s.get_params(), s.cfg)
+        ENCODES["flagship"] = {"ext": ".png", "image": read_bytes(png),
+                               "params": read_bytes(pkl)}
         del s
         arms = {}
         trainer.Smoe.run_batched = counted
@@ -1524,7 +1564,7 @@ def large_k_decode(launches):
         ms = cuda_ms(lambda: gate_expert_fwd(*fargs, thr, floor), 3,
                      warmup=1)
         del fargs
-        torch.cuda.empty_cache()
+        free_card()
     out = {"shape": [h, w], "kernels": k, "payload_bits": bits,
            "encode_s": encode_s, "read_model_s": read_s,
            "decode_first_device_s": decode_s,
@@ -2368,7 +2408,7 @@ def video_phase(thr, floor, launches):
         trafo = video_train_trafo(vid)
         trip = video_roundtrip(s_k, clip, tmp, launches)
     del s_k
-    torch.cuda.empty_cache()
+    free_card()
     return {"kernels": kern, "fit": fit, "raster": raster,
             "attribution": attr, "recorded": recorded,
             "train_trafo": trafo, "roundtrip": trip}
@@ -2558,6 +2598,8 @@ def lf_recipe(tmp, launches, s=24, n=600):
     launches[1] += n2
     rows = _metrics(d)
     sweeps = smoe.phase_timer.as_dict()["train_sweeps"]
+    ENCODES["lf"] = {"ext": ".mat", "image": read_bytes(mat), "params":
+                     read_bytes(os.path.join(d, "params_best.pkl"))}
     reset_counts()
     rec, enc_log, enc_s = _cli(reconstruct.main, [
         "-i", mat, "-p", os.path.join(d, "params_best.pkl"), "-r",
@@ -2672,11 +2714,11 @@ def lf_phase(thr, floor, launches):
     raster = compare_raster("LF fit 518,400 x 576, sweep 20 (F21)", fargs,
                             thr_f, floor_f, 18)
     del fargs
-    torch.cuda.empty_cache()
+    free_card()
     with tempfile.TemporaryDirectory() as tmp:
         recipe = lf_recipe(tmp, launches)
     recorded = lf_recorded(launches)
-    torch.cuda.empty_cache()
+    free_card()
     return {"kernels": kern, "fit": fit, "raster": raster, "recipe": recipe,
             "recorded": recorded}
 
@@ -2774,7 +2816,7 @@ def sv_pair(img, pct, launches):
           f"SV fit at {pct} % from one state: mse {max(stepped):.2e}, "
           f"num_sv {nsv_pairs}")
     del s_p, fits
-    torch.cuda.empty_cache()
+    free_card()
     return out, s_k
 
 
@@ -2846,7 +2888,7 @@ def sv_phase(img, launches):
           f"shared-grid SVs under overlap: {g}")
     check([n1, n2] == [64 * 5] * 2, f"shared-grid SV fit launched K1 / K2 "
           f"{[n1, n2]} times in 5 sweeps of 64 blocks")
-    torch.cuda.empty_cache()
+    free_card()
     return out
 
 
@@ -3144,7 +3186,7 @@ def graph_phase(img, launches):
         if name != "sv64_50":
             out["turns"][name] = graph_turns(name, s, **kw)
         del s
-        torch.cuda.empty_cache()
+        free_card()
     with tempfile.TemporaryDirectory() as tmp:
         png = write_image(img, os.path.join(tmp, "img"), 2, yuv=True)
         for name, flags in (
@@ -3194,6 +3236,537 @@ def graph_summary(graphs, before, launches) -> dict:
                            launches[1] - before[1]]}
 
 
+# ---------------- phase 24: the programs other than the chunk ----------------
+
+# the encodes phase 24 repeats: phase 11's flagship fit and phase 18's
+# light-field recipe, as the files cli.reconstruct reads
+ENCODES = {}
+EVAL_KINDS = {"light": {}, "rec": {"update_reconstruction": True},
+              "quantized": {"update_reconstruction": True,
+                            "with_quantized_params": True}}
+PROGRAM_CALLS = 3           # eager, captured and replayed, replayed
+PROGRAM_REPS = 3            # calls a timed turn
+DECODE_FRAMES = 50
+
+
+def quantize_for_eval(s):
+    """s.qparams / s.rparams of the trainer's params as the encode's evals
+    make them (codec/alloc.py:_quantized_psnr)."""
+    from smoe_tpu_torch.codec.alloc import grid_numpy
+    from smoe_tpu_torch.codec.quantize import quantize_params, rescaler
+    g = grid_numpy(s)
+    s.qparams = quantize_params(s.get_params(), s.cfg, musX_grid=g)
+    s.rparams = rescaler(s.qparams, s.cfg, None if g is None
+                         else g[np.asarray(s.qparams["used_kernels"])])
+
+
+def eval_state(s, kind, out) -> dict:
+    """Every output of one eval, as numpy: its metrics, the lists it
+    leaves and, with the reconstruction, the image, the gating argmax and
+    the sampling probabilities."""
+    st = {"metrics": np.asarray(out, np.float64),
+          "kernel_lists": s.kernel_lists.cpu().numpy().copy()}
+    if kind != "light":
+        q = kind == "quantized"
+        st.update(image=s.qreconstruction_image if q
+                  else s.reconstruction_image,
+                  argmax=s.qweight_matrix_argmax if q
+                  else s.weight_matrix_argmax,
+                  probs=s.sampling_probs.cpu().numpy().copy())
+    return st
+
+
+def mode_ctx(mode):
+    from smoe_tpu_torch.fit.trainer import eager
+    return eager() if mode == "eager" else contextlib.nullcontext()
+
+
+def program_turns(call, reps=PROGRAM_REPS) -> dict:
+    """ms of call() eager and graphed, by CUDA events and by the host
+    clock (each turn `reps` calls, the card idle before and after), in
+    turns eager, graph, graph, eager after one settling graphed call."""
+    import torch
+
+    def turn(mode):
+        with mode_ctx(mode):
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            for _ in range(reps):
+                call()
+            e1.record()
+            torch.cuda.synchronize()
+            return (e0.elapsed_time(e1) / reps,
+                    (time.perf_counter() - t0) * 1e3 / reps)
+
+    call()
+    turns = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        turns[mode].append(turn(mode))
+    return {f"{m}_{w}_ms": statistics.mean(t[i] for t in turns[m])
+            for m in ("eager", "graph") for i, w in ((0, "event"),
+                                                     (1, "host"))}
+
+
+def program_captures(s, match) -> list:
+    """Capture seconds of the trainer's programs whose key match(key)
+    holds."""
+    return [g.capture_s for k, g in s._programs.graphs.items() if match(k)]
+
+
+def eval_witness(name, make, launches, warm=10, reps=PROGRAM_REPS):
+    """Phase 24's evals on one configuration: two trainers made alike
+    (`make`, then `warm` sweeps), one graphed, one under eager(); on each
+    the light eval, the eval with the reconstruction and the quantized
+    eval with it, PROGRAM_CALLS times each with the params changed between
+    the calls (2 sweeps, and a new quantization before each quantized
+    eval): every output bit-identical, the K1 / K2 launches equal, the
+    host syncs a call (one pull of the metrics, and the copies of what
+    the caller asks for); the reserved memory before and after (cache
+    emptied: the graphs' pools stay) and each graph's pool; the eager
+    call's peak; the capture seconds; then ms eager and graphed in turns
+    of `reps` calls."""
+    import torch
+    runs, pools, peaks = {}, {}, {}
+    for mode in ("graph", "eager"):
+        s = make()
+        torch.cuda.synchronize()
+        with mode_ctx(mode):
+            s.run_batched_chunk(warm)
+            free_card()
+            mem0 = torch.cuda.memory_reserved()
+            rec = {}
+            for kind, kw in EVAL_KINDS.items():
+                rows = []
+                for i in range(PROGRAM_CALLS):
+                    if kind == "quantized":
+                        quantize_for_eval(s)
+                    if i < 2:
+                        free_card()
+                        torch.cuda.reset_peak_memory_stats()
+                        reserved = torch.cuda.memory_reserved()
+                    reset_counts()
+                    n, out = syncs_of(lambda: s.run_batched(train=False,
+                                                            **kw))
+                    counts = read_counts()
+                    launches[0] += counts[0]
+                    launches[1] += counts[1]
+                    rows.append((eval_state(s, kind, out), counts, n))
+                    if i == 0:
+                        peaks[kind] = torch.cuda.max_memory_allocated() / 1e9
+                    elif i == 1 and mode == "graph":
+                        # the second call captured: what its pool holds
+                        free_card()
+                        pools[kind] = (torch.cuda.memory_reserved()
+                                       - reserved) / 1e9
+                    s.run_batched_chunk(2)
+                rec[kind] = rows
+            free_card()
+            mem1 = torch.cuda.memory_reserved()
+        runs[mode] = (s, rec, mem0, mem1)
+    (s_g, rec_g, m0, m1), (s_e, rec_e, _, _) = runs["graph"], runs["eager"]
+    del s_e
+    out = {"reserved_gb_before_after_captures": [m0 / 1e9, m1 / 1e9]}
+    for kind, kw in EVAL_KINDS.items():
+        bad = [f"call {i} {k}" for i, (a, b) in enumerate(zip(
+            rec_g[kind], rec_e[kind])) for k in a[0]
+            if not same_bits(a[0][k], b[0][k])]
+        tag = ("eval", "update_reconstruction" in kw,
+               "with_quantized_params" in kw)
+        captures = program_captures(s_g, lambda k, tag=tag: k[:3] == tag)
+
+        def call(kw=kw):
+            s_g.run_batched(train=False, **kw)
+
+        if kind == "quantized":
+            quantize_for_eval(s_g)
+
+        out[kind] = {
+            "not_bit_identical": bad,
+            "params_changed": not same_bits(rec_g[kind][0][0]["metrics"],
+                                            rec_g[kind][-1][0]["metrics"]),
+            "launches_k1_k2_graph_eager": [[list(r[1]) for r in rec_g[kind]],
+                                           [list(r[1]) for r in rec_e[kind]]],
+            "host_syncs_per_call_graph_eager": [
+                [r[2] for r in rec_g[kind]], [r[2] for r in rec_e[kind]]],
+            "capture_s": captures,
+            "pool_gb": pools[kind], "eager_peak_allocated_gb": peaks[kind],
+            "mse": float(rec_g[kind][-1][0]["metrics"][1]),
+            **program_turns(call, reps)}
+        check(not bad, f"{name} {kind} eval: graphed vs eager differ in "
+              f"{bad}")
+        check(out[kind]["params_changed"], f"{name} {kind} eval: the "
+              "params did not change between the calls")
+        check([r[1] for r in rec_g[kind]] == [r[1] for r in rec_e[kind]],
+              f"{name} {kind} eval: launches graphed / eager differ")
+        check([r[2] for r in rec_g[kind]] == [r[2] for r in rec_e[kind]],
+              f"{name} {kind} eval: host syncs graphed / eager differ")
+        check(len(out[kind]["capture_s"]) == 1, f"{name} {kind} eval: "
+              f"{len(out[kind]['capture_s'])} captures, expected 1")
+    out["graphs"] = len(s_g._programs.graphs)
+    print(f"program evals {name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def ls_witness(name, make, launches, mode, damp=0.0, warm=10):
+    """Phase 24's LS refresh on one configuration: two trainers made alike,
+    graphed and under eager(), PROGRAM_CALLS refreshes with 2 sweeps
+    between them (so nu0 / gam0 and the gating change): the experts after
+    each and the gated mass bit-identical, launches and host syncs equal
+    (one pull), the captures; then ms eager and graphed in turns, each
+    piece's ms by the refresh's own CUDA events (`timings`)."""
+    import torch
+    runs = {}
+    for m in ("graph", "eager"):
+        s = make()
+        rows = []
+        with mode_ctx(m):
+            s.run_batched_chunk(warm)
+            for _ in range(PROGRAM_CALLS):
+                reset_counts()
+                n, mass = syncs_of(lambda: s.ls_init_experts(mode=mode,
+                                                             damp=damp))
+                rows.append(({"mass": np.float64(mass),
+                              "nu_e": s.params.nu_e.detach().cpu().numpy(),
+                              "gamma_e": s.params.gamma_e.detach().cpu()
+                              .numpy()}, read_counts(), n))
+                s.run_batched_chunk(2)
+        runs[m] = (s, rows)
+    (s_g, rg), (_, re_) = runs["graph"], runs["eager"]
+    bad = [f"call {i} {k}" for i, (a, b) in enumerate(zip(rg, re_))
+           for k in a[0] if not same_bits(a[0][k], b[0][k])]
+    pieces = {"eager": {}, "graph": {}}
+
+    def call():
+        t = {}
+        s_g.ls_init_experts(mode=mode, damp=damp, timings=t)
+        key = "graph" if graph_on() else "eager"
+        for k, v in t.items():
+            pieces[key].setdefault(k, []).append(v * 1e3)
+
+    out = {"mode": mode, "damp": damp, "not_bit_identical": bad,
+           "launches_k1_k2_graph_eager": [[list(r[1]) for r in rg],
+                                          [list(r[1]) for r in re_]],
+           "host_syncs_per_call_graph_eager": [[r[2] for r in rg],
+                                               [r[2] for r in re_]],
+           "capture_s": program_captures(
+               s_g, lambda k: k[0].startswith("ls_")),
+           "mass": float(rg[-1][0]["mass"]), **program_turns(call)}
+    out["piece_event_ms"] = {m: {k: statistics.mean(v) for k, v in p.items()}
+                             for m, p in pieces.items()}
+    print(f"program LS {name}: {json.dumps(out)}", flush=True)
+    check(not bad, f"{name} LS {mode}: graphed vs eager differ in {bad}")
+    check([r[2] for r in rg] == [r[2] for r in re_] == [1] * PROGRAM_CALLS,
+          f"{name} LS {mode}: host syncs "
+          f"{out['host_syncs_per_call_graph_eager']}")
+    check(len(out["capture_s"]) == (2 if mode == "coupled" else 3),
+          f"{name} LS {mode}: {len(out['capture_s'])} captures")
+    return out
+
+
+def graph_on() -> bool:
+    from smoe_tpu_torch.fit.graph import graphed
+    return graphed("cuda")
+
+
+def encode_witness(name, launches):
+    """cli.reconstruct (the default automatic encode) of ENCODES[name]
+    in turns under eager(), graphed, graphed, under eager() (each run a new
+    trainer, so a graphed run pays its captures): every model.smoe
+    byte-identical, the same chosen depths, anchors and prune point; wall
+    seconds and quantized evals."""
+    from smoe_tpu_torch.cli import reconstruct
+    from smoe_tpu_torch.fit import trainer
+    src = ENCODES[name]
+    evals = [0]
+    real_run = trainer.Smoe.run_batched
+
+    def counted(self, *a, **kw):
+        evals[0] += bool(kw.get("with_quantized_params"))
+        return real_run(self, *a, **kw)
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        img = os.path.join(tmp, "img" + src["ext"])
+        pkl = os.path.join(tmp, "params.pkl")
+        for path, data in ((img, src["image"]), (pkl, src["params"])):
+            with open(path, "wb") as f:
+                f.write(data)
+        trainer.Smoe.run_batched = counted
+        try:
+            for i, mode in enumerate(("eager", "graph", "graph", "eager")):
+                d = os.path.join(tmp, f"{mode}{i}")
+                evals[0] = 0
+                reset_counts()
+                with mode_ctx(mode):
+                    _, log, secs = _cli(reconstruct.main,
+                                        ["-i", img, "-p", pkl, "-r", d,
+                                         "--device", DEVICE])
+                with open(os.path.join(d, "model.smoe"), "rb") as f:
+                    data = f.read()
+                choice = [line for line in log.splitlines()
+                          if line.startswith(("auto-bd", "auto-anchor",
+                                              "prune"))]
+                runs.setdefault(mode, []).append(
+                    (data, choice, secs, evals[0], read_counts()))
+        finally:
+            trainer.Smoe.run_batched = real_run
+    all_runs = runs["graph"] + runs["eager"]
+    (dg, cg, _, ng, kg), (de, ce, _, ne, ke) = runs["graph"][0], \
+        runs["eager"][0]
+    same = all(r[0] == dg for r in all_runs)
+    out = {"model_smoe_byte_identical": same, "bytes": len(dg),
+           "choices_equal": all(r[1] == cg for r in all_runs),
+           "choices": cg,
+           "wall_s_graph_eager": [statistics.mean(r[2] for r in runs[m])
+                                  for m in ("graph", "eager")],
+           "quantized_evals_graph_eager": [ng, ne],
+           "launches_k1_k2_graph_eager": [list(kg), list(ke)]}
+    print(f"program encode {name}: {json.dumps(out)}", flush=True)
+    check(same, f"encode {name}: model.smoe differs graphed / eager")
+    check(out["choices_equal"] and cg, f"encode {name}: choices {cg} / "
+          f"{ce}")
+    check(ng == ne and ng >= 10, f"encode {name}: {ng} / {ne} quantized "
+          "evals")
+    return out
+
+
+def decoder_witness(name, dec_args, frames, launches):
+    """A decoder (make_decoder's arguments `dec_args`) called `frames`
+    times graphed, the params alternating between the model and a copy
+    with its experts changed, against an eager decoder's frames of the
+    same params: every frame bit-identical, one K1 launch a frame; then
+    ms a frame eager and graphed in turns."""
+    import torch
+    from smoe_tpu_torch.codec.serve import make_decoder
+    kw, params = dec_args
+    other = [np.array(p) for p in params]
+    other[2] = other[2] * np.float32(0.9) + np.float32(0.05)
+    from smoe_tpu_torch.fit.trainer import eager
+    dec = make_decoder(device=DEVICE, **kw)
+    with eager():
+        want = [dec(*p).cpu().numpy() for p in (params, other)]
+    check(not same_bits(want[0], want[1]), f"decoder {name}: the two "
+          "models decode alike")
+    reset_counts()
+    bad, syncs = [], []
+    for i in range(frames):
+        n, got = syncs_of(lambda: dec(*(params, other)[i % 2]))
+        syncs.append(n)
+        if not same_bits(got.cpu().numpy(), want[i % 2]):
+            bad.append(i)
+    n1 = read_counts()[0]
+    launches[0] += n1
+    out = {"frames": frames, "frames_not_bit_identical": bad,
+           "k1_launches": n1, "graphs": len(dec.programs.graphs),
+           "capture_s": dec.programs.capture_s(),
+           "host_syncs_per_frame": max(syncs),
+           **program_turns(lambda: dec(*params), reps=5)}
+    print(f"program decoder {name}: {json.dumps(out)}", flush=True)
+    check(not bad, f"decoder {name}: frames {bad} differ from the eager "
+          "decode of their params")
+    check(n1 == frames and out["graphs"] == 1, f"decoder {name}: K1 "
+          f"{n1} launches, {out['graphs']} graphs")
+    del dec
+    free_card()
+    return out
+
+
+def mesh_witness(img, launches):
+    """The mesh sweep under NCCL at world size 1: Smoe(mesh=) 20 sweeps in
+    one chunk graphed (captured: the backend is NCCL) and under eager():
+    losses and params bit-identical to each other and to phase 8's
+    one-card fit; the mesh decoder replayed against its eager frames."""
+    import torch.distributed as dist
+    from smoe_tpu_torch.codec.serve import make_decoder, read_model
+    from smoe_tpu_torch.codec.serve import pad_decoded_params
+    from smoe_tpu_torch.fit.trainer import Smoe
+    from smoe_tpu_torch.parallel.sharded import axis_mesh, make_mesh
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            tmp, "store"), rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, 1, DEVICE)
+            runs = {}
+            for mode in ("graph", "eager"):
+                s = Smoe(img, kernels_per_dim=[16], use_yuv=True,
+                         use_determinant=True, use_pallas=KERNEL_MODE,
+                         device=DEVICE, mesh=mesh)
+                s.set_optimizer()
+                reset_counts()
+                with mode_ctx(mode):
+                    loss, _, _, _ = s.run_batched_chunk(FIT_SWEEPS)
+                runs[mode] = (np.asarray(loss), s.get_params(),
+                              read_counts(), len(s._graphs),
+                              s._sweep_captured())
+                launches[0] += runs[mode][2][0]
+                launches[1] += runs[mode][2][1]
+            (lg, pg, cg, ng, capg), (le, pe, ce, _, _) = runs["graph"], \
+                runs["eager"]
+            cfg, rp, _ = read_model(FIXTURE)
+            k = int(rp["pis"].shape[0])
+            pad = pad_decoded_params(rp, k, 2, 3)
+            args = [pad[n] for n in ("A", "musX", "nu_e", "gamma_e", "pis")]
+            out = {"captured": capg, "graphs": ng,
+                   "losses_bit_identical_eager": same_bits(lg, le),
+                   "params_bit_identical_eager": all(
+                       same_bits(pg[f], pe[f]) for f in pg),
+                   "losses_bit_identical_phase8": same_bits(
+                       lg, PHASE8["loss_k"]),
+                   "params_bit_identical_phase8": all(
+                       same_bits(pg[f], PHASE8["params_k"][f]) for f in pg),
+                   "launches_k1_k2_graph_eager": [list(cg), list(ce)],
+                   "decoder": decoder_witness(
+                       "512 on a one-rank NCCL mesh",
+                       ({"img_shape": (512, 512), "channels": 3, "cfg": cfg,
+                         "capacity": k, "mesh": axis_mesh("x", DEVICE)},
+                        args), 6, launches)}
+        finally:
+            dist.destroy_process_group()
+    print(f"program mesh sweep (NCCL, world 1): {json.dumps(out)}",
+          flush=True)
+    check(capg and ng == 1, "the NCCL mesh sweep was not captured")
+    check(out["losses_bit_identical_eager"]
+          and out["params_bit_identical_eager"],
+          "NCCL mesh sweep: graphed vs eager differ")
+    check(out["losses_bit_identical_phase8"]
+          and out["params_bit_identical_phase8"],
+          "NCCL mesh sweep: differs from phase 8's one-card fit")
+    check(cg == ce, f"NCCL mesh sweep: launches {cg} / {ce}")
+    return out
+
+
+def em_refresh_app(launches):
+    """apps/exp_em_refresh at its defaults (512^2, K = 256, --max 1000
+    --refresh 100): its JSON, wall seconds, launches."""
+    import contextlib as cl
+    import io
+    from smoe_tpu_torch.apps import exp_em_refresh
+    reset_counts()
+    t0 = time.perf_counter()
+    with cl.redirect_stdout(io.StringIO()):
+        res = exp_em_refresh.main(["--device", DEVICE])
+    wall = time.perf_counter() - t0
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    out = {"json": res, "wall_s": wall, "k1_k2": [n1, n2]}
+    print(f"exp_em_refresh: {json.dumps(out)}", flush=True)
+    check(res["metric"] == "em_refresh_study" and all(
+        res[v]["psnr"] > 30 for v in ("lsri", "em", "em_y")),
+        f"exp_em_refresh: {res}")
+    check(n2 >= 3000, f"exp_em_refresh: K2 launched {n2} times")
+    return out
+
+
+def program_phase(img, launches):
+    """Phase 24: the JAX package's compiled programs other than the chunk,
+    each a program on the card held against its eager() witness."""
+    import torch
+    from smoe_tpu_torch.apps.content import build_4k
+    from smoe_tpu_torch.codec.serve import (pad_decoded_params, read_model,
+                                            sample_grid)
+    from smoe_tpu_torch.fit.trainer import Smoe
+    from smoe_tpu_torch.io.images import read_image
+    out = {"evals": {}, "ls": {}, "encode": {}, "decoder": {}}
+    rgb, aff = build_video(moving_obj=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.npz")
+        np.savez(clip, imgs=np.uint8(np.round(np.moveaxis(rgb, 2, 0) * 255)),
+                 affines=aff)
+        vid, _, aff = read_image(clip)
+    lf = build_lf()
+    configs = {
+        "flagship": lambda: flagship_smoe(img, KERNEL_MODE),
+        "1080p": lambda: Smoe(
+            load_1080p(), kernels_per_dim=[24, 24], batch_size=(270, 480),
+            use_yuv=True, use_determinant=True, device=DEVICE),
+        "4k": lambda: Smoe(
+            build_4k(), kernels_per_dim=[48, 48], batch_size=(540, 480),
+            use_yuv=True, use_determinant=True, probe_maha_threshold=800.0,
+            device=DEVICE),
+        "video_cif": lambda: video_smoe(vid, aff, KERNEL_MODE),
+        "lf": lambda: lf_smoe(lf, KERNEL_MODE)}
+    for name, make in configs.items():
+        # the 4K and CIF plain evals take ~1 s and ~50 ms: one call a turn
+        out["evals"][name] = eval_witness(
+            name, make, launches,
+            reps=1 if name in ("4k", "video_cif") else PROGRAM_REPS)
+        free_card()
+    for name, make, mode, damp in (
+            ("flagship kernel", configs["flagship"], "kernel", 0.0),
+            ("flagship coupled", configs["flagship"], "coupled", 0.0),
+            ("flagship kernel damped", configs["flagship"], "kernel", 1e-2),
+            ("lf kernel", configs["lf"], "kernel", 0.0)):
+        out["ls"][name] = ls_witness(name, make, launches, mode, damp)
+        free_card()
+    for name in ("flagship", "lf"):
+        out["encode"][name] = encode_witness(name, launches)
+    cfg, rp, _ = read_model(FIXTURE)
+    k = int(rp["pis"].shape[0])
+    pad = pad_decoded_params(rp, k, 2, 3)
+    args = [pad[n] for n in ("A", "musX", "nu_e", "gamma_e", "pis")]
+    quarter = sample_grid((512, 512), roi=((128, 384), (128, 384)))
+    out["decoder"]["512"] = decoder_witness(
+        "512", ({"img_shape": (512, 512), "channels": 3, "cfg": cfg,
+                 "capacity": k}, args), DECODE_FRAMES, launches)
+    out["decoder"]["512 quarter window"] = decoder_witness(
+        "512 quarter window", ({"img_shape": None, "channels": 3, "cfg": cfg,
+                                "capacity": k, "sample_points": quarter},
+                               args), DECODE_FRAMES, launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        path4k = os.path.join(tmp, "uhd_k2304.smoe")
+        write_uhd_model(path4k)
+        cfg4, rp4, _ = read_model(path4k)
+        pad4 = pad_decoded_params(rp4, 2304, 2, 3)
+        out["decoder"]["4k"] = decoder_witness(
+            "4k", ({"img_shape": (2160, 3840), "channels": 3, "cfg": cfg4,
+                    "capacity": 2304},
+                   [pad4[n] for n in ("A", "musX", "nu_e", "gamma_e",
+                                      "pis")]), 6, launches)
+    free_card()
+    out["mesh"] = mesh_witness(img, launches)
+    out["exp_em_refresh"] = em_refresh_app(launches)
+    return out
+
+
+def program_summary(programs, before, launches) -> dict:
+    """Phase 24's summary line: per program ms eager and graphed (CUDA
+    events, host clock), captures, host syncs a call, the encodes' wall
+    seconds and bytes, the decoders' ms a frame, the mesh sweep's bits,
+    the study's PSNRs, the phase's launches."""
+    ev = {f"{n} {k}": [v[k][f"{m}_{w}_ms"] for m in ("eager", "graph")
+                       for w in ("event", "host")]
+          for n, v in programs["evals"].items() for k in EVAL_KINDS}
+    ls = {n: [v[f"{m}_{w}_ms"] for m in ("eager", "graph")
+              for w in ("event", "host")]
+          for n, v in programs["ls"].items()}
+    dec = {n: [v[f"{m}_{w}_ms"] for m in ("eager", "graph")
+               for w in ("event", "host")]
+           for n, v in programs["decoder"].items()}
+    em = programs["exp_em_refresh"]
+    return {"ms_eager_event_host_graph_event_host": {"evals": ev, "ls": ls,
+                                                     "decoder": dec},
+            "eval_reserved_gb_before_after": {
+                n: v["reserved_gb_before_after_captures"]
+                for n, v in programs["evals"].items()},
+            "encode": {n: {k: v[k] for k in (
+                "wall_s_graph_eager", "quantized_evals_graph_eager",
+                "bytes", "model_smoe_byte_identical")}
+                for n, v in programs["encode"].items()},
+            "mesh_nccl_world1": {k: v for k, v in programs["mesh"].items()
+                                 if k != "decoder"},
+            "exp_em_refresh": {"wall_s": em["wall_s"], "psnr": {
+                v: em["json"][v]["psnr"] for v in ("lsri", "em", "em_y")},
+                "t_chosen": {v: em["json"][v]["t_chosen"]
+                             for v in ("em", "em_y")}},
+            "launches_k1_k2": [launches[0] - before[0],
+                               launches[1] - before[1]]}
+
+
 def sha_of(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
@@ -3222,7 +3795,7 @@ def mesh_rank(rank, world, path4k):
     t, _ = host_s(lambda: s.run_batched_chunk(FIT_SWEEPS))
     out["fit_1080p"]["s_per_iter_settled"] = t / FIT_SWEEPS
     del s
-    torch.cuda.empty_cache()
+    free_card()
     m = axis_mesh("x", DEVICE)
     reset_counts()
     rec = decode_bitstream(path4k, device=DEVICE, mesh=m)
@@ -3255,7 +3828,7 @@ def mesh_phase(img, fit1080, t4k, sha4k, launches):
     from smoe_tpu_torch.fit.trainer import Smoe
     from smoe_tpu_torch.parallel.launch import run_world
     from smoe_tpu_torch.parallel.sharded import axis_mesh, make_mesh
-    torch.cuda.empty_cache()
+    free_card()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         path4k = os.path.join(tmp, "uhd_k2304.smoe")
@@ -3305,7 +3878,7 @@ def mesh_phase(img, fit1080, t4k, sha4k, launches):
             launches[1] += n2
         finally:
             dist.destroy_process_group()
-        torch.cuda.empty_cache()
+        free_card()
         t0 = time.perf_counter()
         ranks = run_world(os.path.join(HERE, "chip_smoke.py") + ":mesh_rank",
                           MESH_RANKS, os.path.join(tmp, "world"),
@@ -3491,12 +4064,16 @@ def app_recorders():
     """Within: codec.bitstream.write_bitstream records each call's
     arguments (the apps import it when they run), and the trainer's light
     evals (the fused op at full width: one K1 launch a block) and the
-    serving decodes (one K1 launch each) are counted."""
+    serving decodes (one K1 launch each) are counted.  An eval is counted
+    where `run_batched` asks for it, which runs on every call: a replayed
+    eval's program runs no Python."""
+    import inspect
     from smoe_tpu_torch.codec import bitstream, serve
     from smoe_tpu_torch.fit.trainer import Smoe
     rec = {"writes": [], "light_eval_blocks": 0, "decodes": 0}
-    real = (bitstream.write_bitstream, Smoe._eval_sweep,
+    real = (bitstream.write_bitstream, Smoe.run_batched,
             serve.decode_bitstream)
+    sig = inspect.signature(real[1])
 
     def write(path, qparams, cfg, extra=None, layers=None, importance=None):
         rec["writes"].append({"qparams": qparams, "cfg": cfg, "extra": extra,
@@ -3504,8 +4081,12 @@ def app_recorders():
         return real[0](path, qparams, cfg, extra=extra, layers=layers,
                        importance=importance)
 
-    def eval_sweep(self, *a, **kw):
-        if not (kw["with_rec"] or kw["exact"]):
+    def run_batched(self, *a, **kw):
+        b = sig.bind(self, *a, **kw)
+        b.apply_defaults()
+        if not (b.arguments["train"] or b.arguments["train_inc"]
+                or b.arguments["update_reconstruction"]
+                or b.arguments["with_quantized_params"]):
             rec["light_eval_blocks"] += self._blocks.stop - self._blocks.start
         return real[1](self, *a, **kw)
 
@@ -3513,12 +4094,12 @@ def app_recorders():
         rec["decodes"] += 1
         return real[2](*a, **kw)
 
-    bitstream.write_bitstream, Smoe._eval_sweep, serve.decode_bitstream = \
-        write, eval_sweep, decode
+    bitstream.write_bitstream, Smoe.run_batched, serve.decode_bitstream = \
+        write, run_batched, decode
     try:
         yield rec
     finally:
-        (bitstream.write_bitstream, Smoe._eval_sweep,
+        (bitstream.write_bitstream, Smoe.run_batched,
          serve.decode_bitstream) = real
 
 
@@ -3917,7 +4498,7 @@ def bench_phase(launches):
     _, s4k = run("fit_4k", fit_4k.main, [])
     out["fit_4k"]["k_cap_settled"] = s4k._current_k_cap()
     del s4k
-    torch.cuda.empty_cache()
+    free_card()
     run("decode", decode.main, [])
     run("video", video.main, [])
     vq, _ = run("video_quality", video_quality.main, [
@@ -4167,7 +4748,7 @@ def main() -> int:
             "(d) 4K decode 2160x3840 x K2304", fargs4, thr4, floor4,
             launches, iters=2, stride=8)
         del fargs4
-        torch.cuda.empty_cache()
+        free_card()
     print(f"4K decode: 2160x3840 x 2304 kernels, kernel vs plain on "
           f"{rows.size} strided rows: max {lsb4} LSB, "
           f"{100 * same4:.4f} % identical; {json.dumps(t4)}", flush=True)
@@ -4190,21 +4771,21 @@ def main() -> int:
     encode_cli(img, launches)
     clock("phases 10-11")
     del s_k, s_p
-    torch.cuda.empty_cache()
+    free_card()
     fit1080 = trainer_1080p(load_1080p(), launches)
-    torch.cuda.empty_cache()
+    free_card()
     clock("phase 12")
 
     # phases 13-16: K1 past the one-segment limit, the LS solves, and the
     # fit CLI (its headline recipe, the inc loop, QAT 3, SSIM)
     big = large_k_decode(launches)
-    torch.cuda.empty_cache()
+    free_card()
     clock("phase 13")
     ls_phase(img)
     fit_cli_recipe(img, launches)
     clock("phases 14-15")
     fit_cli_variants(img, launches)
-    torch.cuda.empty_cache()
+    free_card()
     clock("phase 16")
 
     # phase 17: motion-compensated video at the CIF width, K1 and K2 at the
@@ -4314,6 +4895,13 @@ def main() -> int:
     clock("phase 23")
     print(f"graphs ({card}): " + json.dumps(graph_summary(
         graphs, before_graphs, launches)), flush=True)
+    # phase 24: the evals, the LS refresh, the encode, the decoder and the
+    # NCCL mesh sweep as programs against their eager witness
+    before_programs = list(launches)
+    programs = program_phase(img, launches)
+    clock("phase 24")
+    print(f"programs ({card}): " + json.dumps(program_summary(
+        programs, before_programs, launches)), flush=True)
     check(all(n > 0 for n in launches),
           f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
           f"{launches[2]} times")
@@ -4363,7 +4951,9 @@ def main() -> int:
              sv["raster"]["subsampled"]["k1"]["candidate_fraction"]],
          "mesh_phase_launches": mesh["launches_k1_k2"][0],
          "apps_phase_launches": before_bench[0] - before[0],
-         "bench_phase_launches": launches[0] - before_bench[0]},
+         "bench_phase_launches": before_graphs[0] - before_bench[0],
+         "graph_phase_launches": before_programs[0] - before_graphs[0],
+         "program_phase_launches": launches[0] - before_programs[0]},
         {"name": "gate_expert_bwd", "route": "cuda", "source": BWD_SRC,
          "replaces": BWD_REPLACES, "launches": launches[1],
          "max_abs_err": max_err_bwd, "max_rel_err": max_rel_bwd,
@@ -4392,7 +4982,9 @@ def main() -> int:
              sv["raster"]["subsampled"]["k2"]["ms"]],
          "mesh_phase_launches": mesh["launches_k1_k2"][1],
          "apps_phase_launches": before_bench[1] - before[1],
-         "bench_phase_launches": launches[1] - before_bench[1]},
+         "bench_phase_launches": before_graphs[1] - before_bench[1],
+         "graph_phase_launches": before_programs[1] - before_graphs[1],
+         "program_phase_launches": launches[1] - before_programs[1]},
         {"name": "gate_expert_variants", "route": "cuda", "source": VAR_SRC,
          "replaces": VAR_REPLACES, "launches": launches[2],
          "max_abs_err": max_err_var, "max_rel_err": max_rel_var,

@@ -20,6 +20,18 @@ raster's pixels over the ranks: each evaluates its share with the
 parameters replicated and no collective in the math, and the image is
 gathered to every rank (serve.py:100-147).  K1 computes every pixel on its
 own, so the bits do not depend on the split.
+
+The JAX package jits the decode (serve.py:149).  Here, on the card, a
+decoder's first call runs eagerly, its second captures the decode (the
+whole chunk loop, K1 on each chunk) as a CUDA graph with the parameters in
+buffers that live as long as the decoder, and later calls copy the call's
+parameters into those buffers and replay (fit/graph.py:Programs): a bench
+that decodes 50 frames, an app that decodes a model again.  A mesh decoder
+replays one graph per rank only when its group runs on NCCL; on gloo, in
+`eager()`, on the CPU and on the `reference` path it runs eagerly.
+`decode_bitstream` decodes once per file, so its decoder never gets to the
+second call that would capture: it stays eager, since a capture would
+cost more than the one replay saves.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import torch
 from smoe_tpu_torch.config import SmoeConfig
 from smoe_tpu_torch.core.model import (expert_regression, fake_quant_unit,
                                        forward_fused, gating, maha_from_A)
+from smoe_tpu_torch.fit.graph import Programs, graphed
 from smoe_tpu_torch.parallel.compat import gather_rows
 from smoe_tpu_torch.video.motion import transform_coords
 
@@ -92,6 +105,10 @@ def make_decoder(img_shape: Tuple[int, ...], channels: int,
     (padded) raster splits into equal contiguous shares, one a rank, padded
     to chunks x ranks on the chunked path (serve.py:103-104); every rank
     returns the whole image.
+
+    On the card the decoder replays a captured decode from its second call
+    on (the parameters copied into the decoder's own buffers; one graph per
+    shape of the parameters; `decode.programs`).
     """
     if mesh is not None and mesh.ndim != 1:
         raise ValueError("the serving decode splits one pixel axis: pass a "
@@ -156,13 +173,7 @@ def make_decoder(img_shape: Tuple[int, ...], channels: int,
         res = expert_regression(w_e, c_in, nu_e, gamma_e, cfg)
         return fake_quant_unit(torch.clamp(res, 0.0, 1.0), cfg.precision)
 
-    @torch.no_grad()
-    def decode(A, musX, nu_e, gamma_e, pis):
-        A, musX, nu_e, gamma_e, pis = (
-            torch.as_tensor(np.asarray(v, np.float32)
-                            if not torch.is_tensor(v) else v,
-                            dtype=torch.float32, device=device)
-            for v in (A, musX, nu_e, gamma_e, pis))
+    def run(A, musX, nu_e, gamma_e, pis):
         mask = pis > 0
         res = torch.cat([chunk_fn(coords[i:i + chunk_pixels], A, musX, nu_e,
                                   gamma_e, pis, mask)
@@ -171,6 +182,28 @@ def make_decoder(img_shape: Tuple[int, ...], channels: int,
             res = gather_rows(res, mine, n_pad, mesh.get_group())[:n]
         return res.reshape(tuple(img_shape) + (channels,))
 
+    import torch.distributed as dist
+    replayed = not reference and (
+        mesh is None or dist.get_backend(mesh.get_group()) == "nccl")
+    programs, params = Programs(), {}
+
+    @torch.no_grad()
+    def decode(A, musX, nu_e, gamma_e, pis):
+        args = tuple(torch.as_tensor(np.asarray(v, np.float32)
+                                     if not torch.is_tensor(v) else v,
+                                     dtype=torch.float32, device=device)
+                     for v in (A, musX, nu_e, gamma_e, pis))
+        if not (replayed and graphed(device)):
+            return run(*args)
+        key = tuple(tuple(a.shape) for a in args)
+        bufs = params.get(key)
+        if bufs is None:
+            bufs = params[key] = tuple(torch.empty_like(a) for a in args)
+        for b, a in zip(bufs, args):
+            b.copy_(a)
+        return programs.run(key, lambda: (run(*bufs),))[0].clone()
+
+    decode.programs = programs
     return decode
 
 

@@ -4,18 +4,25 @@ sweeps, smoe_tpu/fit/trainer.py:415-425, 675-683, 915-927).
 
 On the card a chunk runs its first sweep eagerly on a side stream (the
 warm-up a capture needs: the kernel libraries load, the gradients and
-Adam's state come to exist outside the graph), captures one sweep into a
-memory pool that the trainer's graphs share, and replays it for the rest
-of the chunk.  A graph reads and writes fixed addresses and bakes in every
-Python value its sweep took, so the trainer keys its graphs by those
-values and by the address, shape, stride and dtype of every tensor the
-sweep reads or writes (`tensor_key`): a rebinding changes the key, and the
-next chunk captures anew.  The captured sweep keeps no tensor of the pool
-alive after it, so graphs of one pool may replay in any order.
+Adam's state come to exist outside the graph), captures one sweep into
+the memory pool that the trainer's graphs share, and replays it for the
+rest of the chunk. A graph reads and writes fixed addresses and bakes in
+every Python value its sweep took, so the trainer keys its graphs by
+those values and by the address, shape, stride and dtype of every tensor
+the sweep reads or writes (`tensor_key`): a rebinding changes the key,
+and the next chunk captures anew. The captured sweep keeps no tensor of
+the pool alive after it, so graphs of one pool may replay in any order,
+and each capture reuses what the others freed.
 
 `eager()` runs the same sweeps eagerly on the card: the witness a graph is
 held to bit for bit, the counterpart of `jax.disable_jit()`.  CPU tensors
 never take a graph.
+
+The JAX package's other compiled programs (its eval sweeps, the LS
+refresh's accumulation, solves and line search, the serving decode) are
+`Programs`: a keyed cache whose first call of a key runs eagerly, whose
+second captures and replays, and whose later calls replay, each program
+writing its outputs into buffers that live as long as its key.
 
 The K1 and K2 wrappers count their launches in Python, which a replay does
 not run: a capture takes back what its sweep counted and keeps it, and
@@ -26,13 +33,14 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
 from smoe_tpu_torch.kernels import gate_expert as ge
 
 _EAGER = [0]       # depth of eager() blocks
+_SIDE = [None]     # the process's side stream (`side_stream`)
 
 
 @contextlib.contextmanager
@@ -60,10 +68,23 @@ def tensor_key(t: torch.Tensor):
     return t.data_ptr(), tuple(t.shape), t.stride(), t.dtype
 
 
+def side_stream():
+    """The one side stream every warm-up and capture of the process runs
+    on (torch.cuda.graph's default capture stream): the caching allocator
+    reuses a freed block only on the stream that allocated it, so one
+    stream lets each capture into a pool reuse what the pool's earlier
+    captures freed (the pool then holds its largest capture's temporaries,
+    not their sum), and keeps one cache of the warm-ups' temporaries, not
+    one a stream."""
+    if _SIDE[0] is None:
+        _SIDE[0] = torch.cuda.Stream()
+    return _SIDE[0]
+
+
 def warm_up(fn: Callable[[], None]) -> None:
-    """fn() eagerly on a side stream, ordered after and before the current
-    stream's work (torch.cuda.graph's warm-up)."""
-    side = torch.cuda.Stream()
+    """fn() eagerly on the side stream, ordered after and before the
+    current stream's work (torch.cuda.graph's warm-up)."""
+    side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
@@ -76,7 +97,7 @@ def _capture(graph, fn: Callable[[], None], pool) -> None:
     itself would fail with an error that names no op.  Unlike
     torch.cuda.graph, it does not synchronize the device first, so a chunk
     that captures still syncs with the host once."""
-    side = torch.cuda.Stream()
+    side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         graph.capture_begin(pool=pool)
@@ -115,3 +136,54 @@ class SweepGraph:
     def replay(self) -> None:
         self.graph.replay()
         ge.add_launches(*self.held)
+
+
+class Programs:
+    """Keyed programs on the card that share one graph pool.
+
+    `run(key, fn)`: fn() returns a tuple of tensors.  The first call of a
+    key runs fn eagerly on a side stream (the warm-up a capture needs) and
+    keeps clones of its outputs as the key's buffers; the second captures
+    fn writing its outputs into those buffers and replays the capture;
+    later calls replay.  Returns the buffers, which the next call of the
+    key overwrites: a caller clones what it keeps.  So a program that reads
+    another's outputs (the LS refresh's solve reads its accumulation's)
+    reads them at the same addresses from the first call on, and its key
+    holds.  As for a sweep, the key must hold every value fn bakes in and
+    the `tensor_key` of every tensor it reads; an input that changes
+    between calls is copied into a tensor that lives as long as the key,
+    never rebound.
+
+    `pool`: the graph pool the captures go into (made at the first
+    capture unless set: the trainer sets the one its sweeps go into).  A
+    pool lives as long as a graph that uses it, so it belongs to the
+    owner of the graphs, never to the process."""
+
+    def __init__(self):
+        self.graphs: Dict[tuple, SweepGraph] = {}
+        self.buffers: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+        self.pool = None
+
+    def run(self, key: tuple, fn: Callable[[], tuple]):
+        graph = self.graphs.get(key)
+        if graph is None:
+            bufs = self.buffers.get(key)
+            if bufs is None:
+                out = []
+                warm_up(lambda: out.extend(fn()))
+                self.buffers[key] = tuple(t.clone() for t in out)
+                return self.buffers[key]
+
+            def body():
+                for b, t in zip(bufs, fn()):
+                    b.copy_(t)
+
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            graph = self.graphs[key] = SweepGraph(body, self.pool)
+        graph.replay()
+        return self.buffers[key]
+
+    def capture_s(self) -> float:
+        """Host seconds the captures of this cache took."""
+        return sum(g.capture_s for g in self.graphs.values())

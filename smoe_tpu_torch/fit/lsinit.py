@@ -26,6 +26,15 @@ einsums in exact fp32 (a CUDA matmul refuses to run while TF32 is
 allowed, core/model.py:_exact_matmul); the JAX package leaves them to XLA,
 with no Pallas kernel.  Blocks are walked in row chunks
 (fit/blocks.row_chunks), so no (N, K*p) array of a whole block is built.
+
+The JAX package jits the accumulation, each solve and the line search
+(lsinit.py:78, 150, 231, 304).  Here each is a program of the trainer's
+(`Smoe._program`, fit/graph.py:Programs): on the card the first refresh of
+a key runs eagerly, the second captures, later ones replay.  So no op of
+theirs waits for the host: the solves are `torch.linalg.solve_ex`, whose
+`info` rides the refresh's one host pull (with the gated mass) and raises
+there with the message `torch.linalg.solve` gives, before any parameter is
+written.
 """
 
 from __future__ import annotations
@@ -132,6 +141,44 @@ def _accumulate(eff, cfg: SmoeConfig, coords_all, targets_all, klists,
     return G, bvec
 
 
+_SINGULAR = "The solver failed because the input matrix is singular."
+
+
+def _first_failure(info: torch.Tensor) -> torch.Tensor:
+    """(index of the first system whose factorisation failed, or -1;
+    1.0 for a batch of systems, 0.0 for one), on the device, without a
+    sync."""
+    bad = info.reshape(-1) > 0
+    first = torch.where(bad.any(), torch.argmax(bad.to(torch.int32))
+                        .to(torch.float32), torch.full((), -1.0,
+                                                       device=info.device))
+    return torch.stack([first, torch.full((), float(info.dim() > 0),
+                                          device=info.device)])
+
+
+def raise_failed_solves(failures) -> None:
+    """Raise as `torch.linalg.solve` does for the first failed solve in
+    `failures` (host numbers: pairs of `_first_failure`)."""
+    f = [float(v) for v in failures]
+    for first, batched in zip(f[::2], f[1::2]):
+        if first >= 0:
+            where = f"(Batch element {int(first)}): " if batched else ""
+            raise torch.linalg.LinAlgError(
+                f"torch.linalg.solve: {where}{_SINGULAR}")
+
+
+def _solve(A: torch.Tensor, B: torch.Tensor, failures) -> torch.Tensor:
+    """torch.linalg.solve(A, B) without its host sync: `solve_ex`, its
+    `_first_failure` appended to `failures`; failures=None checks at once
+    (one sync), as torch.linalg.solve does."""
+    x, info = torch.linalg.solve_ex(A, B)
+    if failures is None:
+        raise_failed_solves(_first_failure(info).cpu().tolist())
+    else:
+        failures.append(_first_failure(info))
+    return x
+
+
 def _nanmedian(x: torch.Tensor) -> torch.Tensor:
     """jnp.nanmedian: the mean of the two middle values of an even count
     (torch.nanmedian returns the lower one); nan when every entry is."""
@@ -144,11 +191,12 @@ def _only_y(cfg: SmoeConfig, c: int) -> bool:
 
 @torch.no_grad()
 def _solve_kernel(G, bvec, nu0, gam0, cfg: SmoeConfig, ridge: float,
-                  damp: float):
+                  damp: float, failures=None):
     """Per-kernel damped solves in the delta domain; kernels without mass
     keep (nu0, gam0) (lsinit.py:150-228: the slope entries are damped by
     damp x the median live slope curvature; damp = 0 is pure LS with a
-    tiny ridge)."""
+    tiny ridge).  failures: a list that collects each solve's failure
+    record (`_solve`), or None to raise at once."""
     _refuse_tf32(G)
     k, p, _ = G.shape
     c = bvec.shape[-1]
@@ -162,7 +210,7 @@ def _solve_kernel(G, bvec, nu0, gam0, cfg: SmoeConfig, ridge: float,
     if damp == 0.0:
         reg = (ridge * tr + _MASS_EPS)[:, None, None] * eye[None]
         if cfg.train_gammas:
-            x = torch.linalg.solve(G + reg, bvec)               # (K, p, C)
+            x = _solve(G + reg, bvec, failures)                 # (K, p, C)
         else:
             x = torch.zeros((k, p, c), device=dev)
             x[:, 0, :] = bvec[:, 0, :] / safe_mass[:, None]
@@ -182,8 +230,8 @@ def _solve_kernel(G, bvec, nu0, gam0, cfg: SmoeConfig, ridge: float,
         x0 = torch.cat([nu0[:, None, :], gam0], dim=1)          # (K, p, C)
         if cfg.train_gammas:
             rhs = bvec - torch.einsum("kpq,kqc->kpc", G, x0)
-            x = x0 + torch.linalg.solve(G + lam_d[:, :, None] * eye[None],
-                                        rhs)
+            x = x0 + _solve(G + lam_d[:, :, None] * eye[None], rhs,
+                            failures)
         else:
             dnu = (bvec[:, 0, :] - mass[:, None] * nu0) \
                 / (mass + lam_nu)[:, None]
@@ -201,10 +249,11 @@ def _solve_kernel(G, bvec, nu0, gam0, cfg: SmoeConfig, ridge: float,
 
 @torch.no_grad()
 def _solve_coupled(G, bvec, nu0, gam0, cfg: SmoeConfig, ridge: float,
-                   damp: float):
+                   damp: float, failures=None):
     """One joint damped solve over all kernels in the delta domain around
     (nu0, gam0), damping the slope entries only (lsinit.py:231-301).  Dead
-    rows get a unit diagonal and keep their experts."""
+    rows get a unit diagonal and keep their experts.  failures: as
+    `_solve_kernel`'s."""
     _refuse_tf32(G)
     k = nu0.shape[0]
     c = bvec.shape[-1]
@@ -214,7 +263,7 @@ def _solve_coupled(G, bvec, nu0, gam0, cfg: SmoeConfig, ridge: float,
     diag_kp = diag.reshape(k, p)
     mass = diag_kp[:, 0]
     ok = mass > _MASS_EPS
-    okp = torch.repeat_interleave(ok, p)
+    okp = ok[:, None].expand(k, p).reshape(-1)       # repeat_interleave
     diag_fix = torch.where(okp, torch.zeros_like(diag), torch.ones_like(diag))
     n_live = torch.clamp(torch.sum(okp.to(torch.float32)), min=1.0)
     scale = torch.sum(torch.where(okp, diag, torch.zeros_like(diag))) / n_live
@@ -225,11 +274,11 @@ def _solve_coupled(G, bvec, nu0, gam0, cfg: SmoeConfig, ridge: float,
         Gr = G + torch.diag(diag_fix + lam_nu)
         x = torch.zeros((k, p, c), device=dev)
         if cfg.train_gammas:
-            x = torch.linalg.solve(Gr, bvec).reshape(k, p, c)
+            x = _solve(Gr, bvec, failures).reshape(k, p, c)
         else:
-            x[:, 0, :] = torch.linalg.solve(Gr[idx][:, idx], bvec[idx])
+            x[:, 0, :] = _solve(Gr[idx][:, idx], bvec[idx], failures)
         if _only_y(cfg, c):
-            nu_uv = torch.linalg.solve(Gr[idx][:, idx], bvec[idx][:, 1:])
+            nu_uv = _solve(Gr[idx][:, idx], bvec[idx][:, 1:], failures)
             x[:, 1:, 1:] = 0.0
             x[:, 0, 1:] = nu_uv
     else:
@@ -244,17 +293,17 @@ def _solve_coupled(G, bvec, nu0, gam0, cfg: SmoeConfig, ridge: float,
         x0f = torch.cat([nu0[:, None, :], gam0], dim=1).reshape(k * p, c)
         if cfg.train_gammas:
             rhs = bvec - _exact_matmul(G, x0f)
-            x = (x0f + torch.linalg.solve(Gr, rhs)).reshape(k, p, c)
+            x = (x0f + _solve(Gr, rhs, failures)).reshape(k, p, c)
         else:
             rhs = bvec[idx] - _exact_matmul(G[idx][:, idx], nu0)
             x = torch.zeros((k, p, c), device=dev)
-            x[:, 0, :] = nu0 + torch.linalg.solve(Gr[idx][:, idx], rhs)
+            x[:, 0, :] = nu0 + _solve(Gr[idx][:, idx], rhs, failures)
         if _only_y(cfg, c):
             rhs_uv = bvec[idx][:, 1:] - _exact_matmul(G[idx][:, idx],
                                                       nu0[:, 1:])
             x[:, 1:, 1:] = 0.0
-            x[:, 0, 1:] = nu0[:, 1:] + torch.linalg.solve(Gr[idx][:, idx],
-                                                          rhs_uv)
+            x[:, 0, 1:] = nu0[:, 1:] + _solve(Gr[idx][:, idx], rhs_uv,
+                                              failures)
     nu = torch.where(ok[:, None], x[:, 0, :], nu0)
     gam = torch.where(ok[:, None, None], x[:, 1:, :], gam0)
     return nu, gam
@@ -286,6 +335,35 @@ def _line_search_t(eff, cfg: SmoeConfig, coords_all, targets_all, klists,
     return torch.clamp(t, 0.0, 1.0)
 
 
+def _effective(smoe):
+    """The trainer's effective (QAT'd) params, as its forward takes them."""
+    from smoe_tpu_torch.fit.trainer import effective_params
+    with torch.no_grad():
+        return effective_params(smoe.params, smoe.cfg, smoe.musX_grid)
+
+
+def lists_buffer(smoe) -> torch.Tensor:
+    """The trainer's kernel lists copied into the sweep's own lists buffer
+    (which every chunk refills), so that a program reads them at one
+    address."""
+    lists, _ = smoe._sweep_buffers()
+    lists.copy_(smoe.kernel_lists)
+    return lists
+
+
+def gram(smoe, coupled: bool, lw, lists):
+    """(G, b) of `_accumulate` over the trainer's blocks, as the trainer's
+    program keyed by every value and tensor it reads (`Smoe._program`):
+    buffers that the next call overwrites."""
+    from smoe_tpu_torch.fit.graph import tensor_key as t
+    bset = smoe.bset
+    key = ("ls_accumulate", coupled, t(lists), t(lw), smoe._state_key())
+    return smoe._program(key, lambda: _accumulate(
+        _effective(smoe), smoe.cfg, bset.coords, bset.targets, lists,
+        bset.valid, bset.train_mask, lw, coupled,
+        model_mask=smoe.model_mask))
+
+
 def ls_refresh_experts(smoe, mode: str = "auto", ridge: float = 1e-6,
                        coupled_max_cols: int = 4096,
                        use_loss_mask: bool = True, damp: float = 0.0,
@@ -303,12 +381,10 @@ def ls_refresh_experts(smoe, mode: str = "auto", ridge: float = 1e-6,
     timings: when given a dict, it receives the seconds of "accumulate",
     "solve" and "line_search" (about 0 in coupled mode), by CUDA events on
     the card (each lap waits for its event: off by default)."""
-    from smoe_tpu_torch.fit.trainer import effective_params
+    from smoe_tpu_torch.fit.graph import tensor_key
 
     cfg = smoe.cfg
-    with torch.no_grad():
-        eff = effective_params(smoe.params, cfg, smoe.musX_grid)
-    kcap = int(eff.pis.shape[0])
+    kcap = int(smoe.params.pis.shape[0])
     p = 1 + cfg.dim_domain
     if mode == "auto":
         mode = "coupled" if kcap * p <= coupled_max_cols else "kernel"
@@ -319,33 +395,50 @@ def ls_refresh_experts(smoe, mode: str = "auto", ridge: float = 1e-6,
     bset = smoe.bset
     lw = smoe.loss_mask if (use_loss_mask and smoe.loss_mask is not None) \
         else None
-    clock = _Clock(smoe.device, timings)
-    G, bvec = _accumulate(eff, cfg, bset.coords, bset.targets,
-                          smoe.kernel_lists, bset.valid, bset.train_mask, lw,
-                          coupled, model_mask=smoe.model_mask)
-    clock.lap("accumulate")
+    lists = lists_buffer(smoe)
     nu0 = smoe.params.nu_e.detach()
     gam0 = smoe.params.gamma_e.detach()
+    t = tensor_key
+    base = (coupled, t(lists), t(lw), smoe._state_key())
+    clock = _Clock(smoe.device, timings)
+    G, bvec = gram(smoe, coupled, lw, lists)
+    clock.lap("accumulate")
     solve = _solve_coupled if coupled else _solve_kernel
-    nu, gam = solve(G, bvec, nu0, gam0, cfg, float(ridge), float(damp))
+
+    def solve_program():
+        failures = []
+        nu, gam = solve(G, bvec, nu0, gam0, cfg, float(ridge), float(damp),
+                        failures)
+        mass = torch.diagonal(G).reshape(kcap, p)[:, 0].sum() if coupled \
+            else G[:, 0, 0].sum()
+        return nu, gam, torch.cat([mass.reshape(1)] + failures)
+
+    nu_x, gam_x, tail = smoe._program(
+        ("ls_solve", float(ridge), float(damp), t(G), t(bvec), t(nu0),
+         t(gam0)) + base, solve_program)
     clock.lap("solve")
+    nu, gam = nu_x, gam_x
     if not coupled:
         # the M-step as a direction, with an exact line search on the
         # blend mse: never regresses
-        t = _line_search_t(eff, cfg, bset.coords, bset.targets,
-                           smoe.kernel_lists, bset.valid, bset.train_mask,
-                           lw, nu0, gam0, nu - nu0, gam - gam0,
-                           model_mask=smoe.model_mask)
-        nu = nu0 + t * (nu - nu0)
-        gam = gam0 + t * (gam - gam0)
+        def line_program():
+            step = _line_search_t(_effective(smoe), cfg, bset.coords,
+                                  bset.targets, lists, bset.valid,
+                                  bset.train_mask, lw, nu0, gam0,
+                                  nu_x - nu0, gam_x - gam0,
+                                  model_mask=smoe.model_mask)
+            return nu0 + step * (nu_x - nu0), gam0 + step * (gam_x - gam0)
+
+        nu, gam = smoe._program(("ls_line_search", t(nu_x), t(gam_x))
+                                + base, line_program)
     clock.lap("line_search")
+    tail = tail.cpu().tolist()                 # the one host pull
+    raise_failed_solves(tail[1:])
     with torch.no_grad():
         smoe.params.nu_e.copy_(nu)
         smoe.params.gamma_e.copy_(gam)
     smoe.valid = False
-    mass = torch.diagonal(G).reshape(kcap, p)[:, 0].sum() if coupled \
-        else G[:, 0, 0].sum()
-    return float(mass)
+    return tail[0]
 
 
 class _Clock:

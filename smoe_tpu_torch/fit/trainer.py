@@ -15,9 +15,11 @@ Here a sweep reads and writes only tensors that live across sweeps (the
 params and their gradients, Adam's state, one lists buffer, one metrics
 row), so on the card a chunk captures one sweep as a CUDA graph and
 replays it (fit/graph.py): one graph per cap bucket, keyed by every value
-and tensor address it bakes in.  On the CPU, under `eager()` and under a
-mesh (whose gloo collectives cannot be captured) the same sweep runs
-eagerly.
+and tensor address it bakes in.  A mesh sweep is captured when its
+collectives run on NCCL; on the CPU, under `eager()` and on a gloo mesh
+(whose collectives run on the host) the same sweep runs eagerly.  The
+evals and the LS refresh are programs of their own (`Programs`): eager at
+a key's first call, captured at its second, replayed after.
 
 Beside Adam, the fit can re-solve the experts in closed form
 (`ls_init_experts`, `train(ls_refresh_iter=N)`; fit/lsinit.py), train on
@@ -89,8 +91,8 @@ from smoe_tpu_torch.fit.blocks import (_block_view, build_blockset,
                                        initialize_kernel_lists, probe_points,
                                        row_chunks, stitch_blocks,
                                        update_kernel_lists)
-from smoe_tpu_torch.fit.graph import (SweepGraph, graphed, tensor_key,
-                                      warm_up)
+from smoe_tpu_torch.fit.graph import (Programs, SweepGraph, graphed,
+                                      tensor_key, warm_up)
 # trainer.eager(): the chunk's eager witness on the card
 from smoe_tpu_torch.fit.graph import eager  # noqa: F401
 from smoe_tpu_torch.parallel.compat import (all_sum_, gather_rows,
@@ -547,6 +549,11 @@ class Smoe:
         self._graphs: Dict[tuple, SweepGraph] = {}
         self._graph_pool = None
         self._sweep_bufs = None
+        # the evals' and the LS refresh's programs (fit/graph.py), captured
+        # into the same pool; the quantized eval's params, scattered into
+        # full-capacity buffers (`_load_rparams`)
+        self._programs = Programs()
+        self._qeff: Optional[Tuple[torch.Tensor, ...]] = None
         self._init_kernel_lists()
 
         # histories (reference smoe.py:183-194)
@@ -1151,14 +1158,63 @@ class Smoe:
                 t(self.model_mask), t(self._main_rows),
                 t(self.sampling_probs) if sample_n is not None else None,
                 tuple(t(v) if torch.is_tensor(v) else v for v in self.bset),
-                self._gen)
+                self._gen, self._mesh_key())
+
+    def _pool(self):
+        """The graph pool the trainer's graphs share: each capture reuses
+        what the earlier ones freed (`fit/graph.py:side_stream`)."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
 
     def _new_graph(self, fn) -> SweepGraph:
         """fn captured into the pool the trainer's graphs share, with the
         subsampling generator registered."""
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        return SweepGraph(fn, self._graph_pool, generators=(self._gen,))
+        return SweepGraph(fn, self._pool(), generators=(self._gen,))
+
+    def _mesh_key(self):
+        """What a captured mesh sweep bakes in of the mesh: this rank's
+        blocks and rows, each group and its backend (None without a
+        mesh)."""
+        if self.mesh is None:
+            return None
+        import torch.distributed as dist
+        return ((self._blocks.start, self._blocks.stop, self._krows.start,
+                 self._krows.stop),
+                tuple((g, dist.get_backend(g)) for g in (self._bgroup,
+                                                         self._kgroup)
+                      if g is not None))
+
+    def _sweep_captured(self) -> bool:
+        """Whether the chunk's sweeps replay a graph: on the card outside
+        `eager()`, in one process or on a mesh whose collectives all run
+        on NCCL, which a graph captures.  A gloo mesh sweeps eagerly: its
+        collectives run on the host, and the backend decides it, not an
+        error."""
+        mk = self._mesh_key()
+        return graphed(self.device) and (
+            mk is None or all(b == "nccl" for _, b in mk[1]))
+
+    def _program(self, key: tuple, fn):
+        """fn()'s outputs: on the card in one process, outside `eager()`,
+        from the trainer's program of `key` (fit/graph.py:Programs: the
+        first call eager, the second captured, later ones replayed; the
+        outputs in buffers the next call overwrites); else fn() itself.
+        Under a mesh the evals and the LS refresh stay eager."""
+        if self.mesh is None and graphed(self.device):
+            self._programs.pool = self._pool()
+            return self._programs.run(key, fn)
+        return fn()
+
+    def _state_key(self) -> tuple:
+        """What an eval or an LS program bakes in of the trainer: the
+        values its forward branches on and the address and layout of every
+        tensor of the model and the blocks it reads."""
+        t = tensor_key
+        return (self.cfg, self.fused, self.block_weight,
+                tuple((f, t(getattr(self.params, f))) for f in self._fields),
+                t(self.musX_grid), t(self.model_mask),
+                tuple(t(v) if torch.is_tensor(v) else v for v in self.bset))
 
     def run_batched_chunk(self, n_steps, pis_l1=0.0, u_l1=0.0,
                           sv_l1_sub_l2=0.0, sampling_percentage=100,
@@ -1170,9 +1226,10 @@ class Smoe:
         that step's update.  The SVs train at thr_sv (None: 0, as the
         reference trains, smoe.py:1552).
 
-        On the card (one process, outside `eager()`) the sweeps after the
-        first replay one captured graph: a chunk whose key has no graph
-        runs its first sweep eagerly as the warm-up, then captures one."""
+        On the card (one process or an NCCL mesh, outside `eager()`) the
+        sweeps after the first replay one captured graph: a chunk whose key
+        has no graph runs its first sweep eagerly as the warm-up, then
+        captures one.  A gloo mesh sweeps eagerly (`_sweep_captured`)."""
         if self.optimizer is None:
             self.set_optimizer()
         reg = RegWeights(float(pis_l1), float(u_l1), float(sv_l1_sub_l2))
@@ -1195,7 +1252,7 @@ class Smoe:
         n = int(n_steps)
         ys = torch.empty((n, 5), device=self.device)
         done, graph = 0, None
-        if n and self.mesh is None and graphed(self.device):
+        if n and self._sweep_captured():
             graph = self._graphs.get(self._graph_key(args))
             if graph is None:
                 warm_up(sweep)
@@ -1317,7 +1374,9 @@ class Smoe:
         normalised by the block's pixels.  with_rec also returns each
         block's sampling probabilities and SV map.  Under a mesh each rank
         evaluates its blocks with the whole `eff` and one psum over 'b'
-        sums the loss and mse and gathers the per-block outputs."""
+        sums the loss and mse and gathers the per-block outputs; a mesh
+        eval stays eager (`_program`), its gather (`_gather_blocks`) on
+        gloo as on NCCL."""
         cfg = self.cfg
         bw = self.block_weight
         plain = with_rec or exact
@@ -1399,23 +1458,25 @@ class Smoe:
 
         reg = RegWeights(float(pis_l1), float(u_l1), float(sv_l1_sub_l2))
         lw = self.loss_mask if use_loss_mask else None
-        with torch.no_grad():
-            eff = self._eff_from_rparams() if with_quantized_params \
-                else effective_params(self._full_params(), self.cfg,
-                                      self.musX_grid)
-        kl = self.kernel_lists
-        if self.cfg.in_graph_ukl:
-            # dense validation: every active kernel (trainer.py:1375-1382)
-            kl = (eff.pis > 0)[None, :].expand(kl.shape)
+        with_rec, exact = bool(update_reconstruction), \
+            bool(with_quantized_params)
         # the SVs evaluate at the reporting threshold (smoe.py:1536, 1558)
-        loss, mse, surv, num_pi, rec = self._eval_sweep(
-            eff, kl, lw, reg, with_rec=bool(update_reconstruction),
-            exact=bool(with_quantized_params),
-            thr_sv=SV_COUNT_THRESHOLD if thr_sv is None else float(thr_sv))
-        h = torch.stack([loss, mse, num_pi.float(),
-                         self._num_sv().float()]).cpu().numpy()
+        tsv = SV_COUNT_THRESHOLD if thr_sv is None else float(thr_sv)
+        if exact:
+            self._load_rparams()
+        # the lists in the sweep's own buffer, which every chunk refills
+        lists, _ = self._sweep_buffers()
+        lists.copy_(self.kernel_lists)
+        t = tensor_key
+        key = ("eval", with_rec, exact, tsv, reg, t(lists), t(lw),
+               tuple(t(b) for b in self._qeff) if exact else None,
+               self._state_key())
+        h, surv, *rec = self._program(key, lambda: self._eval_program(
+            lists, lw, reg, with_rec, exact, tsv))
+        h = h.cpu().numpy()                        # the one host pull
         if update_reconstruction:
-            res, wam, probs, sv_map = rec
+            res, wam, probs = rec[:3]
+            sv_map = rec[3] if len(rec) > 3 else None
             # in place: a captured subsampled sweep reads this tensor
             self.sampling_probs.copy_(probs)
             if sv_map is not None:
@@ -1433,8 +1494,29 @@ class Smoe:
                 self.weight_matrix_argmax = wam
                 self.valid = True
         if not with_quantized_params:
-            self._update_kernel_lists_from(surv)
+            self._update_kernel_lists_from(surv.clone())
         return float(h[0]), float(h[1]), int(h[2]), int(h[3])
+
+    @torch.no_grad()
+    def _eval_program(self, lists, lw, reg: RegWeights, with_rec: bool,
+                      exact: bool, thr_sv: float) -> tuple:
+        """One eval as a program (`run_batched`; trainer.py:685-836 jits
+        it): the params made effective (or the quantized ones read from
+        their buffers), the lists (dense over the active kernels under
+        in_graph_ukl, trainer.py:1375-1382), the sweep.  Returns (loss,
+        mse, num_pi, num_sv) stacked, the survivors and, with_rec, the
+        reconstruction, gating argmax, sampling probabilities and the SV
+        map where there is one."""
+        eff = self._qeff_params() if exact else effective_params(
+            self._full_params(), self.cfg, self.musX_grid)
+        kl = lists
+        if self.cfg.in_graph_ukl:
+            kl = (eff.pis > 0)[None, :].expand(kl.shape)
+        loss, mse, surv, num_pi, rec = self._eval_sweep(
+            eff, kl, lw, reg, with_rec=with_rec, exact=exact,
+            thr_sv=thr_sv)
+        h = torch.stack([loss, mse, num_pi.float(), self._num_sv().float()])
+        return (h, surv) + tuple(x for x in rec or () if x is not None)
 
     def _update_kernel_lists_from(self, survivors):
         """Lists <- eval survivors (trainer.py:1420-1432): shrink-only, so
@@ -1457,9 +1539,12 @@ class Smoe:
             eff.A, eff.musX, eff.pis, self.cfg, self.bset, base,
             **self._probe_args(eff))
 
-    def _eff_from_rparams(self) -> EffParams:
+    def _load_rparams(self) -> None:
         """Scatter the dequantized params back into full-capacity slots
-        (dead slots pis=0) for the exact eval (trainer.py:1465-1492)."""
+        (dead slots pis=0) for the exact eval (trainer.py:1465-1492), into
+        buffers that live as long as the trainer, with copy_: every
+        quantized eval reads the same addresses, so its program replays on
+        the card and reads the model of the call."""
         assert self.rparams is not None, "call quantize first"
         rp = self.rparams
         used = np.asarray(self.qparams["used_kernels"]) if self.qparams \
@@ -1478,11 +1563,24 @@ class Smoe:
         nu[idx] = rp["nu_e"]
         gam[idx] = rp["gamma_e"]
         pis[idx] = rp["pis"]
-        t = lambda x: torch.as_tensor(x, device=self.device)  # noqa: E731
+        host = (A, musX, nu, gam, pis)
+        if self._qeff is None:
+            self._qeff = tuple(torch.empty(a.shape, device=self.device)
+                               for a in host)
+        for buf, a in zip(self._qeff, host):
+            buf.copy_(torch.from_numpy(a))
+
+    def _qeff_params(self) -> EffParams:
+        """The quantized params of `_load_rparams`' buffers, with the
+        motion rows as training fake-quantizes them."""
         with torch.no_grad():
             motion = apply_qat(self.params, self.cfg).motion
-        return EffParams(A=t(A), musX=t(musX), nu_e=t(nu), gamma_e=t(gam),
-                         pis=t(pis), motion=motion)
+        return EffParams(*self._qeff, motion=motion)
+
+    def _eff_from_rparams(self) -> EffParams:
+        """The exact eval's params: `_load_rparams`, then `_qeff_params`."""
+        self._load_rparams()
+        return self._qeff_params()
 
     def ls_init_experts(self, mode: str = "auto", ridge: float = 1e-6,
                         damp: float = 0.0, timings: Optional[dict] = None):

@@ -24,6 +24,11 @@ here is exact fp32, as in production K1, so that `full` times K1's own
 arithmetic.  Widths: K1's C = 3 instances, F = 7 / 13 / 21 (d = 2, 3, 4)
 and the dual-model F = 26, E = d + 1 or 1.
 
+The plain version forms phi . q' as K1's fixed-order chain of fp32 fmas
+over the F features (`fixed_order_maha`), not a BLAS product, so that its
+bits, and the side of the cull threshold a near-tie pair falls on, are the
+same on every machine.
+
 `gate_expert_variant` dispatches on where its tensors lie: CPU tensors go
 to `gate_expert_variant_reference`, CUDA tensors launch the CUDA C++
 kernel csrc/gate_expert_variants.cu (built by kernels/build.py at first
@@ -59,13 +64,30 @@ def _prescale(q: torch.Tensor, mode: str) -> torch.Tensor:
     return q * (-0.5 * (LOG2E if mode == "exp2" else 1.0))
 
 
+def fixed_order_maha(phi: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """phi @ q.T (N, K) in K1's order (csrc/gate_expert_common.cuh:
+    dot_padded): acc = fma(phi_f, q_f, acc) over f = 0 .. F-1 from 0, each
+    step rounded once to fp32.  A step is computed in float64, where the
+    product of two fp32 values is exact, then rounded to fp32; so the bits
+    are the same on every machine and thread count, where a BLAS product's
+    summation order may follow the CPU's instruction set.  (The double
+    rounding can move a step by one fp32 ulp from a true fma, in about
+    2^-29 of the steps.)"""
+    p64, q64 = phi.double(), q.double()
+    acc = (p64[:, :1] * q64[None, :, 0]).float()
+    for f in range(1, phi.shape[1]):
+        acc = (p64[:, f:f + 1] * q64[None, :, f] + acc.double()).float()
+    return acc
+
+
 def variant_weights(phi, q, pi_det, mode: str, thr: float = 1e-4,
                     floor: float = 1e-11, cull: bool = True) -> torch.Tensor:
     """The mode's gating weights w (N, K) in `_variant_kernel`'s op order
     (:53-67); cull=False gives full's and exp2's before the cull."""
     _mode_index(mode)
     _refuse_tf32(phi)
-    mh = torch.minimum(phi @ _prescale(q, mode).T, phi.new_zeros(()))
+    mh = torch.minimum(fixed_order_maha(phi, _prescale(q, mode)),
+                       phi.new_zeros(()))
     if mode == "no_exp":
         return mh
     e = torch.exp2(mh) if mode == "exp2" else torch.exp(mh)

@@ -319,6 +319,54 @@ assert r["per_rank_widths"][1]["pis"] == 8
     _run(extra, prelude=_BLOCK)
 
 
+def test_programs_and_em_study_run_with_jax_matplotlib_and_cv2_blocked():
+    """The buffered evals (light, with the reconstruction, quantized), the
+    LS refresh's programs (kernel and coupled mode), the replayed decoder
+    and apps/exp_em_refresh run in a process where jax, smoe_tpu,
+    matplotlib and cv2 cannot be imported, through the programs' graphed
+    control flow (a stand-in graph that runs its function at each
+    replay)."""
+    extra = """
+import torch
+torch.set_num_threads(1)
+from smoe_tpu_torch.codec import serve
+from smoe_tpu_torch.fit import graph, trainer as ttr
+class Replaying:
+    def __init__(self, fn, pool=None, generators=()):
+        self.fn, self.capture_s = fn, 0.0
+    def replay(self):
+        self.fn()
+for mod in (ttr, serve):
+    mod.graphed = lambda device: not graph._EAGER[0]
+for mod in (ttr, graph):
+    mod.warm_up, mod.SweepGraph = (lambda fn: fn()), Replaying
+torch.cuda.graph_pool_handle = lambda: None
+from smoe_tpu_torch.apps import content, exp_em_refresh
+from smoe_tpu_torch.codec.serve import make_decoder, pad_decoded_params
+s = ttr.Smoe(content.build_image(16), kernels_per_dim=[4],
+             quantization_mode=1, device="cpu")
+for _ in range(3):
+    s.run_batched(train=False)
+    s.run_batched(train=False, update_reconstruction=True)
+    s._quantize_now()
+    s.run_batched(train=False, update_reconstruction=True,
+                  with_quantized_params=True)
+    s.ls_init_experts(mode="kernel")
+    s.ls_init_experts(mode="coupled")
+assert len(s._programs.graphs) == 8, len(s._programs.graphs)
+p = pad_decoded_params(s.rparams, 16, 2, 3)
+dec = make_decoder((16, 16), 3, s.cfg, 16, device="cpu")
+args = [p[n] for n in ("A", "musX", "nu_e", "gamma_e", "pis")]
+outs = [dec(*args) for _ in range(3)]
+assert all(torch.equal(o, outs[0]) for o in outs)
+assert len(dec.programs.graphs) == 1
+r = exp_em_refresh.main(["--size", "16", "--max", "40", "--refresh", "20",
+                         "--device", "cpu"])
+assert r["metric"] == "em_refresh_study" and len(r["em"]["t_chosen"]) == 1
+"""
+    _run(extra, prelude=_BLOCK)
+
+
 def test_chip_smoke_refuses_without_a_gpu():
     """chip_smoke.py measures the card or fails: without CUDA it exits
     non-zero and prints no result line."""
