@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port's serving decode, trainer, forward
 ablation variants, encode CLI, fit CLI with its plots, video path,
 light-field path, SV residual / subsampling, mesh paths, applications,
-bench modules, the graphed training chunk and the other graphed programs
-(evals, LS refresh, encode, decoder, NCCL mesh sweep) on one NVIDIA GPU.
+bench modules, the graphed training chunk, the other graphed programs
+(evals, LS refresh, encode, decoder, NCCL mesh sweep) and the
+real-photograph path on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -276,6 +277,41 @@ no result line) on any fault:
      apps/exp_em_refresh at its defaults.  Each beside its ms eager and
      graphed (CUDA events and host clock, in turns eager, graph, graph,
      eager after a settling call), its captures and the reserved memory.
+ 25. the real-photograph path (smoe_tpu_torch/apps/content.py reading
+     apps/sample_data/ with numpy, apps/cv.py for OpenCV's resize and
+     warpAffine): (a) the sha256 of every photo input (hopper, mri and dem
+     at 256^2 and 48^2, the hopper clip with its patch turning 5 degrees
+     a frame, the hopper light field at s = 24 and 48) against the JAX
+     scripts' recorded in tests/data/hopper256_k144_ref.npz
+     (scripts/make_torch_photo_fixture.py), cv2 and matplotlib never
+     imported; (b) the BASELINE bisect's fit of the photograph (256^2,
+     12 x 12 kernels, YUV loss, determinant gating, 1000 sweeps in chunks
+     of 10, a light eval every 100) on the kernel and the plain path:
+     the first 100 sweeps each taken by the plain path from the kernel
+     path's state, mse within TRAJ_RTOL (the free-running pair, which
+     parts by chaos after ~60 sweeps as the JAX and the port's CPU fits
+     do, reported beside); the mean best PSNR of 4 members a path (the
+     init and three 1-ulp moves of it) within 0.2 dB of the plain path's
+     and of the recorded JAX CPU run's; max |A_diagonal| and |A_corr|
+     every 100 sweeps beside the record's; one sweep from the kernel
+     path's state at sweep 1000 taken by both (loss within 1e-5, every
+     gradient within BWD_REL_TOL, lists equal, K2 on the fit's own
+     cotangent within BWD_REL_TOL of its plain version and, against
+     fp64, of the largest sum of the terms' magnitudes); K1 and K2 on the
+     sweep-1000 operands against plain with times, bounds and candidate
+     fraction, and the attribution's set (e) on them; (c) BASELINE.md's
+     2D real-photograph recipe: the photograph as a PNG, cli.fit -k 12
+     -n 5000 -lsinit auto -lsri 100 -iukl 1, the automatic encode,
+     cli.decode within 1 LSB (>= 99.9 % identical) of the encoder's
+     reconstruction and within 0.01 dB of its PSNR; (d) K1 and K2's grey
+     instance (F = 7, E = 3, C = 1) against plain at 256^2 x K144, then
+     apps.rd_curve --family mri and dem at the script's defaults, every
+     coded point's K1 decode within 1 LSB of its plain decode; (e)
+     bench.video_quality on the hopper clip with the turning patch
+     (BASELINE.md:105, the composed recipe, --auto, 600 sweeps and 4
+     slabs of 300) and (f) bench.lf on the hopper light field
+     (BASELINE.md:132) with the automatic encode and its .mat decode,
+     each decode within 1 LSB (>= 99.9 % identical); each part's seconds.
 Launch counts are zeroed before each path and read after it; the launches
 made to compare a kernel with its plain version are not counted.  Under a
 graph a capture takes back the launches it counted and each replay adds
@@ -285,7 +321,7 @@ launches, error, time, plain time, bound, what binds it and library_ms,
 null: no single PyTorch call computes these functions; K1's and K2's
 raster-ordered and K = 60000 times and K1's candidate fractions beside
 them; K3's `ms` and bound are `full`'s on phase 5's random flagship, its
-per-mode times and bounds on sets (a)-(d) beside them), and
+per-mode times and bounds on sets (a)-(e) beside them), and
 {"ok": true, "device": {...}} as the last line.
 """
 
@@ -4103,10 +4139,10 @@ def app_recorders():
          serve.decode_bitstream) = real
 
 
-def app_decodes(name, writes, tmp):
+def app_decodes(name, writes, tmp, dim=3):
     """Every file the app coded, written again beside its header fields
-    (an RD point's file has none: those of the bench family's 256^2
-    raster) and decoded through
+    (an RD point's file has none: those of a 256^2 raster of `dim`
+    channels) and decoded through
     K1 against its plain decode: each tier prefix of a layered file, the
     super-resolution file natively and at 512^2.  Returns the decodes'
     (label, max LSB, identical share)."""
@@ -4115,7 +4151,7 @@ def app_decodes(name, writes, tmp):
     rows = []
     for i, w in enumerate(writes):
         extra = w["extra"] or {
-            "shape_of_img": [256, 256], "dim_of_output": 3,
+            "shape_of_img": [256, 256], "dim_of_output": dim,
             "use_yuv": w["cfg"].use_yuv,
             "use_determinant": w["cfg"].use_determinant}
         path = os.path.join(tmp, f"{name}_{i}.smoe")
@@ -4440,56 +4476,62 @@ def rd_fit_pickle(path):
         pickle.dump({"params": s.get_params(), "cfg": s.cfg}, f)
 
 
+def bench_run(name, main, argv, launches, out, key=None):
+    """One bench module's main on the card with `argv` (and --device),
+    `bench_recorders` around it: its JSON lines checked (`bench_lines`),
+    its K1 / K2 launches counted (K2 once per fused block sweep, K1 at
+    least as often and once per kernel-path decode), every decode held to
+    its plain path and every encode's file to the encoder's reconstruction
+    (`bench_decodes`); its row in out[key].  Returns (its lines, the last
+    trainer it made)."""
+    import torch
+    from smoe_tpu_torch.bench import decode
+    key = key or name
+    with bench_recorders() as rec:
+        rec["images"] = ({s: build_image(s) for s, _, _ in decode.SIZES}
+                         if name == "decode" else None)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res, log, wall = _cli(main, argv + ["--device", DEVICE])
+        n1, n2 = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    last, rec["last"] = rec["last"], None
+    launches[0] += n1
+    launches[1] += n2
+    lines = bench_lines(name, res, torch.cuda.get_device_name(0))
+    n_dec = sum(e["out"] is not None for e in rec["decoders"])
+    check(n2 == rec["fused_blocks"] and n1 >= n2 + n_dec,
+          f"{key}: K1 / K2 launched {n1} / {n2} times for "
+          f"{rec['fused_blocks']} fused block sweeps and {n_dec} "
+          "kernel-path decodes")
+    row = {"wall_s": wall, "k1_k2": [n1, n2],
+           "fused_block_sweeps": rec["fused_blocks"],
+           # the captured sweeps the module's last trainer keeps
+           "graphs": None if last is None else len(last._graphs),
+           "kernel_decodes": n_dec, "peak_memory_gb": peak_gb,
+           "decodes": bench_decodes(rec), "json": lines}
+    print(f"bench {key} ({wall:.1f} s, K1 / K2 {n1} / {n2}, peak "
+          f"{peak_gb:.2f} GB): " + json.dumps(lines), flush=True)
+    out[key] = row
+    return lines, last
+
+
 def bench_phase(launches):
     """Phase 22: each bench module and study through its main on the card
-    (`bench_recorders` around each), its JSON lines checked
-    (`bench_lines`), its K1 / K2 launches counted (K2 once per fused block
-    sweep, K1 at least as often and once per kernel-path decode), every
-    decode held to its plain path and every encode's file to the encoder's
-    reconstruction (`bench_decodes`); the 4K fit's peak memory and settled
-    capped width; the flagship reached 32 dB; dryrun_tp_bigk's per-rank
-    widths K / nk."""
-    import torch
+    (`bench_run`); the 4K fit's peak memory and settled capped width; the
+    flagship reached 32 dB; dryrun_tp_bigk's per-rank widths K / nk."""
     from smoe_tpu_torch.apps import (dryrun_tp_bigk, exp_a_domain,
                                      exp_layers_video, exp_lsinit,
                                      exp_lsri_quant, exp_recode_matrix)
     from smoe_tpu_torch.bench import (decode, fit_1080p, fit_4k, flagship,
                                       lf, video, video_quality)
-    card_name = torch.cuda.get_device_name(0)
-    dev = ["--device", DEVICE]
     out = {}
+
+    def run(name, main, argv):
+        return bench_run(name, main, argv, launches, out)
+
     tmp = tempfile.mkdtemp(prefix="smoe_bench_phase_")
     rd_pkl = os.path.join(tmp, "rd_fit.pkl")
-
-    def run(name, main, argv, key=None):
-        key = key or name
-        with bench_recorders() as rec:
-            rec["images"] = ({s: build_image(s) for s, _, _ in decode.SIZES}
-                             if name == "decode" else None)
-            reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            res, log, wall = _cli(main, argv + dev)
-            n1, n2 = read_counts()
-            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        last, rec["last"] = rec["last"], None
-        launches[0] += n1
-        launches[1] += n2
-        lines = bench_lines(name, res, card_name)
-        n_dec = sum(e["out"] is not None for e in rec["decoders"])
-        check(n2 == rec["fused_blocks"] and n1 >= n2 + n_dec,
-              f"{key}: K1 / K2 launched {n1} / {n2} times for "
-              f"{rec['fused_blocks']} fused block sweeps and {n_dec} "
-              "kernel-path decodes")
-        row = {"wall_s": wall, "k1_k2": [n1, n2],
-               "fused_block_sweeps": rec["fused_blocks"],
-               # the captured sweeps the module's last trainer keeps
-               "graphs": None if last is None else len(last._graphs),
-               "kernel_decodes": n_dec, "peak_memory_gb": peak_gb,
-               "decodes": bench_decodes(rec), "json": lines}
-        print(f"bench {key} ({wall:.1f} s, K1 / K2 {n1} / {n2}, peak "
-              f"{peak_gb:.2f} GB): " + json.dumps(lines), flush=True)
-        out[key] = row
-        return lines, last
 
     run("flagship", flagship.main, [])
     check(out["flagship"]["json"][0]["reached_32db"],
@@ -4546,6 +4588,552 @@ def bench_summary(bench, before, launches) -> dict:
         "fit_4k_k_cap_settled": bench["fit_4k"]["k_cap_settled"],
         "launches_k1_k2": [launches[0] - before[0],
                            launches[1] - before[1]]}
+
+
+PHOTO_REF = os.path.join(HERE, "tests", "data", "hopper256_k144_ref.npz")
+PHOTO_HELD = 100            # sweeps held per sweep, kernel vs plain path
+PHOTO_DB_TOL = 0.2          # best PSNR: kernel vs plain path, JAX record
+PHOTO_LOSS_RTOL = 1e-5      # the stepped sweep's loss, kernel vs plain path
+# the 1000-sweep fit from the init and from inits with nu_e moved by 1 ulp
+# in a seeded half of its entries: on the H100 such members of one path
+# part by up to 0.22 dB of best PSNR (chaos, not precision),
+# so the paths and the JAX record are held by the members' mean
+PHOTO_MEMBERS = 4
+# BASELINE.md:14's 2D real-photograph recipe (cli.fit, then the default
+# automatic encode)
+PHOTO_CLI = ["-k", "12", "-n", "5000", "-lsinit", "auto", "-lsri", "100",
+             "-iukl", "1"]
+# BASELINE.md:105's hard real-motion clip with line 20's composed recipe,
+# cut to 3/5 of phase 22's lengths (600 + 4 slabs of 300, 5x the last):
+# at phase 22's 1000 / 500 it took 104.8 s of phase 25's 144.9 s
+PHOTO_VQ_SWEEPS, PHOTO_VQ_RESEED = 600, 300
+PHOTO_VQ = ["--texture", "hopper", "--rot", "5", "--lsinit", "--lsri", "100",
+            "--lsrip", "initial", "--lslean", "--auto", "--n",
+            str(PHOTO_VQ_SWEEPS), "--ri", str(PHOTO_VQ_RESEED)]
+# BASELINE.md:132's real-texture light field
+PHOTO_LF = ["--texture", "hopper", "--s", "24", "--n", "600", "--iukl",
+            "--pmt", "100", "--pg", "5", "--lsinit", "--lsri", "100", "--cw",
+            "0.1"]
+
+
+def photo_inputs() -> dict:
+    """name -> the port's build of each photo input the fixture recorded
+    from the JAX scripts (scripts/make_torch_photo_fixture.py)."""
+    from smoe_tpu_torch.apps import content
+    out = {f"{f}_{n}": content.build_family(f, n)
+           for f in ("hopper", "mri", "dem") for n in (256, 48)}
+    out["video_hopper_rot5"], out["video_hopper_rot5_affines"] = \
+        content.build_video(moving_obj=True, texture="hopper", rot=5.0)
+    for s in (24, 48):
+        out[f"lf_hopper_{s}"] = content.build_lf(s=s, texture="hopper")
+    return out
+
+
+def photo_content(ref):
+    """Phase 25 (a): every photo input built on this machine's numpy,
+    without cv2 or matplotlib, against the sha256 the JAX scripts gave."""
+    blocked = [m for m in ("cv2", "matplotlib") if m in sys.modules]
+    t0 = time.perf_counter()
+    got = photo_inputs()
+    build_s = time.perf_counter() - t0
+    names = [str(n) for n in ref["input_names"]]
+    check(sorted(got) == sorted(names), f"photo inputs {sorted(got)} vs the "
+          f"recorded {names}")
+    bad = [n for i, n in enumerate(names)
+           if sha_of(got[n]) != str(ref["input_sha256"][i])
+           or str(got[n].shape) != str(ref["input_shapes"][i])]
+    out = {"inputs": len(names), "sha256_equal": len(names) - len(bad),
+           "build_s": build_s, "cv2_or_matplotlib_loaded": blocked}
+    print(f"photo content: {json.dumps(out)}", flush=True)
+    check(not bad, f"photo inputs differ from the JAX scripts': {bad}")
+    check(not blocked, f"{blocked} imported by apps.content")
+    return out, got["hopper_256"]
+
+
+def photo_smoe(img, mode, member=0):
+    """The BASELINE bisect's trainer: 12 x 12 kernels, YUV loss,
+    determinant gating, the flagship optimizer; a member > 0 moves a
+    seeded half of the init's nu_e entries up by 1 ulp."""
+    from smoe_tpu_torch.fit.trainer import PARAM_FIELDS, Smoe
+    s = Smoe(img, kernels_per_dim=[12], use_yuv=True, use_determinant=True,
+             use_pallas=mode, device=DEVICE)
+    s.set_optimizer()
+    if member:
+        p = {f: getattr(s.params, f).detach().cpu().numpy().copy()
+             for f in PARAM_FIELDS}
+        nu = p["nu_e"]
+        up = np.random.default_rng(member).random(nu.shape) < 0.5
+        nu[up] = np.nextafter(nu[up], np.float32(np.inf))
+        s.set_params(p)
+    return s
+
+
+def photo_run(s, ref):
+    """The fixture's schedule on the trainer s: ref["sweeps"] sweeps in
+    chunks of ref["chunk"], a light eval after every ref["eval_every"];
+    per-sweep mse, the evals' mse, max |A_diagonal| and |A_corr| at the
+    evals, and the chunks' host seconds."""
+    chunk, every = int(ref["chunk"]), int(ref["eval_every"])
+    out = {"mse": [], "eval_mse": [], "a_diag_max": [], "a_corr_max": [],
+           "chunks_s": 0.0}
+    for done in range(chunk, int(ref["sweeps"]) + 1, chunk):
+        dt, (_, mse, _, _) = host_s(lambda: s.run_batched_chunk(chunk))
+        out["chunks_s"] += dt
+        out["mse"] += [float(v) for v in mse]
+        if done % every == 0:
+            out["eval_mse"].append(float(s.run_batched(train=False)[1]))
+            prm = s.get_params()
+            out["a_diag_max"].append(float(np.abs(prm["A_diagonal"]).max()))
+            out["a_corr_max"].append(float(np.abs(prm["A_corr"]).max()))
+    out["best_psnr_db"] = max(psnr_of(m) for m in out["eval_mse"])
+    out["s_per_iter"] = out["chunks_s"] / len(out["mse"])
+    return out
+
+
+def photo_k2_on_cotangent(args, denom, out):
+    """K2's outputs in a sweep of the fit (its operands, the fit's own
+    cotangent of res, K1's denominator) against its plain version in fp32
+    and in fp64 (the operands cast): max |K2 - plain fp32| / max |plain|,
+    and each one's error against fp64 over max |fp64| and over the
+    largest sum of the terms' magnitudes (`bwd_abs_sums`, the bound an
+    fp32 sum can promise where the terms cancel, as phase 17 holds the
+    video's)."""
+    from smoe_tpu_torch.kernels.gate_expert import gate_expert_bwd_reference
+    phi, xe, q_s, G, pi_det, g, thr, floor = args
+    p32 = gate_expert_bwd_reference(*args)
+    p64 = gate_expert_bwd_reference(*(t.double() for t in args[:6]), thr,
+                                    floor)
+    sums = bwd_abs_sums(args, plain_rows(q_s.shape[0]))
+    res = {}
+    for label, k, a, b, m in zip(("dq", "dG", "dpi"), out, p32, p64, sums):
+        mx = float(b.abs().max())
+        res[label] = {
+            "k2_vs_plain": float((k - a).abs().max() / a.abs().max()),
+            "k2_vs_f64": float((k.double() - b).abs().max()) / mx,
+            "plain_vs_f64": float((a.double() - b).abs().max()) / mx,
+            "cancellation": float(m.max()) / mx,
+            "k2_vs_f64_of_abs_sum": float((k.double() - b).abs().max())
+            / float(m.max()),
+            "plain_vs_f64_of_abs_sum": float((a.double() - b).abs().max())
+            / float(m.max())}
+    return res
+
+
+def photo_stepped(s_k, s_p):
+    """One sweep from the kernel path's state, taken eagerly by both paths
+    (the plain path given the kernel path's params, Adam state and lists):
+    the loss, each parameter's gradient (max |kernel - plain| / max
+    |plain|), the lists after the sweep, and K2 in that sweep against its
+    plain version on the fit's own cotangent (`photo_k2_on_cotangent`)."""
+    import torch
+    from smoe_tpu_torch.core.params import adam_state_from_numpy
+    from smoe_tpu_torch.fit.trainer import PARAM_FIELDS, RegWeights, eager
+    from smoe_tpu_torch.kernels import gate_expert as ge
+    s_p.set_params({f: getattr(s_k.params, f).detach().cpu().numpy()
+                    for f in PARAM_FIELDS})
+    st = s_k.adam_state_numpy()
+    s_p.load_adam_state(adam_state_from_numpy(st["mu"], st["nu"],
+                                              st["count"],
+                                              device=s_p.device))
+    s_p.kernel_lists = s_k.kernel_lists.clone()
+    reg = RegWeights(0.0, 0.0, 0.0)
+    loss, grads, cap = [], [], {}
+    real = ge.gate_expert_bwd
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        cap.update(args=a, denom=kw.get("denom"), out=out)
+        return out
+    # a comparison: the wrapper keeps its own count, the real one stays
+    recorded.launches = 0
+    with eager():
+        for s in (s_k, s_p):
+            ge.gate_expert_bwd = recorded if s is s_k else real
+            try:
+                lo = s._sweep_grads(s.kernel_lists.clone(), reg, None,
+                                    s._current_k_cap())[0]
+            finally:
+                ge.gate_expert_bwd = real
+            loss.append(float(lo))
+            grads.append({f: getattr(s.params, f).grad.detach().clone()
+                          for f in PARAM_FIELDS
+                          if getattr(s.params, f).grad is not None})
+        step = [s.run_batched_chunk(1)[0][0] for s in (s_k, s_p)]
+    rel = {f: float((grads[0][f] - g).abs().max()
+                    / g.abs().max().clamp_min(1e-30))
+           for f, g in grads[1].items() if g.abs().max() > 0}
+    check(recorded.launches == 1, f"the stepped sweep launched K2 "
+          f"{recorded.launches} times")
+    return {"loss_kernel_plain": loss,
+            "loss_rel": abs(loss[0] - loss[1]) / abs(loss[1]),
+            "step_loss_kernel_plain": [float(v) for v in step],
+            "grad_rel": rel, "grad_max_rel": max(rel.values()),
+            "lists_equal": bool(torch.equal(s_k.kernel_lists.cpu(),
+                                            s_p.kernel_lists.cpu())),
+            "k2_on_cotangent": photo_k2_on_cotangent(
+                cap["args"], cap["denom"], cap["out"])}
+
+
+def photo_members(img, ref, mode, launches):
+    """Members 1 .. PHOTO_MEMBERS - 1 of the fit on one path
+    (`photo_smoe(member=...)`, `photo_run`): each one's best PSNR; the
+    kernel path's launches counted."""
+    best = []
+    for m in range(1, PHOTO_MEMBERS):
+        s = photo_smoe(img, mode, member=m)
+        reset_counts()
+        best.append(photo_run(s, ref)["best_psnr_db"])
+        n1, n2 = read_counts()
+        launches[0] += n1
+        launches[1] += n2
+        del s
+        free_card()
+    return best
+
+
+def photo_fit(img, ref, thr, floor, launches):
+    """Phase 25 (b): the BASELINE bisect's fit of the photograph (256^2,
+    K = 144, 1000 sweeps in chunks of 10, a light eval every 100) on the
+    kernel path and on the plain path, against each other and the JAX
+    CPU run recorded in tests/data/hopper256_k144_ref.npz.  Free-running,
+    the three part after ~60 sweeps (chaos: the port's CPU paths and JAX's
+    part alike), so the first PHOTO_HELD sweeps are held stepped (each
+    sweep taken by the plain path from the kernel path's state,
+    `stepped_from_kernel_path`, within TRAJ_RTOL) with the free-running
+    pair reported beside; the best PSNR after 1000 sweeps by the mean of
+    PHOTO_MEMBERS members on each path (the init and 1-ulp moves of it),
+    the kernel path's within PHOTO_DB_TOL of the plain path's and of the
+    JAX record's; then one sweep stepped from the kernel path's state at
+    sweep 1000 (`photo_stepped`: loss, gradients, lists, K2 on the fit's
+    cotangent); K1 and K2 on the sweep-1000 raster operands against
+    plain, with times and bounds, and the attribution's set (e)."""
+    s_k = photo_smoe(img, KERNEL_MODE)
+    check(s_k.fused, "the photo fit on the card did not take the fused op")
+    s_p = photo_smoe(img, "off")
+    reset_counts()
+    run_k = photo_run(s_k, ref)
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    run_p = photo_run(s_p, ref)
+    check(read_counts() == (n1, n2), "the photo fit's plain path launched "
+          "a kernel")
+    sweeps, evals = len(run_k["mse"]), len(run_k["eval_mse"])
+    stepped = photo_stepped(s_k, s_p)
+    *fargs, thr_f, floor_f = trainer_kernel_args(s_k)
+    del s_k, s_p
+    free_card()
+    held = min(PHOTO_HELD, sweeps)
+    free = (np.abs(np.asarray(run_k["mse"][:held])
+                   - np.asarray(run_p["mse"][:held]))
+            / np.asarray(run_p["mse"][:held]))
+    s_k2, s_p2 = photo_smoe(img, KERNEL_MODE), photo_smoe(img, "off")
+    reset_counts()
+    per_sweep = stepped_from_kernel_path(s_k2, s_p2, held)
+    m1, m2 = read_counts()
+    launches[0] += m1
+    launches[1] += m2
+    del s_k2, s_p2
+    free_card()
+    best_k = [run_k["best_psnr_db"]] + photo_members(img, ref, KERNEL_MODE,
+                                                     launches)
+    best_p = [run_p["best_psnr_db"]] + photo_members(img, ref, "off",
+                                                     launches)
+    mean_k, mean_p = float(np.mean(best_k)), float(np.mean(best_p))
+    jax_best = float(ref["best_psnr_db"])
+    every = int(ref["eval_every"])
+    out = {"sweeps": sweeps, "k1_k2": [n1, n2],
+           "free_run_first": held,
+           "free_run_mse_max_rel": float(free.max()),
+           "free_run_sweeps_within_tol": int(np.argmax(free > TRAJ_RTOL))
+           if (free > TRAJ_RTOL).any() else held,
+           "free_run_kernel_vs_jax_mse_max_rel": max_rel(
+               run_k["mse"][:held], ref["mse"][:held]),
+           "stepped_first_mse_max_rel": max(per_sweep),
+           "stepped_first_k1_k2": [m1, m2],
+           "best_psnr_db_members_kernel": best_k,
+           "best_psnr_db_members_plain": best_p,
+           "best_psnr_db_mean_kernel_plain_jax": [mean_k, mean_p, jax_best],
+           "s_per_iter_kernel_plain": [run_k["s_per_iter"],
+                                       run_p["s_per_iter"]],
+           "trajectory": [{"sweep": every * (i + 1),
+                           "psnr_db_kernel_plain_jax": [
+                               psnr_of(run_k["eval_mse"][i]),
+                               psnr_of(run_p["eval_mse"][i]),
+                               psnr_of(float(ref["eval_mse"][i]))],
+                           "a_diag_max_kernel_plain_jax": [
+                               run_k["a_diag_max"][i], run_p["a_diag_max"][i],
+                               float(ref["a_diag_max"][i])],
+                           "a_corr_max_kernel_plain_jax": [
+                               run_k["a_corr_max"][i], run_p["a_corr_max"][i],
+                               float(ref["a_corr_max"][i])]}
+                          for i in range(evals)],
+           "stepped_at_sweep": sweeps, "stepped": stepped}
+    print(f"photo fit: {json.dumps(out)}", flush=True)
+    check(n2 == sweeps and n1 == sweeps + evals, f"photo fit: K1 / K2 "
+          f"launched {n1} / {n2} times in {sweeps} one-block sweeps and "
+          f"{evals} light evals")
+    check(m2 == held, f"photo fit, stepped: K2 launched {m2} times in "
+          f"{held} sweeps")
+    check(np.isfinite(run_k["mse"]).all() and run_k["mse"][-1]
+          < run_k["mse"][0], "the photo fit did not train")
+    check(max(per_sweep) <= TRAJ_RTOL, f"photo fit: the kernel path's step "
+          f"off the plain path's by {max(per_sweep):.2e} in the first "
+          f"{held} sweeps")
+    for name, b in (("plain path", mean_p), ("JAX record", jax_best)):
+        check(abs(mean_k - b) <= PHOTO_DB_TOL, f"photo fit: best PSNR "
+              f"{mean_k:.3f} dB (mean of {best_k}), the {name}'s {b:.3f}")
+    check(stepped["loss_rel"] <= PHOTO_LOSS_RTOL, f"photo fit, stepped: "
+          f"loss off the plain path by {stepped['loss_rel']:.2e}")
+    check(stepped["grad_max_rel"] <= BWD_REL_TOL, f"photo fit, stepped: "
+          f"gradients off the plain path by {stepped['grad_rel']}")
+    check(stepped["lists_equal"], "photo fit, stepped: the lists differ")
+    for label, e in stepped["k2_on_cotangent"].items():
+        check(e["k2_vs_plain"] <= BWD_REL_TOL
+              and e["k2_vs_f64_of_abs_sum"] <= BWD_REL_TOL,
+              f"photo fit, stepped: K2's {label} on the fit's cotangent {e}")
+    # K1 and K2 on the sweep-1000 operands, and the attribution's set (e)
+    out["raster"] = compare_raster("photo fit, sweep 1000", fargs, thr_f,
+                                   floor_f, 25)
+    out["attribution"] = attribution("(e) photo fit, sweep 1000", fargs,
+                                     thr_f, floor_f, launches, iters=20)
+    del fargs
+    return out
+
+
+def photo_cli(img, launches):
+    """Phase 25 (c): BASELINE.md:14's 2D real-photograph recipe through
+    the CLIs: build_hopper(256) as an RGB PNG (its 8-bit values / 255
+    read back exactly, in BGR order as OpenCV reads them), cli.fit with
+    PHOTO_CLI, cli.reconstruct's default automatic encode of
+    params_best.pkl, cli.decode of its model.smoe through K1: within 1
+    LSB (>= 99.9 % identical) of the encoder's reconstruction, its PSNR
+    (the fit's YUV domain) within 0.01 dB of the reconstruction's; its
+    RGB PSNR beside."""
+    from smoe_tpu_torch.cli import decode, fit, reconstruct
+    from smoe_tpu_torch.io.images import read_image, write_png, yuv_to_bgr
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "hopper256.png")
+        write_png(png, np.uint8(np.round(img * 255)))
+        check(np.array_equal(read_image(png, False)[0], img[..., ::-1]),
+              "the photo PNG does not read back as build_hopper(256)")
+        d = os.path.join(tmp, "fit")
+        reset_counts()
+        smoe, _, fit_s = _cli(fit.main, ["-i", png, "-r", d, "--device",
+                                         DEVICE] + PHOTO_CLI)
+        n1, n2 = read_counts()
+        rows = _metrics(d)
+        sweeps = smoe.phase_timer.as_dict()["train_sweeps"]
+        # the fit's domain (YUV under the CLI's default), which the
+        # encoder's reconstruction and the decode are in
+        orig = read_image(png, smoe.cfg.use_yuv)[0]
+        del smoe
+        reset_counts()
+        rec, enc_log, enc_s = _cli(reconstruct.main, [
+            "-i", png, "-p", os.path.join(d, "params_best.pkl"), "-r",
+            os.path.join(tmp, "enc"), "--device", DEVICE])
+        path = os.path.join(tmp, "enc", "model.smoe")
+        dec, _, dec_s = _cli(decode.main, ["-p", path, "-r",
+                                           os.path.join(tmp, "dec"),
+                                           "--device", DEVICE])
+        m1, _ = read_counts()
+        nbytes = os.path.getsize(path)
+    launches[0] += n1 + m1
+    launches[1] += n2
+    dec, rec = (np.asarray(x).reshape(orig.shape) for x in (dec, rec))
+    lsb, same = lsb_stats(dec, rec)
+    psnr_dec, psnr_rec = (psnr_of(float(np.mean((x - orig) ** 2)) * 255 ** 2)
+                          for x in (dec, rec))
+    # the decode in RGB, as BASELINE.md's photo rows measure it
+    bgr = yuv_to_bgr(np.uint8(np.round(dec * 255))).astype(np.float64)
+    psnr_rgb = psnr_of(float(np.mean((bgr - np.round(img[..., ::-1] * 255))
+                                     ** 2)))
+    n = int(PHOTO_CLI[PHOTO_CLI.index("-n") + 1])
+    out = {"flags": PHOTO_CLI, "sweeps": n, "k1_k2": [n1, n2],
+           "best_psnr_db": max(r["psnr_db"] for r in rows),
+           "decoded_psnr_db": psnr_dec, "reconstruction_psnr_db": psnr_rec,
+           "decoded_psnr_rgb_db": psnr_rgb,
+           "file_bytes": nbytes, "bpp": nbytes * 8 / (img.shape[0]
+                                                      * img.shape[1]),
+           "s_per_iter": sweeps["total_s"] / n, "fit_wall_s": fit_s,
+           "encode_s": enc_s, "decode_s": dec_s,
+           "auto_bd": [line for line in enc_log.splitlines()
+                       if "auto-bd:" in line or "prune:" in line],
+           "decode_vs_encoder_max_lsb": lsb,
+           "decode_vs_encoder_identical": same, "decode_k1": m1,
+           "baseline_md": {"psnr_db": 23.72, "bpp": 0.293}}
+    print(f"photo CLI recipe: {json.dumps(out)}", flush=True)
+    check(n2 == n and n1 >= n, f"photo cli.fit: K1 {n1} / K2 {n2} launches "
+          f"in {n} sweeps")
+    check(m1 == 1, f"the photo encode and decode launched K1 {m1} times, "
+          "expected 1 (the encode's evals are plain)")
+    check(lsb <= 1 and same >= 0.999, f"photo decode vs the encoder's "
+          f"reconstruction: {lsb} LSB, {same:.5f} identical")
+    check(abs(psnr_dec - psnr_rec) <= 0.01, f"photo decode PSNR "
+          f"{psnr_dec:.4f} vs the reconstruction's {psnr_rec:.4f}")
+    return out
+
+
+def photo_grey(thr, floor, launches):
+    """Phase 25 (d): K1 and K2's grey 2D instance (F = 7, E = 3, C = 1),
+    which the grey families' fits run, against their plain versions at
+    256^2 x K144 with phases 3-4's limits; then apps.rd_curve --family mri
+    and dem at the script's defaults, K1 / K2 counted as in phase 21, every
+    coded point decoded through K1 within 1 LSB of its plain decode."""
+    from smoe_tpu_torch.apps import rd_curve
+    out = {"k1": compare_kernel("grey 256^2 x K144 d2 C1", 256 * 256, 144,
+                                2, 3, 1, 31, thr, floor, time_it=True),
+           "k2": compare_bwd("grey 256^2 x K144 d2 C1", 256 * 256, 144, 2,
+                             3, 1, 31, thr, floor, time_it=True),
+           "runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for family in ("mri", "dem"):
+            with app_recorders() as rec:
+                reset_counts()
+                res, _, wall = _cli(rd_curve.main, ["--family", family,
+                                                    "--device", DEVICE])
+                n1, n2 = read_counts()
+            launches[0] += n1
+            launches[1] += n2
+            sweeps = APP_SWEEPS["rd_curve"]
+            run = {"wall_s": wall, "k1_k2": [n1, n2], "json": res,
+                   "decodes": app_decodes(family, rec["writes"], tmp,
+                                          dim=1)}
+            print(f"photo rd_curve {family} ({wall:.1f} s, K1 / K2 {n1} / "
+                  f"{n2}): {json.dumps(res)}", flush=True)
+            check(isinstance(res, dict) and finite_numbers(res),
+                  f"rd_curve {family}: bad result {res}")
+            check(n2 == sweeps and n1 == n2 + rec["light_eval_blocks"]
+                  + rec["decodes"], f"rd_curve {family}: K1 / K2 launched "
+                  f"{n1} / {n2} times in {sweeps} sweeps")
+            out["runs"][family] = run
+    return out
+
+
+def photo_lf(launches):
+    """Phase 25 (f): bench.lf with BASELINE.md:132's real-texture flags,
+    then cli.reconstruct's automatic encode of its params_best.pkl and
+    cli.decode to .mat through K1: within 1 LSB (>= 99.9 % identical) of
+    the encoder's reconstruction; trained-view and all-view PSNR, bpp."""
+    from scipy.io import loadmat
+    from smoe_tpu_torch.bench import lf
+    from smoe_tpu_torch.cli import decode, reconstruct
+    rows = {}
+    lines, _ = bench_run("lf", lf.main, PHOTO_LF, launches, rows,
+                         key="lf_hopper")
+    wd = lines[0]["workdir"]
+    mat = os.path.join(wd, "lf.mat")
+    orig = loadmat(mat)["LF"]
+    reset_counts()
+    rec, enc_log, enc_s = _cli(reconstruct.main, [
+        "-i", mat, "-p", os.path.join(wd, "out", "params_best.pkl"), "-r",
+        os.path.join(wd, "enc"), "--device", DEVICE])
+    path = os.path.join(wd, "enc", "model.smoe")
+    dec, _, dec_s = _cli(decode.main, ["-p", path, "-r",
+                                       os.path.join(wd, "dec"), "--device",
+                                       DEVICE])
+    n_dec = read_counts()[0]
+    launches[0] += n_dec
+    dec, rec = np.asarray(dec), np.asarray(rec)
+    lsb, same = lsb_stats(dec, rec.reshape(dec.shape))
+    mat_out = loadmat(os.path.join(wd, "dec", "output.mat"))["LF"]
+    bits = os.path.getsize(path) * 8
+    trained, all_views = lf_psnr(dec, orig)
+    out = {"bench": lines[0], "run": rows["lf_hopper"], "encode_s": enc_s,
+           "decode_s": dec_s,
+           "auto_bd": [line for line in enc_log.splitlines()
+                       if "auto-bd:" in line or "prune:" in line],
+           "bits": bits, "bpp": bits / int(np.prod(orig.shape[:4])),
+           "psnr_trained_views_db": trained, "psnr_all_views_db": all_views,
+           "decode_vs_encoder_max_lsb": lsb,
+           "decode_vs_encoder_identical": same, "decode_k1": n_dec,
+           "baseline_md_jax_cpu": {"psnr_trained_views_db": 31.20,
+                                   "psnr_all_views_db": 30.69, "bpp": 1.38}}
+    print(f"photo LF encode: {json.dumps(out)}", flush=True)
+    check(dec.shape == orig.shape and mat_out.shape == orig.shape
+          and mat_out.dtype == np.uint8, "photo LF decode: bad output")
+    check(n_dec == 1, f"the LF encode and decode launched K1 {n_dec} times")
+    check(lsb <= 1 and same >= 0.999, f"photo LF decode vs the encoder's "
+          f"reconstruction: {lsb} LSB, {same:.5f} identical")
+    return out
+
+
+def photo_phase(thr, floor, launches):
+    """Phase 25: the real-photograph path, (a)-(f)."""
+    import torch
+    from smoe_tpu_torch.bench import video_quality
+    ref = np.load(PHOTO_REF)
+    out, t = {}, time.perf_counter()
+
+    def mark(key):
+        nonlocal t
+        out.setdefault("seconds", {})[key] = time.perf_counter() - t
+        t = time.perf_counter()
+        free_card()
+
+    out["content"], img = photo_content(ref)
+    mark("a_content")
+    out["fit"] = photo_fit(img, ref, thr, floor, launches)
+    mark("b_fit")
+    out["cli"] = photo_cli(img, launches)
+    mark("c_cli")
+    out["grey"] = photo_grey(thr, floor, launches)
+    mark("d_grey")
+    rows = {}
+    bench_run("video_quality", video_quality.main, PHOTO_VQ, launches, rows,
+              key="video_quality_hopper_rot5")
+    out["video"] = rows["video_quality_hopper_rot5"]
+    mark("e_video")
+    out["lf"] = photo_lf(launches)
+    mark("f_lf")
+    out["card"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def photo_summary(photo, before, launches) -> dict:
+    """Phase 25's summary line."""
+    fit, cli, grey = photo["fit"], photo["cli"], photo["grey"]
+    vq = photo["video"]["json"]
+    return {
+        "seconds": photo["seconds"],
+        "content_sha256_equal": photo["content"]["sha256_equal"],
+        "fit_best_psnr_db_mean_kernel_plain_jax":
+            fit["best_psnr_db_mean_kernel_plain_jax"],
+        "fit_best_psnr_db_members_kernel_plain": [
+            fit["best_psnr_db_members_kernel"],
+            fit["best_psnr_db_members_plain"]],
+        "fit_free_run_mse_max_rel_and_sweeps_within_tol": [
+            fit["free_run_mse_max_rel"], fit["free_run_sweeps_within_tol"]],
+        "fit_stepped_first_mse_max_rel": fit["stepped_first_mse_max_rel"],
+        "fit_stepped_loss_rel": fit["stepped"]["loss_rel"],
+        "fit_stepped_grad_max_rel": fit["stepped"]["grad_max_rel"],
+        "fit_stepped_k2_on_cotangent": fit["stepped"]["k2_on_cotangent"],
+        "fit_s_per_iter_kernel_plain": fit["s_per_iter_kernel_plain"],
+        "fit_a_diag_max_kernel_at_1000":
+            fit["trajectory"][-1]["a_diag_max_kernel_plain_jax"],
+        "k1_sweep1000": {key: fit["raster"]["k1"][key] for key in (
+            "ms", "bound_ms", "candidate_fraction", "survivors")},
+        "k2_sweep1000": {key: fit["raster"]["k2"][key] for key in (
+            "ms", "bound_ms", "max_rel_err")},
+        "cli": {key: cli[key] for key in (
+            "best_psnr_db", "decoded_psnr_db", "decoded_psnr_rgb_db",
+            "file_bytes", "bpp",
+            "s_per_iter", "fit_wall_s", "encode_s")},
+        "grey_k1_ms_plain_ms": [grey["k1"]["ms"], grey["k1"]["plain_ms"]],
+        "grey_k2_ms_plain_ms": [grey["k2"]["ms"], grey["k2"]["plain_ms"]],
+        "rd_curve_points": {f: [[p["bpp"], p["qpsnr_db"]]
+                                for p in r["json"]["points"]]
+                            for f, r in grey["runs"].items()},
+        "video": [{key: line.get(key) for key in (
+            "metric", "value", "psnr_train_best_db", "coded_bpp",
+            "fit_wallclock_s")} for line in vq],
+        "lf": {"bench": [photo["lf"]["bench"]["value"],
+                         photo["lf"]["bench"]["psnr_all_views_db"],
+                         photo["lf"]["bench"]["coded_bpp"]],
+               "auto": [photo["lf"]["psnr_trained_views_db"],
+                        photo["lf"]["psnr_all_views_db"],
+                        photo["lf"]["bpp"]]},
+        "launches_k1_k2_k3": [launches[i] - before[i] for i in range(3)]}
 
 
 def clock(label: str) -> None:
@@ -4902,10 +5490,25 @@ def main() -> int:
     clock("phase 24")
     print(f"programs ({card}): " + json.dumps(program_summary(
         programs, before_programs, launches)), flush=True)
+    # phase 25: the real-photograph path
+    before_photo = list(launches)
+    photo = photo_phase(thr, floor, launches)
+    clock("phase 25")
+    print(f"photo ({card}): " + json.dumps(photo_summary(
+        photo, before_photo, launches)), flush=True)
+    check(all(launches[i] > before_photo[i] for i in range(3)),
+          f"phase 25 launched K1 / K2 / K3 "
+          f"{[launches[i] - before_photo[i] for i in range(3)]} times")
     check(all(n > 0 for n in launches),
           f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
           f"{launches[2]} times")
 
+    attr["e_photo_fit"] = photo["fit"]["attribution"]
+    p_k1, p_k2 = photo["fit"]["raster"]["k1"], photo["fit"]["raster"]["k2"]
+    g_k1, g_k2 = photo["grey"]["k1"], photo["grey"]["k2"]
+    max_err = max(max_err, g_k1["max_abs_err_res"])
+    max_err_bwd = max(max_err_bwd, g_k2["max_abs_err"])
+    max_rel_bwd = max(max_rel_bwd, g_k2["max_rel_err"])
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     full = var[0]["variants"]["full"]
@@ -4953,7 +5556,14 @@ def main() -> int:
          "apps_phase_launches": before_bench[0] - before[0],
          "bench_phase_launches": before_graphs[0] - before_bench[0],
          "graph_phase_launches": before_programs[0] - before_graphs[0],
-         "program_phase_launches": launches[0] - before_programs[0]},
+         "program_phase_launches": before_photo[0] - before_programs[0],
+         "photo_phase_launches": launches[0] - before_photo[0],
+         "photo_fit_ms": p_k1["ms"], "photo_fit_bound_ms": p_k1["bound_ms"],
+         "photo_fit_candidate_fraction": p_k1["candidate_fraction"],
+         "photo_fit_max_abs_err": p_k1["max_abs_err_res"],
+         "grey_c1_ms": g_k1["ms"], "grey_c1_plain_ms": g_k1["plain_ms"],
+         "grey_c1_bound_ms": g_k1["bound_ms"],
+         "grey_c1_max_abs_err": g_k1["max_abs_err_res"]},
         {"name": "gate_expert_bwd", "route": "cuda", "source": BWD_SRC,
          "replaces": BWD_REPLACES, "launches": launches[1],
          "max_abs_err": max_err_bwd, "max_rel_err": max_rel_bwd,
@@ -4984,7 +5594,13 @@ def main() -> int:
          "apps_phase_launches": before_bench[1] - before[1],
          "bench_phase_launches": before_graphs[1] - before_bench[1],
          "graph_phase_launches": before_programs[1] - before_graphs[1],
-         "program_phase_launches": launches[1] - before_programs[1]},
+         "program_phase_launches": before_photo[1] - before_programs[1],
+         "photo_phase_launches": launches[1] - before_photo[1],
+         "photo_fit_ms": p_k2["ms"], "photo_fit_bound_ms": p_k2["bound_ms"],
+         "photo_fit_max_rel_err": p_k2["max_rel_err"],
+         "grey_c1_ms": g_k2["ms"], "grey_c1_plain_ms": g_k2["plain_ms"],
+         "grey_c1_bound_ms": g_k2["bound_ms"],
+         "grey_c1_max_rel_err": g_k2["max_rel_err"]},
         {"name": "gate_expert_variants", "route": "cuda", "source": VAR_SRC,
          "replaces": VAR_REPLACES, "launches": launches[2],
          "max_abs_err": max_err_var, "max_rel_err": max_rel_var,

@@ -1,4 +1,4 @@
-"""Synthetic content: the families of the RD curve and the demos (from
+"""Content: the families of the RD curve and the demos (from
 scripts/content.py, and bench.py:29-44's build_image), and the bench
 inputs: images, clips and light fields (scripts/bench_1080p.py,
 bench_4k.py, bench_video.py, bench_lf.py).
@@ -8,19 +8,32 @@ bench_4k.py, bench_video.py, bench_lf.py).
   mosaic  - piecewise-constant Voronoi cells (cartoon / graphics class)
   text    - high-contrast thin strokes on a smooth gradient (screen
             content / document class)
+  hopper  - a real photograph (matplotlib's grace_hopper.jpg), centre
+            crop, area-resized
+  mri     - a real MRI head slice (s1045.ima.gz), one channel
+  dem     - real terrain elevation (jacksboro_fault_dem.npz), one channel
 
-Each is deterministic (seeded), float32 in [0, 1], RGB, and the same array
-bit for bit as the JAX package's script gives.  The photo families `hopper`,
-`mri` and `dem` read matplotlib's sample data, which the card's machine
-does not have: they raise NotImplementedError, as do the bench clips'
-`texture="hopper"` (the same sample data) and `rot` (cv2.warpAffine),
-which ROADMAP.md lists under "Blocked, not queued".
+Each is deterministic, float32 in [0, 1], and the same array bit for bit
+as the JAX package's script gives.  The photographs are read from
+sample_data/ beside this module (matplotlib's sample data, carried by
+scripts/make_torch_photo_data.py; the JPEG decoded there by OpenCV) with
+numpy alone, and OpenCV's resize and warpAffine are apps/cv.py's copies:
+neither matplotlib nor cv2 is imported.
 """
 
 from __future__ import annotations
 
+import gzip
+import os
+
 import numpy as np
 
+from smoe_tpu_torch.apps.cv import (refuse_upsizing, resize_area,
+                                    rotation_matrix,
+                                    warp_affine_linear_reflect)
+
+SAMPLE_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "sample_data")
 FAMILIES = ("bench", "pink", "mosaic", "text", "hopper", "mri", "dem")
 
 
@@ -115,23 +128,53 @@ def build_text(size=256, seed=13):
     return np.clip(img, 0, 1).astype(np.float32)
 
 
-def _photo(name: str):
-    raise NotImplementedError(
-        f"content family {name!r} reads matplotlib's sample data "
-        "(mpl-data/sample_data), which the card's machine does not have; "
-        f"choose from {FAMILIES[:4]}")
+def _sample(name: str) -> str:
+    return os.path.join(SAMPLE_DATA, name)
+
+
+def hopper_photo(gray: bool = False):
+    """grace_hopper.jpg as OpenCV decodes it: (600, 512, 3) uint8 BGR, or
+    libjpeg's own (600, 512) grayscale decode."""
+    with np.load(_sample("grace_hopper.npz")) as z:
+        return z["gray" if gray else "bgr"]
 
 
 def build_hopper(size=256):
-    _photo("hopper")
+    """scripts/content.py:36-54: the photograph (portrait: skin, fabric,
+    flag stripes, sharp insignia), centre-cropped square and resized."""
+    bgr = hopper_photo()
+    h, w = bgr.shape[:2]
+    s = min(h, w)
+    r0, c0 = (h - s) // 2, (w - s) // 2
+    crop = resize_area(bgr[r0:r0 + s, c0:c0 + s], (size, size))
+    rgb = crop[..., ::-1].astype(np.float32) / 255.0
+    return np.clip(rgb, 0, 1)
 
 
 def build_mri(size=256):
-    _photo("mri")
+    """scripts/content.py:64-75: the MRI head slice, 256 x 256 big-endian
+    uint16 (values 0..215), divided by its maximum; one channel."""
+    with gzip.open(_sample("s1045.ima.gz")) as f:
+        a = np.frombuffer(f.read(), np.uint16).reshape(256, 256).byteswap()
+    img = (a / float(a.max())).astype(np.float32)
+    if size != 256:
+        img = resize_area(img, (size, size))
+    return np.clip(img, 0, 1)[..., None]
 
 
 def build_dem(size=256):
-    _photo("dem")
+    """scripts/content.py:78-90: the terrain elevation (344 x 403 int16),
+    centre-cropped square, min-max normalised; one channel."""
+    with np.load(_sample("jacksboro_fault_dem.npz")) as z:
+        a = z["elevation"].astype(np.float32)
+    h, w = a.shape
+    s = min(h, w)
+    r0, c0 = (h - s) // 2, (w - s) // 2
+    a = a[r0:r0 + s, c0:c0 + s]
+    if size != s:
+        a = resize_area(a, (size, size))
+    a = (a - a.min()) / (a.max() - a.min() + 1e-12)
+    return np.clip(a, 0, 1).astype(np.float32)[..., None]
 
 
 def build_family(name: str, size=256):
@@ -142,13 +185,6 @@ def build_family(name: str, size=256):
         raise ValueError(f"unknown content family {name!r}; "
                          f"choose from {FAMILIES}")
     return builders[name](size)
-
-
-def _blocked(what: str):
-    raise NotImplementedError(
-        f"{what} needs matplotlib's sample data or OpenCV, which the card's "
-        "machine does not have (ROADMAP.md, \"Blocked, not queued\"); use "
-        "the synthetic texture")
 
 
 def build_1080p():
@@ -189,37 +225,53 @@ def build_4k():
 
 def build_video(h=288, w=352, t=8, shift=2.0, moving_obj=False,
                 texture="synth", rot=0.0):
-    """scripts/bench_video.py:18-94: the CIF panning scene, a sinusoid
-    canvas panned by `shift` pixels a frame with its known per-frame
-    affines; moving_obj adds a textured square moving against the pan,
-    which global motion cannot explain.  Returns (vid (h, w, t, 3) float32
-    RGB in [0, 1], affines (t, 2, 3)).  texture="hopper" and rot != 0
-    raise (module docstring)."""
-    if texture == "hopper":
-        _blocked("build_video(texture='hopper')")
-    if rot:
-        _blocked("build_video(rot=...)")
+    """scripts/bench_video.py:18-94: the CIF panning scene, a canvas panned
+    by `shift` pixels a frame with its known per-frame affines: the
+    sinusoid canvas, or with texture="hopper" the photograph's centre.
+    moving_obj adds a textured square moving against the pan, which global
+    motion cannot explain (on the photograph a patch of its far corner);
+    rot turns that square by rot * i degrees in frame i (bilinear,
+    reflected border), motion neither the global model nor a rigidly
+    tracking kernel cloud explains.  Returns (vid (h, w, t, 3) float32 RGB
+    in [0, 1], affines (t, 2, 3))."""
     rng = np.random.default_rng(0)
     wide_w = w + int(shift * t) + 4
-    y, x = np.mgrid[0:h, 0:wide_w]
-    y = y / (h - 1)
-    x = x / (w - 1)
-    wide = np.stack([
-        0.5 + 0.3 * np.sin(6 * x + 2 * y),
-        0.5 + 0.25 * np.cos(4 * x * y + 1.0),
-        0.4 + 0.3 * np.sin(3 * (x + y)),
-    ], axis=-1).astype(np.float32)
-    wide += rng.normal(0, 0.005, wide.shape).astype(np.float32)
+    if texture == "hopper":
+        bgr = hopper_photo()
+        ph, pw = bgr.shape[:2]                     # 600 x 512
+        if ph < h or pw < wide_w:
+            refuse_upsizing(f"build_video: a {wide_w}x{h} canvas from the "
+                            f"{pw}x{ph} photograph")
+        r0, c0 = (ph - h) // 2, (pw - wide_w) // 2
+        wide = (bgr[r0:r0 + h, c0:c0 + wide_w, ::-1].astype(np.float32)
+                / 255.0)
+    else:
+        y, x = np.mgrid[0:h, 0:wide_w]
+        y = y / (h - 1)
+        x = x / (w - 1)
+        wide = np.stack([
+            0.5 + 0.3 * np.sin(6 * x + 2 * y),
+            0.5 + 0.25 * np.cos(4 * x * y + 1.0),
+            0.4 + 0.3 * np.sin(3 * (x + y)),
+        ], axis=-1).astype(np.float32)
+        wide += rng.normal(0, 0.005, wide.shape).astype(np.float32)
     frames = [wide[:, int(shift * i):int(shift * i) + w].copy()
               for i in range(t)]
     if moving_obj:
         oy, ox, s = 60, 40, 56
-        yy, xx = np.mgrid[0:s, 0:s] / (s - 1)
-        patch = np.stack([0.2 + 0.6 * yy, 0.7 - 0.5 * xx,
-                          0.5 + 0.4 * yy * xx], -1).astype(np.float32)
+        if texture == "hopper":
+            patch = wide[-s:, :s].copy()
+        else:
+            yy, xx = np.mgrid[0:s, 0:s] / (s - 1)
+            patch = np.stack([0.2 + 0.6 * yy, 0.7 - 0.5 * xx,
+                              0.5 + 0.4 * yy * xx], -1).astype(np.float32)
         for i in range(t):
             py, px = oy + 6 * i, ox + 9 * i       # against the pan
-            frames[i][py:py + s, px:px + s] = patch
+            p_i = patch
+            if rot:
+                m = rotation_matrix(((s - 1) / 2, (s - 1) / 2), rot * i, 1.0)
+                p_i = warp_affine_linear_reflect(patch, m, (s, s))
+            frames[i][py:py + s, px:px + s] = p_i
     vid = np.clip(np.stack(frames, axis=2), 0, 1)
     affines = np.zeros((t, 2, 3), np.float32)
     affines[:, 0, 0] = 1.0
@@ -233,16 +285,26 @@ def build_lf(views: int = 15, s: int = 48, seed: int = 3,
     """scripts/bench_lf.py:28-79: a (views, views, s, s, 1) grayscale light
     field in [0, 1] with two disparity planes, a textured background at
     +1.5 px a view and a foreground square at -2.5 px a view, each view an
-    exact shift.  texture="hopper" raises (module docstring)."""
-    if texture == "hopper":
-        _blocked("build_lf(texture='hopper')")
+    exact shift; texture="hopper" takes both planes from the photograph's
+    grayscale decode (the background from its centre, the foreground from
+    its top-left corner)."""
     rng = np.random.default_rng(seed)
     pad = int(3.0 * views) + 8
     side = s + 2 * pad
-    yy, xx = np.mgrid[0:side, 0:side] / s
-    tex = (0.55 + 0.25 * np.sin(5.1 * yy + 1.0) * np.cos(4.3 * xx)
-           + 0.12 * np.sin(11.0 * (yy + xx)))
-    ftex = 0.35 + 0.3 * np.cos(7.0 * yy) * np.sin(6.2 * xx + 0.5)
+    if texture == "hopper":
+        g = hopper_photo(gray=True).astype(np.float32) / 255.
+        if min(g.shape) < side:
+            refuse_upsizing(f"build_lf: a side of {side} from the "
+                            f"{g.shape[1]}x{g.shape[0]} photograph")
+        gh, gw = g.shape
+        tex = g[(gh - side) // 2:(gh - side) // 2 + side,
+                (gw - side) // 2:(gw - side) // 2 + side].copy()
+        ftex = g[:side, :side].copy()
+    else:
+        yy, xx = np.mgrid[0:side, 0:side] / s
+        tex = (0.55 + 0.25 * np.sin(5.1 * yy + 1.0) * np.cos(4.3 * xx)
+               + 0.12 * np.sin(11.0 * (yy + xx)))
+        ftex = 0.35 + 0.3 * np.cos(7.0 * yy) * np.sin(6.2 * xx + 0.5)
     lf = np.empty((views, views, s, s), np.float32)
     uc = (views - 1) / 2
     d_bg, d_fg = 1.5, -2.5

@@ -8,10 +8,12 @@ a summary line.
 
     python -m smoe_tpu_torch.apps.rd_curve [image.png] [iters] [--dp]
         [--lean | --ulean | --lslean] [--lsinit] [--lsri] [--prune]
-        [--ganchor] [--family bench|pink|mosaic|text] [--device cuda|cpu]
+        [--ganchor] [--family bench|pink|mosaic|text|hopper|mri|dem]
+        [--device cuda|cpu]
 
---family: a synthetic content family (apps/content.py); the photo families
-hopper / mri / dem need matplotlib's sample data and raise.
+--family: a content family (apps/content.py): the synthetic bench, pink,
+mosaic and text, or the real photographs hopper (RGB), mri and dem (one
+channel), read from apps/sample_data/ with numpy alone.
 --lsinit: the kernel-mode LS expert solve before the fit (and nu coded at
 the kernel center); --lsri: the same solve again every 100 iterations
 (sequential path only).

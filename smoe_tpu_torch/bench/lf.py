@@ -14,7 +14,8 @@ the script's keys and the card's name and power limit.
         [... the script's flags] [--device cuda|cpu]
 
 The workdir keeps lf.mat and out/params_best.pkl (apps/exp_recode_matrix.py
---lf takes it).  --texture hopper raises NotImplementedError.
+--lf takes it).  --texture hopper takes both planes from the photograph's
+grayscale decode (apps/sample_data/).
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="corner-view loss weight in (0,1] (fit -lfcw)")
     ap.add_argument("--texture", type=str, default="synth",
                     choices=["synth", "hopper"],
-                    help="scene texture (hopper raises: no sample data)")
+                    help="scene texture: synthetic or the real photograph "
+                         "(luminance)")
     add_device_arg(ap)
     return ap
 

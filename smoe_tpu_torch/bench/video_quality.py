@@ -16,7 +16,9 @@ apps/exp_recode_matrix.py and apps/exp_layers_video.py take.
     python -m smoe_tpu_torch.bench.video_quality [--k 16] [--n 2000]
         [--ri 1000] [--val 500] [... the script's flags] [--device cuda|cpu]
 
---texture hopper and --rot raise NotImplementedError (apps/content.py).
+--texture hopper pans over the photograph (apps/sample_data/) and --rot
+DEG turns the moving patch by DEG a frame (apps/cv.py's warpAffine), as
+the script's flags do.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="quantization mode for the fit (fit -qm)")
     ap.add_argument("--texture", type=str, default="synth",
                     choices=["synth", "hopper"],
-                    help="clip texture (hopper raises: no sample data)")
+                    help="clip texture: synthetic or the real photograph")
     ap.add_argument("--lsrs", type=int, default=0,
                     help="stop the -lsri refresh after N initial-fit iters "
                          "(fit -lsrs)")
@@ -86,8 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "encode (reconstruct --auto-bd 0.05 --prune 0 on "
                          "params_best) and print a second JSON line")
     ap.add_argument("--rot", type=float, default=0.0,
-                    help="rotate the moving patch by DEG/frame (raises: "
-                         "needs OpenCV)")
+                    help="rotate the moving patch by DEG/frame (bilinear, "
+                         "reflected border)")
     add_device_arg(ap)
     return ap
 

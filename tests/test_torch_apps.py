@@ -187,11 +187,3 @@ def test_content_families_are_bit_identical(monkeypatch, family):
     assert a.dtype == b.dtype == np.float32
     np.testing.assert_array_equal(a, b)
     assert jcontent.FAMILIES == content.FAMILIES
-
-
-@pytest.mark.parametrize("family", ["hopper", "mri", "dem"])
-def test_photo_families_raise(family):
-    with pytest.raises(NotImplementedError, match="sample data"):
-        content.build_family(family, 32)
-    with pytest.raises(ValueError, match="unknown content family"):
-        content.build_family("nope", 32)

@@ -175,15 +175,6 @@ def test_build_lf_is_bit_identical(monkeypatch, kw):
     assert t.dtype == j.dtype and t.tobytes() == j.tobytes()
 
 
-@pytest.mark.parametrize("call", [
-    lambda: content.build_video(texture="hopper"),
-    lambda: content.build_video(moving_obj=True, rot=5.0),
-    lambda: content.build_lf(texture="hopper")])
-def test_photo_and_rotation_paths_raise(call):
-    with pytest.raises(NotImplementedError, match="Blocked"):
-        call()
-
-
 # ---------------- common ----------------
 
 def test_metric_names_and_card_fields():

@@ -375,3 +375,28 @@ def test_chip_smoke_refuses_without_a_gpu():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_photo_content_builds_without_cv2_or_matplotlib():
+    """apps.content builds every family, the photograph's clips (panned,
+    with the turning patch) and its light field with cv2 and matplotlib
+    unimportable (sys.modules[...] = None), as on the card's machine."""
+    prelude = """
+import sys
+for name in ("cv2", "matplotlib"):
+    sys.modules[name] = None
+"""
+    extra = """
+import numpy as np
+from smoe_tpu_torch.apps import content
+for f in content.FAMILIES:
+    img = content.build_family(f, 48)
+    assert img.dtype == np.float32 and img.shape[:2] == (48, 48), f
+    assert np.isfinite(img).all() and 0 <= img.min() and img.max() <= 1, f
+vid, aff = content.build_video(moving_obj=True, texture="hopper", rot=5.0)
+assert vid.shape == (288, 352, 8, 3) and np.isfinite(vid).all()
+lf = content.build_lf(s=24, texture="hopper")
+assert lf.shape == (15, 15, 24, 24, 1) and np.isfinite(lf).all()
+assert sys.modules["cv2"] is None and sys.modules["matplotlib"] is None
+"""
+    _run(extra, prelude)
