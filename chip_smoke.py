@@ -311,7 +311,28 @@ no result line) on any fault:
      (BASELINE.md:105, the composed recipe, --auto, 600 sweeps and 4
      slabs of 300) and (f) bench.lf on the hopper light field
      (BASELINE.md:132) with the automatic encode and its .mat decode,
-     each decode within 1 LSB (>= 99.9 % identical); each part's seconds.
+     each decode within 1 LSB (>= 99.9 % identical), the JAX package's
+     own fused-path record of (f) (tests/data/lf_hopper_fused_ref.json)
+     printed beside; each part's seconds.
+ 26. the JPEG anchors (smoe_tpu_torch/io/jpeg.py, apps/anchor_*.py,
+     apps/cv.py:resize_cubic; tests/data/anchor_ref.json, recorded from
+     the JAX scripts and cv2 by scripts/make_torch_anchor_fixture.py):
+     (a) the committed grace_hopper.jpg decoded to the recorded sha256
+     (colour and grayscale) and a CIF frame coded at q 90, with host ms;
+     the 256^2 hopper crop written by the port's encoder at q 90 (the
+     bytes' sha256 cv2's), then cli.fit on that .jpg (-k 12 -n 200 -qm
+     1, K1 / K2), cli.reconstruct and cli.decode within 1 LSB (>= 99.9 %
+     identical) of the encoder's reconstruction; (b) apps.anchor_jpeg on
+     hopper (JPEG rows), dem (--fit 5000 --k 12 --lsri 100 --auto,
+     BASELINE.md:15) and mri (--fit 5000 --k 12 --auto, :16): the JPEG
+     rows the JAX script's (bpp and dB exact, SSIM to its last digit),
+     the SMoE rows within ANCHOR_SMOE_DB_TOL of the JAX CPU rows, every
+     coded file's K1 decode within 1 LSB of its plain decode; (c)
+     apps.anchor_video on the synth clip with --smoe on phase 22's
+     video_quality encode (a K1 decode, held to its plain decode) and on
+     the hopper clip; (d) apps.anchor_lf --s 24 on synth and hopper;
+     (e) the upsized content (hopper 1024, mri 512, dem 512, the hopper
+     light field at s = 520) against its recorded sha256.
 Launch counts are zeroed before each path and read after it; the launches
 made to compare a kernel with its plain version are not counted.  Under a
 graph a capture takes back the launches it counted and each replay adds
@@ -5048,7 +5069,10 @@ def photo_lf(launches):
            "decode_vs_encoder_max_lsb": lsb,
            "decode_vs_encoder_identical": same, "decode_k1": n_dec,
            "baseline_md_jax_cpu": {"psnr_trained_views_db": 31.20,
-                                   "psnr_all_views_db": 30.69, "bpp": 1.38}}
+                                   "psnr_all_views_db": 30.69, "bpp": 1.38},
+           # the JAX package's own fused path (Pallas, interpret mode) on
+           # this recipe: the reference's fused semantics land here too
+           "jax_fused_record": lf_fused_record()}
     print(f"photo LF encode: {json.dumps(out)}", flush=True)
     check(dec.shape == orig.shape and mat_out.shape == orig.shape
           and mat_out.dtype == np.uint8, "photo LF decode: bad output")
@@ -5056,6 +5080,20 @@ def photo_lf(launches):
     check(lsb <= 1 and same >= 0.999, f"photo LF decode vs the encoder's "
           f"reconstruction: {lsb} LSB, {same:.5f} identical")
     return out
+
+
+def lf_fused_record() -> dict:
+    """tests/data/lf_hopper_fused_ref.json's JAX CPU runs of phase 25 (f)'s
+    recipe (scripts/make_torch_lf_fused_record.py): the fused path and the
+    XLA path, (trained, all-view) dB and bpp, bench and automatic encode."""
+    with open(LF_FUSED_REF) as f:
+        rec = json.load(f)
+    return {mode: {"bench": [rec[mode]["trained_db"], rec[mode]["all_db"],
+                             rec[mode]["bpp"]],
+                   "auto": [rec[mode]["auto_trained_db"],
+                            rec[mode]["auto_all_db"], rec[mode]["auto_bpp"]],
+                   "train_best_db": rec[mode]["train_best_db"]}
+            for mode in ("on", "off")}
 
 
 def photo_phase(thr, floor, launches):
@@ -5132,8 +5170,274 @@ def photo_summary(photo, before, launches) -> dict:
                          photo["lf"]["bench"]["coded_bpp"]],
                "auto": [photo["lf"]["psnr_trained_views_db"],
                         photo["lf"]["psnr_all_views_db"],
-                        photo["lf"]["bpp"]]},
+                        photo["lf"]["bpp"]],
+               "jax_fused_record": photo["lf"]["jax_fused_record"]},
         "launches_k1_k2_k3": [launches[i] - before[i] for i in range(3)]}
+
+
+LF_FUSED_REF = os.path.join(HERE, "tests", "data", "lf_hopper_fused_ref.json")
+ANCHOR_REF = os.path.join(HERE, "tests", "data", "anchor_ref.json")
+# the JPEG rows: bpp and dB exact, SSIM to its printed digit (the JAX
+# script means its fp32 SSIM map in XLA's order, up to ~2e-6 off the port's)
+ANCHOR_SSIM_TOL = 1e-4
+# the SMoE rows against the JAX CPU record: two fp32 fits of 5000 sweeps
+# part by chaos (phase 25 (b): 1-ulp inits spread 0.22 dB at 1000 sweeps)
+ANCHOR_SMOE_DB_TOL = 0.5
+ANCHOR_FITS = {"hopper": [],
+               "dem": ["--fit", "5000", "--k", "12", "--lsri", "100",
+                       "--auto"],
+               "mri": ["--fit", "5000", "--k", "12", "--auto"]}
+
+
+def rows_differ(got, want) -> list:
+    """The keys of the anchor rows `got` off the recorded `want`: every
+    value equal, SSIM within ANCHOR_SSIM_TOL."""
+    if len(got) != len(want):
+        return [f"{len(got)} rows, recorded {len(want)}"]
+    bad = []
+    for g, w in zip(got, want):
+        if list(g) != list(w):
+            bad.append(f"keys {list(g)} vs {list(w)}")
+            continue
+        for k in w:
+            off = (abs(g[k] - w[k]) > ANCHOR_SSIM_TOL + 1e-9 if k == "ssim"
+                   else g[k] != w[k])
+            if off:
+                bad.append(f"{w.get('codec')} q{w.get('q')} {k}: {g[k]} vs "
+                           f"{w[k]}")
+    return bad
+
+
+def anchor_codec(ref, launches):
+    """Phase 26 (a): the committed JPEG's decodes, a CIF frame's coding
+    times, and a .jpg the port wrote through cli.fit / reconstruct /
+    decode."""
+    from smoe_tpu_torch.apps import content
+    from smoe_tpu_torch.cli import decode, fit, reconstruct
+    from smoe_tpu_torch.io import jpeg
+    from smoe_tpu_torch.io.images import read_image
+    data = read_bytes(os.path.join(content.SAMPLE_DATA, "grace_hopper.jpg"))
+    bgr, gray = jpeg.decode(data, "color"), jpeg.decode(data, "gray")
+    vid, _ = content.build_video(moving_obj=True)
+    frame = np.ascontiguousarray(np.uint8(vid[:, :, 0] * 255)[..., ::-1])
+    cif = jpeg.encode(frame, 90)
+    times = {"hopper_600x512_decode_color_ms":
+             host_ms_median(lambda: jpeg.decode(data, "color")),
+             "hopper_600x512_decode_gray_ms":
+             host_ms_median(lambda: jpeg.decode(data, "gray")),
+             "cif_frame_q90_encode_ms":
+             host_ms_median(lambda: jpeg.encode(frame, 90)),
+             "cif_frame_q90_decode_ms":
+             host_ms_median(lambda: jpeg.decode(cif, "color")),
+             "cif_frame_q90_bytes": len(cif)}
+    sha = {"bgr": sha_of(bgr), "gray": sha_of(gray)}
+    crop = np.uint8(content.build_hopper(256) * 255)
+    buf = jpeg.encode(np.ascontiguousarray(crop[..., ::-1]), 90)
+    crop_sha = hashlib.sha256(buf).hexdigest()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hopper256_q90.jpg")
+        with open(path, "wb") as f:
+            f.write(buf)
+        d = os.path.join(tmp, "fit")
+        reset_counts()
+        smoe, _, fit_s = _cli(fit.main, ["-i", path, "-r", d, "-k", "12",
+                                         "-n", "200", "-v", "100", "-qm",
+                                         "1", "--device", DEVICE])
+        n1, n2 = read_counts()
+        orig = read_image(path, smoe.cfg.use_yuv)[0]
+        best = max(r["psnr_db"] for r in _metrics(d))
+        del smoe
+        reset_counts()
+        rec, _, enc_s = _cli(reconstruct.main, [
+            "-i", path, "-p", os.path.join(d, "params_best.pkl"), "-r",
+            os.path.join(tmp, "enc"), "--device", DEVICE])
+        model = os.path.join(tmp, "enc", "model.smoe")
+        dec, _, dec_s = _cli(decode.main, ["-p", model, "-r",
+                                           os.path.join(tmp, "dec"),
+                                           "--device", DEVICE])
+        m1, _ = read_counts()
+        nbytes = os.path.getsize(model)
+    launches[0] += n1 + m1
+    launches[1] += n2
+    dec, rec = (np.asarray(x).reshape(orig.shape) for x in (dec, rec))
+    lsb, same = lsb_stats(dec, rec)
+    out = {"decode_sha256_equal": [sha[k] == ref["hopper_decode_sha256"][k]
+                                   for k in ("bgr", "gray")],
+           "times": times, "q90_jpeg_bytes": len(buf),
+           "q90_jpeg_sha256_equal":
+               crop_sha == ref["hopper256_q90_jpeg"]["sha256"],
+           "fit_k1_k2": [n1, n2], "fit_wall_s": fit_s,
+           "fit_best_psnr_db": best, "encode_s": enc_s, "decode_s": dec_s,
+           "model_bytes": nbytes, "decode_k1": m1,
+           "decode_vs_encoder_max_lsb": lsb,
+           "decode_vs_encoder_identical": same}
+    print(f"anchor codec: {json.dumps(out)}", flush=True)
+    check(all(out["decode_sha256_equal"]), "grace_hopper.jpg decodes off "
+          f"cv2.imread's: {out['decode_sha256_equal']}")
+    check(out["q90_jpeg_sha256_equal"], "the port's q 90 JPEG of the "
+          "hopper crop is not cv2.imencode's")
+    check(n2 == 200 and n1 >= 200, f"cli.fit on the .jpg: K1 {n1} / K2 "
+          f"{n2} launches in 200 sweeps")
+    check(m1 == 1, f"the .jpg encode and decode launched K1 {m1} times")
+    check(lsb <= 1 and same >= 0.999, f"the .jpg fit's decode vs the "
+          f"encoder's reconstruction: {lsb} LSB, {same:.5f} identical")
+    return out
+
+
+def anchor_stills(ref, launches):
+    """Phase 26 (b): apps.anchor_jpeg on hopper, dem and mri (ANCHOR_FITS):
+    the JPEG rows against the recorded JAX script's, the SMoE rows within
+    ANCHOR_SMOE_DB_TOL of the JAX CPU rows, each row's coded file's K1
+    decode within 1 LSB of its plain decode."""
+    from smoe_tpu_torch.apps import anchor_jpeg
+    out = {}
+    for fam, flags in ANCHOR_FITS.items():
+        with app_recorders() as rec, \
+                tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            rows, _, wall = _cli(anchor_jpeg.main, ["--family", fam, *flags,
+                                                    "--device", DEVICE])
+            n1, n2 = read_counts()
+            # the row's file, the last written (the encode's rate and
+            # prune searches write their candidates before it)
+            decodes = app_decodes(f"anchor_jpeg_{fam}", rec["writes"][-1:],
+                                  tmp, dim=1 if fam in ("mri", "dem") else 3)
+        launches[0] += n1
+        launches[1] += n2
+        jpeg_rows = [r for r in rows if r["codec"] == "jpeg"]
+        smoe = [r for r in rows if r["codec"] == "smoe"]
+        bad = rows_differ(jpeg_rows, ref["jpeg_rows"][fam])
+        o = {"wall_s": wall, "k1_k2": [n1, n2], "jpeg_rows_off": bad,
+             "jpeg_rows": [[r["q"], r["bpp"], r["psnr_db"], r["ssim"]]
+                           for r in jpeg_rows],
+             "decodes": decodes}
+        if flags:
+            want = ref["smoe_rows"][fam]
+            o["smoe_row"] = smoe[0]
+            o["jax_cpu_smoe_row"] = {k: want[k] for k in (
+                "bpp", "psnr_db", "ssim", "kernels", "cpu_s")}
+            o["smoe_db_off_jax"] = smoe[0]["psnr_db"] - want["psnr_db"]
+        out[fam] = o
+        print(f"anchor_jpeg {fam}: {json.dumps(o)}", flush=True)
+        check(not bad, f"anchor_jpeg {fam}: JPEG rows off the JAX "
+              f"script's: {bad}")
+        if flags:
+            check(len(smoe) == 1 and abs(o["smoe_db_off_jax"])
+                  <= ANCHOR_SMOE_DB_TOL, f"anchor_jpeg {fam}: SMoE row "
+                  f"{smoe} vs the JAX CPU row {want}")
+            check(n2 >= 5000 and n1 >= n2 and decodes, f"anchor_jpeg {fam}: "
+                  f"K1 {n1} / K2 {n2} launches, {len(decodes)} decodes")
+    return out
+
+
+def anchor_clips(ref, vq_smoe, launches):
+    """Phase 26 (c) and (d): apps.anchor_video on the synth clip with
+    --smoe on vq_smoe (a K1 decode, held to its plain decode) and on the
+    hopper clip; apps.anchor_lf --s 24 on synth and hopper; each run's
+    JPEG rows against the recorded JAX script's."""
+    from smoe_tpu_torch.apps import anchor_lf, anchor_video
+    from smoe_tpu_torch.codec.serve import decode_bitstream
+    out = {}
+    for tex in ("synth", "hopper"):
+        argv = ["--texture", tex, "--device", DEVICE]
+        if tex == "synth":
+            argv += ["--smoe", vq_smoe]
+        reset_counts()
+        rows, _, wall = _cli(anchor_video.main, argv)
+        n1, _ = read_counts()
+        launches[0] += n1
+        jpeg_rows = [r for r in rows if r["codec"] == "jpeg-per-frame"]
+        o = {"wall_s": wall, "k1": n1,
+             "rows_off": rows_differ(jpeg_rows, ref["video_rows"][tex]),
+             "jpeg_rows": [[r["q"], r["bpp"], r["psnr_db"]]
+                           for r in jpeg_rows]}
+        if tex == "synth":
+            o["smoe_row"] = rows[-1]
+            lsb, same = lsb_stats(
+                decode_bitstream(vq_smoe, device=DEVICE),
+                decode_bitstream(vq_smoe, device=DEVICE, reference=True))
+            o["smoe_decode_vs_plain"] = [lsb, same]
+            check(n1 == 1 and lsb <= 1 and same >= 0.999,
+                  f"anchor_video --smoe: K1 {n1} launches, {lsb} LSB, "
+                  f"{same:.5f} identical to the plain decode")
+        out[f"video_{tex}"] = o
+        print(f"anchor_video {tex}: {json.dumps(o)}", flush=True)
+        check(not o["rows_off"], f"anchor_video {tex}: rows off the JAX "
+              f"script's: {o['rows_off']}")
+    for tex in ("synth", "hopper"):
+        rows, _, wall = _cli(anchor_lf.main, ["--s", "24", "--texture", tex])
+        o = {"wall_s": wall,
+             "rows_off": rows_differ(rows, ref["lf_rows"][tex]),
+             "rows": [[r["q"], r["bpp"], r["psnr_trained_db"],
+                       r["psnr_all_db"]] for r in rows]}
+        out[f"lf_{tex}"] = o
+        print(f"anchor_lf {tex}: {json.dumps(o)}", flush=True)
+        check(not o["rows_off"], f"anchor_lf {tex}: rows off the JAX "
+              f"script's: {o['rows_off']}")
+    return out
+
+
+def anchor_upsized(ref):
+    """Phase 26 (e): the content the scripts upsize with INTER_CUBIC,
+    against the sha256 recorded from them (OpenCV's own resize code)."""
+    from smoe_tpu_torch.apps import content
+    builds = {"hopper_1024": lambda: content.build_hopper(1024),
+              "mri_512": lambda: content.build_mri(512),
+              "dem_512": lambda: content.build_dem(512),
+              "lf_hopper_520": lambda: content.build_lf(s=520,
+                                                        texture="hopper")}
+    out = {}
+    for name, build in builds.items():
+        t0 = time.perf_counter()
+        a = build()
+        out[name] = {"shape": list(a.shape), "build_s":
+                     time.perf_counter() - t0,
+                     "sha256_equal": sha_of(a) == ref["upsized_sha256"][name],
+                     "sha256_equal_ipp":
+                         sha_of(a) == ref["upsized_sha256_ipp"][name]}
+        del a
+    print(f"anchor upsized: {json.dumps(out)}", flush=True)
+    check(all(o["sha256_equal"] for o in out.values()),
+          f"upsized content off the JAX scripts': {out}")
+    return out
+
+
+def anchor_phase(vq_smoe, launches):
+    """Phase 26: the JPEG anchors, (a)-(e)."""
+    import torch
+    with open(ANCHOR_REF) as f:
+        ref = json.load(f)
+    out, t = {}, time.perf_counter()
+    for key, fn in (("a_codec", lambda: anchor_codec(ref, launches)),
+                    ("b_stills", lambda: anchor_stills(ref, launches)),
+                    ("cd_clips", lambda: anchor_clips(ref, vq_smoe,
+                                                      launches)),
+                    ("e_upsized", lambda: anchor_upsized(ref))):
+        out[key] = fn()
+        out.setdefault("seconds", {})[key] = time.perf_counter() - t
+        t = time.perf_counter()
+        free_card()
+    out["card"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def anchor_summary(anchor, before, launches) -> dict:
+    """Phase 26's summary line."""
+    a, b, c = anchor["a_codec"], anchor["b_stills"], anchor["cd_clips"]
+    return {
+        "seconds": anchor["seconds"], "jpeg_host_ms": a["times"],
+        "jpg_fit": [a["fit_best_psnr_db"], a["fit_wall_s"], a["model_bytes"]],
+        "smoe_rows_db_bpp_vs_jax_cpu": {
+            f: [b[f]["smoe_row"]["psnr_db"], b[f]["smoe_row"]["bpp"],
+                b[f]["jax_cpu_smoe_row"]["psnr_db"],
+                b[f]["jax_cpu_smoe_row"]["bpp"]]
+            for f in b if "smoe_row" in b[f]},
+        "jpeg_q2_q90": {f: [b[f]["jpeg_rows"][0], b[f]["jpeg_rows"][-1]]
+                        for f in b},
+        "video_smoe_row": c["video_synth"]["smoe_row"],
+        "upsized_sha256_equal": {k: v["sha256_equal"]
+                                 for k, v in anchor["e_upsized"].items()},
+        "launches_k1_k2": [launches[i] - before[i] for i in range(2)]}
 
 
 def clock(label: str) -> None:
@@ -5499,6 +5803,16 @@ def main() -> int:
     check(all(launches[i] > before_photo[i] for i in range(3)),
           f"phase 25 launched K1 / K2 / K3 "
           f"{[launches[i] - before_photo[i] for i in range(3)]} times")
+    # phase 26: the JPEG anchors
+    before_anchor = list(launches)
+    anchor = anchor_phase(os.path.join(bench["video_quality"]["json"][0][
+        "workdir"], "auto", "model.smoe"), launches)
+    clock("phase 26")
+    print(f"anchors ({card}): " + json.dumps(anchor_summary(
+        anchor, before_anchor, launches)), flush=True)
+    check(all(launches[i] > before_anchor[i] for i in range(2)),
+          f"phase 26 launched K1 / K2 "
+          f"{[launches[i] - before_anchor[i] for i in range(2)]} times")
     check(all(n > 0 for n in launches),
           f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
           f"{launches[2]} times")
@@ -5557,7 +5871,8 @@ def main() -> int:
          "bench_phase_launches": before_graphs[0] - before_bench[0],
          "graph_phase_launches": before_programs[0] - before_graphs[0],
          "program_phase_launches": before_photo[0] - before_programs[0],
-         "photo_phase_launches": launches[0] - before_photo[0],
+         "photo_phase_launches": before_anchor[0] - before_photo[0],
+         "anchor_phase_launches": launches[0] - before_anchor[0],
          "photo_fit_ms": p_k1["ms"], "photo_fit_bound_ms": p_k1["bound_ms"],
          "photo_fit_candidate_fraction": p_k1["candidate_fraction"],
          "photo_fit_max_abs_err": p_k1["max_abs_err_res"],
@@ -5595,7 +5910,8 @@ def main() -> int:
          "bench_phase_launches": before_graphs[1] - before_bench[1],
          "graph_phase_launches": before_programs[1] - before_graphs[1],
          "program_phase_launches": before_photo[1] - before_programs[1],
-         "photo_phase_launches": launches[1] - before_photo[1],
+         "photo_phase_launches": before_anchor[1] - before_photo[1],
+         "anchor_phase_launches": launches[1] - before_anchor[1],
          "photo_fit_ms": p_k2["ms"], "photo_fit_bound_ms": p_k2["bound_ms"],
          "photo_fit_max_rel_err": p_k2["max_rel_err"],
          "grey_c1_ms": g_k2["ms"], "grey_c1_plain_ms": g_k2["plain_ms"],

@@ -4,19 +4,10 @@ alone on a machine without matplotlib or OpenCV.
 
     python scripts/make_torch_photo_data.py
 
-Needs cv2 and matplotlib (the JAX scripts' own readers).  Writes
-smoe_tpu_torch/apps/sample_data/:
-    grace_hopper.npz          bgr (600, 512, 3) uint8:
-                                  cv2.imread(path, IMREAD_COLOR)
-                              gray (600, 512) uint8:
-                                  cv2.imread(path, IMREAD_GRAYSCALE)
-                              (libjpeg's grayscale decode is not the colour
-                              decode's cvtColor: both are kept, as
-                              scripts/content.py and bench_video.py read the
-                              one and bench_lf.py the other)
-    s1045.ima.gz              byte-for-byte copies
-    jacksboro_fault_dem.npz
-and checks each source file's sha256 first.
+Needs matplotlib.  Writes byte-for-byte copies of grace_hopper.jpg,
+s1045.ima.gz and jacksboro_fault_dem.npz to
+smoe_tpu_torch/apps/sample_data/, and checks each source file's sha256
+first.  The port decodes the JPEG itself (smoe_tpu_torch/io/jpeg.py).
 """
 
 from __future__ import annotations
@@ -25,9 +16,7 @@ import hashlib
 import os
 import shutil
 
-import cv2
 import matplotlib
-import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "smoe_tpu_torch", "apps", "sample_data")
@@ -53,11 +42,7 @@ def main():
         if got != want:
             raise SystemExit(f"{name}: sha256 {got}, expected {want}")
     os.makedirs(OUT, exist_ok=True)
-    jpg = os.path.join(src, "grace_hopper.jpg")
-    np.savez_compressed(os.path.join(OUT, "grace_hopper.npz"),
-                        bgr=cv2.imread(jpg, cv2.IMREAD_COLOR),
-                        gray=cv2.imread(jpg, cv2.IMREAD_GRAYSCALE))
-    for name in ("s1045.ima.gz", "jacksboro_fault_dem.npz"):
+    for name in SHA256:
         shutil.copyfile(os.path.join(src, name), os.path.join(OUT, name))
     for name in sorted(os.listdir(OUT)):
         path = os.path.join(OUT, name)

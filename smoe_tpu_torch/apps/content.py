@@ -9,16 +9,19 @@ bench_4k.py, bench_video.py, bench_lf.py).
   text    - high-contrast thin strokes on a smooth gradient (screen
             content / document class)
   hopper  - a real photograph (matplotlib's grace_hopper.jpg), centre
-            crop, area-resized
+            crop, area-resized (cubic above its 512 x 512 crop)
   mri     - a real MRI head slice (s1045.ima.gz), one channel
   dem     - real terrain elevation (jacksboro_fault_dem.npz), one channel
 
 Each is deterministic, float32 in [0, 1], and the same array bit for bit
 as the JAX package's script gives.  The photographs are read from
-sample_data/ beside this module (matplotlib's sample data, carried by
-scripts/make_torch_photo_data.py; the JPEG decoded there by OpenCV) with
-numpy alone, and OpenCV's resize and warpAffine are apps/cv.py's copies:
-neither matplotlib nor cv2 is imported.
+sample_data/ beside this module (byte copies of matplotlib's sample data,
+carried by scripts/make_torch_photo_data.py) with numpy alone: the JPEG
+through io/jpeg.py, OpenCV's resize and warpAffine through apps/cv.py's
+copies; neither matplotlib nor cv2 is imported.  Where a script upsizes
+(cv2's INTER_CUBIC), resize_cubic follows OpenCV's own resize code, which
+an OpenCV built with Intel IPP replaces by IPP's except for a uint8
+resize by a whole factor (apps/cv.py).
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ import os
 
 import numpy as np
 
-from smoe_tpu_torch.apps.cv import (refuse_upsizing, resize_area,
+from smoe_tpu_torch.apps.cv import (resize_area, resize_cubic,
                                     rotation_matrix,
                                     warp_affine_linear_reflect)
+from smoe_tpu_torch.io.jpeg import read_jpeg
 
 SAMPLE_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "sample_data")
@@ -133,10 +137,18 @@ def _sample(name: str) -> str:
 
 
 def hopper_photo(gray: bool = False):
-    """grace_hopper.jpg as OpenCV decodes it: (600, 512, 3) uint8 BGR, or
-    libjpeg's own (600, 512) grayscale decode."""
-    with np.load(_sample("grace_hopper.npz")) as z:
-        return z["gray" if gray else "bgr"]
+    """grace_hopper.jpg as cv2.imread decodes it: (600, 512, 3) uint8 BGR
+    (IMREAD_COLOR), or libjpeg's own (600, 512) grayscale decode
+    (IMREAD_GRAYSCALE), which is not the colour decode's cvtColor."""
+    return read_jpeg(_sample("grace_hopper.jpg"),
+                     "gray" if gray else "color")
+
+
+def _resize(img, size: int, s: int):
+    """scripts/content.py's resize of an s x s crop to size x size:
+    INTER_AREA below s, INTER_CUBIC above."""
+    fn = resize_area if size < s else resize_cubic
+    return fn(img, (size, size))
 
 
 def build_hopper(size=256):
@@ -146,7 +158,7 @@ def build_hopper(size=256):
     h, w = bgr.shape[:2]
     s = min(h, w)
     r0, c0 = (h - s) // 2, (w - s) // 2
-    crop = resize_area(bgr[r0:r0 + s, c0:c0 + s], (size, size))
+    crop = _resize(bgr[r0:r0 + s, c0:c0 + s], size, s)
     rgb = crop[..., ::-1].astype(np.float32) / 255.0
     return np.clip(rgb, 0, 1)
 
@@ -158,7 +170,7 @@ def build_mri(size=256):
         a = np.frombuffer(f.read(), np.uint16).reshape(256, 256).byteswap()
     img = (a / float(a.max())).astype(np.float32)
     if size != 256:
-        img = resize_area(img, (size, size))
+        img = _resize(img, size, 256)
     return np.clip(img, 0, 1)[..., None]
 
 
@@ -172,7 +184,7 @@ def build_dem(size=256):
     r0, c0 = (h - s) // 2, (w - s) // 2
     a = a[r0:r0 + s, c0:c0 + s]
     if size != s:
-        a = resize_area(a, (size, size))
+        a = _resize(a, size, s)
     a = (a - a.min()) / (a.max() - a.min() + 1e-12)
     return np.clip(a, 0, 1).astype(np.float32)[..., None]
 
@@ -240,8 +252,10 @@ def build_video(h=288, w=352, t=8, shift=2.0, moving_obj=False,
         bgr = hopper_photo()
         ph, pw = bgr.shape[:2]                     # 600 x 512
         if ph < h or pw < wide_w:
-            refuse_upsizing(f"build_video: a {wide_w}x{h} canvas from the "
-                            f"{pw}x{ph} photograph")
+            sc = max(h / ph, wide_w / pw)
+            bgr = resize_cubic(bgr, (int(np.ceil(pw * sc)),
+                                     int(np.ceil(ph * sc))))
+            ph, pw = bgr.shape[:2]
         r0, c0 = (ph - h) // 2, (pw - wide_w) // 2
         wide = (bgr[r0:r0 + h, c0:c0 + wide_w, ::-1].astype(np.float32)
                 / 255.0)
@@ -294,8 +308,9 @@ def build_lf(views: int = 15, s: int = 48, seed: int = 3,
     if texture == "hopper":
         g = hopper_photo(gray=True).astype(np.float32) / 255.
         if min(g.shape) < side:
-            refuse_upsizing(f"build_lf: a side of {side} from the "
-                            f"{g.shape[1]}x{g.shape[0]} photograph")
+            sc = side / min(g.shape)
+            g = resize_cubic(g, (int(np.ceil(g.shape[1] * sc)),
+                                 int(np.ceil(g.shape[0] * sc))))
         gh, gw = g.shape
         tex = g[(gh - side) // 2:(gh - side) // 2 + side,
                 (gw - side) // 2:(gw - side) // 2 + side].copy()

@@ -1,15 +1,20 @@
-"""The three OpenCV operations apps/content.py uses, in numpy, with
-OpenCV's own arithmetic so its images are the JAX scripts' bit for bit
-(scripts/content.py, bench_video.py) on a machine without cv2.
+"""The OpenCV operations apps/content.py and the demos use, in numpy,
+with OpenCV's own arithmetic so their images are the JAX scripts' bit for
+bit (scripts/content.py, bench_video.py, bench_lf.py, demo_superres.py)
+on a machine without cv2.
 
-  resize_area(img, size)        cv2.resize(..., interpolation=INTER_AREA)
+  resize_area(img, size)        cv2.resize(..., interpolation=INTER_AREA),
+                                downsizing
+  resize_cubic(img, size)       cv2.resize(..., interpolation=INTER_CUBIC)
+                                in OpenCV's own resize code
   rotation_matrix(c, deg, s)    cv2.getRotationMatrix2D
   warp_affine_linear_reflect    cv2.warpAffine(flags=INTER_LINEAR,
                                 borderMode=BORDER_REFLECT) on float32
 
-Downsizing only: cv2 upsizes with INTER_CUBIC, which no content function
-needs at its default sizes, and `resize_area` raises for it (ROADMAP.md,
-"Blocked, not queued").  Host-side content code, not a kernel.
+An OpenCV built with Intel IPP hands a cubic resize to IPP's own code
+first, except a uint8 resize by a whole factor; IPP rounds otherwise than
+OpenCV (ROADMAP.md, Queue 3) and is not reproduced here.  Host-side
+content code, not a kernel.
 """
 
 from __future__ import annotations
@@ -23,12 +28,11 @@ _F32 = np.float32
 # fused multiply-adds; the columns past the last whole step take the
 # scalar tail, whose coordinates round differently
 _WARP_STEP = 16
-
-
-def refuse_upsizing(what: str):
-    raise NotImplementedError(
-        f"{what}: upsizing (cv2's INTER_CUBIC) is not ported; ROADMAP.md, "
-        "\"Blocked, not queued\", lists it")
+# the vertical pass of the cubic resize: this many values of a row a step
+# in float32 (VResizeCubicVec_32s8u: two 4-lane vectors; _32f: one), the
+# rest in the scalar tail (uint8: fixed point; float32: another order)
+_CUBIC_STEP = {np.uint8: 8, np.float32: 4}
+_CUBIC_BITS = 11                  # INTER_RESIZE_COEF_BITS
 
 
 def _area_table(ssize: int, dsize: int, scale: float):
@@ -123,7 +127,8 @@ def resize_area(img, size):
     if (dw, dh) == (w, h):
         return img.copy()
     if dw > w or dh > h:
-        refuse_upsizing(f"resize_area {w}x{h} -> {dw}x{dh}")
+        raise ValueError(f"resize_area downsizes, not {w}x{h} -> {dw}x{dh}: "
+                         "upsize with resize_cubic, as the scripts do")
     src = img.reshape(h, w, -1)
     scale_x, scale_y = 1.0 / (dw / w), 1.0 / (dh / h)
     fx, fy = round(scale_x), round(scale_y)
@@ -134,6 +139,79 @@ def resize_area(img, size):
         out = _area_general(src, dw, dh)
         if img.dtype == np.uint8:
             out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out.reshape((dh, dw) + img.shape[2:])
+
+
+def _cubic_table(ssize: int, dsize: int):
+    """One axis of cv2's INTER_CUBIC: (dsize, 4) source indices, clamped
+    to the border (BORDER_REPLICATE), and float32 weights from
+    interpolateCubic (A = -0.75) at half-pixel centres."""
+    scale = 1.0 / (dsize / ssize)
+    a, one = _F32(-0.75), _F32(1)
+    idx = np.empty((dsize, 4), np.int64)
+    w = np.empty((dsize, 4), _F32)
+    for d in range(dsize):
+        f = _F32((d + 0.5) * scale - 0.5)
+        s = math.floor(f)
+        x = _F32(f - _F32(s))
+        c0 = ((a * (x + one) - _F32(5) * a) * (x + one) + _F32(8) * a) \
+            * (x + one) - _F32(4) * a
+        c1 = ((a + _F32(2)) * x - (a + _F32(3))) * x * x + one
+        c2 = ((a + _F32(2)) * (one - x) - (a + _F32(3))) * (one - x) \
+            * (one - x) + one
+        w[d] = (c0, c1, c2, one - c0 - c1 - c2)
+        idx[d] = np.clip(np.arange(s - 1, s + 3), 0, ssize - 1)
+    return idx, w
+
+
+def resize_cubic(img, size):
+    """cv2.resize(img, size, interpolation=cv2.INTER_CUBIC) in OpenCV's own
+    resize code (resizeGeneric_ with HResizeCubic / VResizeCubic) for a
+    uint8 or float32 image (h, w) or (h, w, c); size = (width, height).
+
+    uint8: weights x 2048 rounded to int16, rows summed across exactly in
+    int32, then down: the first whole steps of 8 values of a row in
+    float32 (S0 b0 + (S1 b1 + (S2 b2 + S3 b3)) with b = w / 2^22, rounded
+    half to even), the rest as (sum + 2^21) >> 22, saturated.  float32:
+    across as ((p0 + p1) + p2) + p3, down in steps of 4 as the vector's
+    S0 b0 + (S1 b1 + (S2 b2 + S3 b3)), the tail left to right."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.float32):
+        raise TypeError(f"resize_cubic takes uint8 or float32, not "
+                        f"{img.dtype}")
+    dw, dh = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    src = img.reshape(h, w, -1)
+    xi, xw = _cubic_table(w, dw)
+    yi, yw = _cubic_table(h, dh)
+    step = _CUBIC_STEP[img.dtype.type]
+    if img.dtype == np.uint8:
+        xw = np.rint(xw * _F32(1 << _CUBIC_BITS)).astype(np.int64)
+        yw = np.rint(yw * _F32(1 << _CUBIC_BITS)).astype(np.int64)
+        s = src.astype(np.int64)
+        across = sum(s[:, xi[:, j]] * xw[None, :, j, None] for j in range(4))
+        rows = [across[yi[:, j]].reshape(dh, -1) for j in range(4)]
+        shift = 2 * _CUBIC_BITS
+        out = (sum(rows[j] * yw[:, j, None] for j in range(4))
+               + (1 << (shift - 1))) >> shift
+        b = [(yw[:, j, None] * _F32(2.0 ** -shift)).astype(_F32)
+             for j in range(4)]
+        r = [x.astype(_F32) for x in rows]
+        vec = np.rint(r[0] * b[0] + (r[1] * b[1]
+                                     + (r[2] * b[2] + r[3] * b[3])))
+    else:
+        s = src
+        across = s[:, xi[:, 0]] * xw[None, :, 0, None]
+        for j in range(1, 4):
+            across = across + s[:, xi[:, j]] * xw[None, :, j, None]
+        r = [across[yi[:, j]].reshape(dh, -1) for j in range(4)]
+        b = [yw[:, j, None] for j in range(4)]
+        out = r[0] * b[0] + r[1] * b[1] + r[2] * b[2] + r[3] * b[3]
+        vec = r[0] * b[0] + (r[1] * b[1] + (r[2] * b[2] + r[3] * b[3]))
+    n = out.shape[1] // step * step
+    out[:, :n] = vec[:, :n]
+    if img.dtype == np.uint8:
+        out = np.clip(out, 0, 255).astype(np.uint8)
     return out.reshape((dh, dw) + img.shape[2:])
 
 

@@ -30,14 +30,11 @@ def psnr(a, b):
 
 
 def bicubic(img: np.ndarray, shape) -> np.ndarray:
-    """(H, W, C) float -> `shape` (h, w) by bicubic interpolation with
-    half-pixel centers, as cv2.resize(..., INTER_CUBIC) takes them."""
-    import torch
-    x = torch.as_tensor(np.ascontiguousarray(img), dtype=torch.float32)
-    y = torch.nn.functional.interpolate(
-        x.permute(2, 0, 1)[None], size=tuple(shape), mode="bicubic",
-        align_corners=False)
-    return y[0].permute(1, 2, 0).numpy()
+    """(H, W, C) float -> `shape` (h, w) as the script's
+    cv2.resize(..., interpolation=INTER_CUBIC) (apps/cv.py:resize_cubic,
+    OpenCV's own arithmetic on float32)."""
+    from smoe_tpu_torch.apps.cv import resize_cubic
+    return resize_cubic(np.asarray(img, np.float32), (shape[1], shape[0]))
 
 
 def trainer(lo, k: int, device, **cfg):

@@ -21,7 +21,7 @@ params_best.pkl / params_last.pkl and, with -qm != 0, model_last.smoe and
 model_best.smoe (the global best), which smoe_tpu_torch.cli.reconstruct
 and smoe_tpu_torch.cli.decode read.  With `--device cuda` (the default)
 and no GPU present it fails rather than carry on on the CPU.  The input is
-a PNG, an .npz video bundle (cv2's containers need OpenCV's decoder:
+a PNG, JPEG or binary PGM / PPM still, an .npz video bundle (cv2's containers need OpenCV's decoder:
 convert them to .npz) or a .mat light field (a v7.3 file needs h5py).
 
 --coordinator_address host:port --num_processes N --process_id R (or

@@ -11,11 +11,11 @@ With no allocation flag it runs the automatic encode (--auto-bd 0.05
 --prune 0).  Its quantized evals run on the trainer's exact plain path
 (torch ops); the .smoe it writes decodes through the Hopper kernel K1
 (smoe_tpu_torch.cli.decode).  With `--device cuda` (the default) and no
-GPU present it fails rather than carry on on the CPU.  The input is a PNG
-(d = 2), an .npz video bundle (d = 3; the output is a raw I420 .yuv, and
-the .smoe carries the motion rows and the dual model's mask) or a .mat
-light field (`LF` (U, V, H, W, C); d = 4: the output is `output.mat` and
-a d = 4 .smoe).
+GPU present it fails rather than carry on on the CPU.  The input is a PNG,
+JPEG or binary PGM / PPM still (d = 2), an .npz video bundle (d = 3; the
+output is a raw I420 .yuv, and the .smoe carries the motion rows and the
+dual model's mask) or a .mat light field (`LF` (U, V, H, W, C); d = 4:
+the output is `output.mat` and a d = 4 .smoe).
 """
 
 from __future__ import annotations

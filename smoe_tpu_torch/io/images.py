@@ -1,6 +1,7 @@
 """Image, video and light-field input and output of the port (from
-smoe_tpu/io/images.py:24-191; PNG images, `.npz` video bundles and `.mat`
-light fields in, PNG, raw I420 `.yuv` video and `.mat` light fields out).
+smoe_tpu/io/images.py:24-191; PNG, JPEG and binary PGM / PPM images,
+`.npz` video bundles and `.mat` light fields in, PNG, raw I420 `.yuv`
+video and `.mat` light fields out).
 
 Written in numpy, zlib and struct alone, so it runs where OpenCV and PIL
 are absent:
@@ -12,8 +13,15 @@ are absent:
     on float32 (OpenCV's scalar loop; its vector loop, which wide float
     rows take, can round the last bit otherwise), so `read_image` gives
     the JAX package's values;
+  * a `.jpg` / `.jpeg` decodes through `io/jpeg.py` (libjpeg-turbo's
+    arithmetic, OpenCV's pixels bit for bit; EXIF orientation ignored, as
+    IMREAD_UNCHANGED ignores it), a binary `.pgm` / `.ppm` (P5 / P6, 8-
+    or 16-bit, its values as stored) through `read_pnm`;
   * `read_image` keeps the JAX reader's gray auto-detect, alpha drop and
     uint16 scaling;
+  * `read_color` is `cv2.imread(path, IMREAD_COLOR)`: 8-bit BGR, gray
+    replicated, alpha dropped, 16-bit to its high byte, a JPEG's EXIF
+    orientation applied;
   * `yuv_to_bgr` is OpenCV's integer `COLOR_YUV2BGR` (color_yuv: 14-bit
     fixed-point coefficients 2.032 / -0.395 / -0.581 / 1.140, round half
     up by CV_DESCALE, saturating), so the PNG matches `cv2.cvtColor`;
@@ -29,9 +37,10 @@ are absent:
     h5py when it imports; without h5py a v7.3 file raises the JAX
     package's ValueError naming the conversion.  `write_image` writes
     d = 4 through `scipy.io.savemat`, or as v7.3 through h5py.
-Other image formats and cv2's video containers (`.mp4`, `.avi`, ...: the
-card's machine has no OpenCV to decode them; convert to `.npz`) raise
-NotImplementedError.
+TIFF, ASCII PNM, progressive or arithmetic-coded JPEG and cv2's video
+containers (`.mp4`, `.avi`, ...: the card's machine has no OpenCV to
+decode them; convert to `.npz`) raise NotImplementedError naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ import zlib
 from typing import Optional, Tuple
 
 import numpy as np
+
+from smoe_tpu_torch.io.jpeg import ROADMAP, read_jpeg
 
 _YUV_SHIFT = 14
 # OpenCV's YUV -> RGB coefficients (R from V, G from V, G from U, B from U)
@@ -177,6 +188,69 @@ def read_png(path: str) -> np.ndarray:
     return img[..., [2, 1, 0, 3][:ch]]          # RGB(A) -> BGR(A)
 
 
+def read_pnm(path: str) -> np.ndarray:
+    """A binary PGM (P5) or PPM (P6) as cv2.imread(path, IMREAD_UNCHANGED)
+    reads it: (H, W) gray or (H, W, 3) BGR, uint8 for a maxval below 256
+    and big-endian uint16 above, the values as stored (not rescaled)."""
+    with open(path, "rb") as fd:
+        buf = fd.read()
+    fields, i = [], 2
+    magic = buf[:2]
+    if magic not in (b"P5", b"P6"):
+        raise NotImplementedError(
+            f"{path}: PNM {magic!r}; smoe_tpu_torch reads binary P5 / P6 "
+            f"files ({ROADMAP})")
+    while len(fields) < 3:
+        while buf[i:i + 1].isspace():
+            i += 1
+        if buf[i:i + 1] == b"#":
+            i = buf.index(b"\n", i) + 1
+            continue
+        j = i
+        while not buf[j:j + 1].isspace():
+            j += 1
+        fields.append(int(buf[i:j]))
+        i = j
+    i += 1                              # the one whitespace after maxval
+    w, h, maxval = fields
+    ch = 3 if magic == b"P6" else 1
+    dt = np.dtype(">u2") if maxval > 255 else np.dtype(np.uint8)
+    img = np.frombuffer(buf, dt, h * w * ch, i).astype(
+        np.uint16 if maxval > 255 else np.uint8).reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img[..., ::-1].copy()
+
+
+def read_still(path: str) -> np.ndarray:
+    """A still image as cv2.imread(path, IMREAD_UNCHANGED) returns it: PNG,
+    JPEG or binary PGM / PPM; TIFF raises NotImplementedError."""
+    p = path.lower()
+    if p.endswith(".png"):
+        return read_png(path)
+    if p.endswith((".jpg", ".jpeg")):
+        return read_jpeg(path, "unchanged")
+    if p.endswith((".pgm", ".ppm")):
+        return read_pnm(path)
+    raise NotImplementedError(
+        f"{path}: smoe_tpu_torch reads PNG, JPEG and binary PGM / PPM "
+        f"stills; TIFF is not read yet ({ROADMAP}); convert to PNG")
+
+
+def read_color(path: str) -> np.ndarray:
+    """cv2.imread(path, IMREAD_COLOR): (H, W, 3) uint8 BGR; a gray image
+    replicated, alpha dropped, 16-bit samples to their high byte, a JPEG's
+    EXIF orientation applied."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        return read_jpeg(path, "color")
+    img = read_still(path)
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[2] == 1:
+        return np.repeat(img, 3, -1)
+    return np.ascontiguousarray(img[..., :3])
+
+
 def read_mat(path: str) -> np.ndarray:
     """The `LF` array of a `.mat` light field (images.py:69-85): MATLAB v5 /
     v7 through scipy.io.loadmat; v7.3, an HDF5 container that loadmat
@@ -199,15 +273,16 @@ def read_mat(path: str) -> np.ndarray:
 def read_image(path: str, use_yuv: bool = True
                ) -> Tuple[np.ndarray, int, Optional[np.ndarray]]:
     """images.py:24-114: (float image in [0, 1], precision 8 or 16,
-    affines or None).  A PNG gives (H, W, C): gray auto-detect, alpha
-    dropped, BGR -> YUV when use_yuv; uint16 scales by 1 / 2^16 as in JAX.
+    affines or None).  A PNG, JPEG, PGM or PPM gives (H, W, C): gray
+    auto-detect, alpha dropped, BGR -> YUV when use_yuv; uint16 scales by
+    1 / 2^16 as in JAX.
     A `.npz` bundle gives a video (H, W, T, C) and its (T, 2|3, 3)
     affines.  A `.mat` light field gives (U, V, H, W, C) with at most three
     channels, RGB -> YUV per view when use_yuv and C = 3."""
     affines = None
     p = path.lower()
-    if p.endswith(".png"):
-        orig = read_png(path)
+    if p.endswith(IMG_EXT):
+        orig = read_still(path)
         if orig.ndim == 2:
             orig = orig[..., None]
         elif orig.shape[2] >= 3:
@@ -224,9 +299,6 @@ def read_image(path: str, use_yuv: bool = True
                     f = orig.astype(np.float32) / np.iinfo(orig.dtype).max
                     f = bgr_to_yuv(f)
                     orig = (f * np.iinfo(orig.dtype).max).astype(orig.dtype)
-    elif p.endswith(IMG_EXT):
-        raise NotImplementedError(
-            f"{path}: smoe_tpu_torch reads PNG images only; convert to PNG")
     elif p.endswith(".npz"):
         # a video bundle with its per-frame affines (images.py:93-101)
         with np.load(path) as npz:

@@ -58,9 +58,43 @@ def test_every_module_imports_without_jax():
     out = _run(extra="""
 assert {"smoe_tpu_torch.bench.flagship", "smoe_tpu_torch.bench.decode",
         "smoe_tpu_torch.apps.exp_a_domain",
-        "smoe_tpu_torch.apps.dryrun_tp_bigk"} <= set(names)
+        "smoe_tpu_torch.apps.dryrun_tp_bigk", "smoe_tpu_torch.io.jpeg",
+        "smoe_tpu_torch.apps.anchor_jpeg", "smoe_tpu_torch.apps.anchor_video",
+        "smoe_tpu_torch.apps.anchor_lf"} <= set(names)
 """, prelude=_BLOCK)
-    assert int(out.split()[-1]) >= 68
+    assert int(out.split()[-1]) >= 72
+
+
+def test_jpeg_and_anchor_paths_run_without_jax():
+    """The JPEG codec, the upsized content, the three anchors and a .jpg
+    through cli.fit, in a process where jax, smoe_tpu, matplotlib and cv2
+    are refused at import."""
+    extra = """
+import contextlib, io, os, shutil, tempfile
+import numpy as np
+from smoe_tpu_torch.apps import anchor_jpeg, anchor_lf, anchor_video, content
+from smoe_tpu_torch.cli import fit
+from smoe_tpu_torch.io import jpeg
+assert content.hopper_photo().shape == (600, 512, 3)
+assert content.build_mri(300).shape == (300, 300, 1)
+d = tempfile.mkdtemp()
+path = os.path.join(d, "h.jpg")
+with open(path, "wb") as f:
+    f.write(jpeg.encode(np.uint8(content.build_hopper(32) * 255)[..., ::-1],
+                        90))
+with contextlib.redirect_stdout(io.StringIO()), \
+        contextlib.redirect_stderr(io.StringIO()):
+    rows = anchor_jpeg.main(["--family", "dem", "--size", "32", "--device",
+                             "cpu"])
+    rows += anchor_video.main(["--device", "cpu"])[:1]
+    rows += anchor_lf.main(["--s", "8"])[:1]
+    s = fit.main(["-i", path, "-r", os.path.join(d, "fit"), "-k", "2", "-n",
+                  "2", "-v", "2", "--device", "cpu"])
+assert len(rows) == 10 and all(r["bpp"] > 0 for r in rows)
+assert s.get_num_pis()[-1][1] == 4
+shutil.rmtree(d)
+"""
+    _run(extra, prelude=_BLOCK)
 
 
 def test_decode_path_runs_without_jax():
