@@ -3,7 +3,8 @@ ablation variants, encode CLI, fit CLI with its plots, video path,
 light-field path, SV residual / subsampling, mesh paths, applications,
 bench modules, the graphed training chunk, the other graphed programs
 (evals, LS refresh, encode, decoder, NCCL mesh sweep) and the
-real-photograph path on one NVIDIA GPU.
+real-photograph path, the JPEG anchors and the still readers with the
+16-bit fit on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -303,7 +304,12 @@ no result line) on any fault:
      2D real-photograph recipe: the photograph as a PNG, cli.fit -k 12
      -n 5000 -lsinit auto -lsri 100 -iukl 1, the automatic encode,
      cli.decode within 1 LSB (>= 99.9 % identical) of the encoder's
-     reconstruction and within 0.01 dB of its PSNR; (d) K1 and K2's grey
+     reconstruction and within 0.01 dB of its PSNR, then three more
+     members of the recipe (nu_e moved by 1 ulp in a seeded half right
+     after the LS init), each member's dB, bpp and auto-bd choice printed
+     beside the JAX CLI's members (tests/data/photo_cli_ref.json,
+     scripts/make_torch_photo_cli_record.py), the mean decoded dB within
+     PHOTO_CLI_DB_TOL of theirs; (d) K1 and K2's grey
      instance (F = 7, E = 3, C = 1) against plain at 256^2 x K144, then
      apps.rd_curve --family mri and dem at the script's defaults, every
      coded point's K1 decode within 1 LSB of its plain decode; (e)
@@ -333,6 +339,24 @@ no result line) on any fault:
      the hopper clip; (d) apps.anchor_lf --s 24 on synth and hopper;
      (e) the upsized content (hopper 1024, mri 512, dem 512, the hopper
      light field at s = 520) against its recorded sha256.
+ 27. the stills (io/images.py, io/tiff.py, io/jpeg.py;
+     tests/data/stills/ and stills_ref.json, written with cv2, PIL and the
+     JAX reader by scripts/make_torch_still_fixtures.py): (a) every
+     fixture (PNG kinds, PNM P1-P4, TIFF kinds, progressive, cut
+     progressive, 4:1:1, 4:4:0, CMYK and YCCK JPEG, files named for
+     another format) through read_still, read_color and read_image, each
+     array's sha256 the recorded cv2 / JAX one, host ms each; (b) the
+     16-bit DEM (dem16.tif, 256^2, 144 kernels, precision 16, cull
+     0.5 / 2^16) and its 8-bit PNG through cli.fit -k 12 -n 5000 -lsinit
+     auto -lsri 100 -iukl 1, the automatic encode and cli.decode: the
+     .smoe header's precision, the decode's PNG within 1 LSB of the
+     encoder's reconstruction (>= 99.9 % of values), the decoded dB within
+     STILL_DB_TOL of the JAX CLI's recorded run, 20 sweeps of the kernel
+     path against the plain path (mse within TRAJ_RTOL), K1 and K2 on
+     each fit's final raster operands against plain with times, bounds
+     and candidate fraction; (c) hopper_prog.jpg through cli.fit -k 12
+     -n 200 -qm 1, cli.reconstruct and cli.decode within 1 LSB (>= 99.9 %
+     identical) of the encoder's reconstruction.
 Launch counts are zeroed before each path and read after it; the launches
 made to compare a kernel with its plain version are not counted.  Under a
 graph a capture takes back the launches it counted and each replay adds
@@ -355,6 +379,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -4624,6 +4649,12 @@ PHOTO_MEMBERS = 4
 # automatic encode)
 PHOTO_CLI = ["-k", "12", "-n", "5000", "-lsinit", "auto", "-lsri", "100",
              "-iukl", "1"]
+# the CLI recipe's members against the JAX CLI's (ROADMAP Queue 3): the
+# mean decoded dB within the anchors' tolerance (PERF.md section 2)
+PHOTO_CLI_REF = os.path.join(HERE, "tests", "data", "photo_cli_ref.json")
+PHOTO_CLI_DB_TOL = 0.5
+_AUTO_BD = re.compile(r"auto-bd: \[([0-9, ]+)\] nu_anchor=(\d+) "
+                      r"gamma_anchor=(\d+)")
 # BASELINE.md:105's hard real-motion clip with line 20's composed recipe,
 # cut to 3/5 of phase 22's lengths (600 + 4 slabs of 300, 5x the last):
 # at phase 22's 1000 / 500 it took 104.8 s of phase 25's 144.9 s
@@ -4922,6 +4953,98 @@ def photo_fit(img, ref, thr, floor, launches):
     return out
 
 
+@contextlib.contextmanager
+def member_init(member: int):
+    """Within: a trainer's first ls_init_experts (the CLI's LS init) is
+    followed by member `member`'s 1-ulp move of a seeded half of nu_e,
+    as photo_smoe moves its members' (none for member 0); the same move
+    scripts/make_torch_photo_cli_record.py makes in the JAX CLI."""
+    from smoe_tpu_torch.fit.trainer import PARAM_FIELDS, Smoe
+    real = Smoe.ls_init_experts
+    moved = set()
+
+    def ls_init_experts(self, *a, **kw):
+        out = real(self, *a, **kw)
+        if member and id(self) not in moved:
+            moved.add(id(self))
+            p = {f: getattr(self.params, f).detach().cpu().numpy().copy()
+                 for f in PARAM_FIELDS}
+            nu = p["nu_e"]
+            up = np.random.default_rng(member).random(nu.shape) < 0.5
+            nu[up] = np.nextafter(nu[up], np.float32(np.inf))
+            self.set_params(p)
+        return out
+    Smoe.ls_init_experts = ls_init_experts
+    try:
+        yield
+    finally:
+        Smoe.ls_init_experts = real
+
+
+def cli_recipe(path, tmp, flags, launches, member=0):
+    """cli.fit with `flags` on the still `path` (member `member`), the
+    automatic encode of params_best.pkl and cli.decode of its model.smoe,
+    on the card: the trainer's operands at its last sweep, the rows,
+    reconstruction, decode, auto-bd choice, times and launches."""
+    from smoe_tpu_torch.cli import decode, fit, reconstruct
+    from smoe_tpu_torch.codec.bitstream import read_header
+    from smoe_tpu_torch.io.images import read_image
+    d = os.path.join(tmp, f"fit{member}")
+    reset_counts()
+    with member_init(member):
+        smoe, _, fit_s = _cli(fit.main, ["-i", path, "-r", d, "--device",
+                                         DEVICE] + flags)
+    n1, n2 = read_counts()
+    sweeps = smoe.phase_timer.as_dict()["train_sweeps"]
+    n = int(flags[flags.index("-n") + 1])
+    cfg = smoe.cfg
+    fargs = trainer_kernel_args(smoe)
+    del smoe
+    free_card()
+    orig = read_image(path, cfg.use_yuv)[0]
+    reset_counts()
+    enc = os.path.join(tmp, f"enc{member}")
+    rec, log, enc_s = _cli(reconstruct.main, [
+        "-i", path, "-p", os.path.join(d, "params_best.pkl"), "-r", enc,
+        "--device", DEVICE])
+    model = os.path.join(enc, "model.smoe")
+    dec_dir = os.path.join(tmp, f"dec{member}")
+    dec, _, dec_s = _cli(decode.main, ["-p", model, "-r", dec_dir,
+                                       "--device", DEVICE])
+    m1, _ = read_counts()
+    launches[0] += n1 + m1
+    launches[1] += n2
+    dec, rec = (np.asarray(x).reshape(orig.shape) for x in (dec, rec))
+    m = _AUTO_BD.search(log)
+    nbytes = os.path.getsize(model)
+    return {"member": member, "k1_k2": [n1, n2], "decode_k1": m1,
+            "sweeps": n, "precision": cfg.precision,
+            "header_precision": int(read_header(model).get("precision", 8)),
+            "best_db": max(r["psnr_db"] for r in _metrics(d)),
+            "decoded_db": float(10 * np.log10(1 / np.mean(
+                (dec.astype(np.float64) - orig) ** 2))),
+            "file_bytes": nbytes,
+            "bpp": nbytes * 8 / (orig.shape[0] * orig.shape[1]),
+            "bit_depths": [int(v) for v in m.group(1).split(",")],
+            "nu_anchor": int(m.group(2)), "gamma_anchor": int(m.group(3)),
+            "s_per_iter": sweeps["total_s"] / n, "fit_wall_s": fit_s,
+            "encode_s": enc_s, "decode_s": dec_s,
+            "png": os.path.join(dec_dir, "output.png")}, orig, rec, dec, \
+        fargs
+
+
+def photo_cli_members(png, tmp, launches) -> list:
+    """Phase 25 (c)'s members 1 .. PHOTO_MEMBERS - 1 of the CLI recipe."""
+    rows = []
+    for m in range(1, PHOTO_MEMBERS):
+        row = cli_recipe(png, tmp, PHOTO_CLI, launches, member=m)[0]
+        check(row["k1_k2"][1] == row["sweeps"], f"photo CLI member {m}: "
+              f"K2 launched {row['k1_k2'][1]} times")
+        rows.append(row)
+        free_card()
+    return rows
+
+
 def photo_cli(img, launches):
     """Phase 25 (c): BASELINE.md:14's 2D real-photograph recipe through
     the CLIs: build_hopper(256) as an RGB PNG (its 8-bit values / 255
@@ -4959,6 +5082,7 @@ def photo_cli(img, launches):
                                            "--device", DEVICE])
         m1, _ = read_counts()
         nbytes = os.path.getsize(path)
+        members = photo_cli_members(png, tmp, launches)
     launches[0] += n1 + m1
     launches[1] += n2
     dec, rec = (np.asarray(x).reshape(orig.shape) for x in (dec, rec))
@@ -4983,7 +5107,28 @@ def photo_cli(img, launches):
            "decode_vs_encoder_max_lsb": lsb,
            "decode_vs_encoder_identical": same, "decode_k1": m1,
            "baseline_md": {"psnr_db": 23.72, "bpp": 0.293}}
+    m = _AUTO_BD.search(enc_log)
+    keys = ("member", "best_db", "decoded_db", "bpp", "bit_depths",
+            "nu_anchor", "gamma_anchor")
+    port = [{"member": 0, "best_db": out["best_psnr_db"],
+             "decoded_db": psnr_dec, "bpp": out["bpp"],
+             "bit_depths": [int(v) for v in m.group(1).split(",")],
+             "nu_anchor": int(m.group(2)), "gamma_anchor": int(m.group(3))}
+            ] + [{k: r[k] for k in keys} for r in members]
+    with open(PHOTO_CLI_REF) as f:
+        jax_rows = [{k: r[k] for k in keys} for r in json.load(f)["members"]]
+    out["members"] = {"port": port, "jax_cpu": jax_rows}
+    mean_port = float(np.mean([r["decoded_db"] for r in port]))
+    mean_jax = float(np.mean([r["decoded_db"] for r in jax_rows]))
+    out["members_mean_decoded_db_bpp_port_jax"] = [
+        mean_port, float(np.mean([r["bpp"] for r in port])), mean_jax,
+        float(np.mean([r["bpp"] for r in jax_rows]))]
     print(f"photo CLI recipe: {json.dumps(out)}", flush=True)
+    print("photo CLI members (port on the card | JAX CLI on a CPU): "
+          + json.dumps(out["members"]), flush=True)
+    check(abs(mean_port - mean_jax) <= PHOTO_CLI_DB_TOL, f"photo CLI "
+          f"members: mean decoded {mean_port:.3f} dB, the JAX CLI's "
+          f"{mean_jax:.3f}")
     check(n2 == n and n1 >= n, f"photo cli.fit: K1 {n1} / K2 {n2} launches "
           f"in {n} sweeps")
     check(m1 == 1, f"the photo encode and decode launched K1 {m1} times, "
@@ -5157,6 +5302,8 @@ def photo_summary(photo, before, launches) -> dict:
             "best_psnr_db", "decoded_psnr_db", "decoded_psnr_rgb_db",
             "file_bytes", "bpp",
             "s_per_iter", "fit_wall_s", "encode_s")},
+        "cli_members_mean_decoded_db_bpp_port_jax":
+            cli["members_mean_decoded_db_bpp_port_jax"],
         "grey_k1_ms_plain_ms": [grey["k1"]["ms"], grey["k1"]["plain_ms"]],
         "grey_k2_ms_plain_ms": [grey["k2"]["ms"], grey["k2"]["plain_ms"]],
         "rd_curve_points": {f: [[p["bpp"], p["qpsnr_db"]]
@@ -5438,6 +5585,214 @@ def anchor_summary(anchor, before, launches) -> dict:
         "upsized_sha256_equal": {k: v["sha256_equal"]
                                  for k, v in anchor["e_upsized"].items()},
         "launches_k1_k2": [launches[i] - before[i] for i in range(2)]}
+
+
+STILLS = os.path.join(HERE, "tests", "data", "stills")
+STILLS_REF = os.path.join(HERE, "tests", "data", "stills_ref.json")
+# the DEM fits' decoded dB against the JAX CLI's CPU run at the same
+# flags: the anchors' tolerance (PERF.md section 2)
+STILL_DB_TOL = 0.5
+STILL_HELD = 20             # sweeps of the 16-bit fit, kernel vs plain path
+
+
+def still_parity(ref):
+    """Phase 27 (a): every fixture through read_still, read_color and
+    read_image against the sha256 cv2 and the JAX reader gave, with each
+    call's host ms; cv2 and PIL never imported."""
+    from smoe_tpu_torch.io import images
+    rows, bad = {}, []
+    for name, want in sorted(ref["files"].items()):
+        path = os.path.join(STILLS, name)
+        row = {}
+        for key, fn in (("unchanged", images.read_still),
+                        ("color", images.read_color),
+                        ("read_image", images.read_image)):
+            t0 = time.perf_counter()
+            try:
+                got = fn(path)
+            except ValueError:
+                got = None
+            row[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3
+            if key == "read_image":
+                ok = got is not None and [sha_of(got[0]), got[1]] == [
+                    want[key]["sha256"], want[key]["precision"]]
+            elif want[key] is None:     # cv2.imread returned None
+                ok = got is None
+            else:
+                ok = got is not None and [sha_of(got), str(got.dtype)] == [
+                    want[key]["sha256"], want[key]["dtype"]]
+            if not ok:
+                bad.append(f"{name} {key}")
+        rows[name] = row
+    blocked = [m for m in ("cv2", "PIL") if m in sys.modules]
+    out = {"files": len(rows), "sha256_equal": 3 * len(rows) - len(bad),
+           "host_ms": rows, "cv2_or_pil_loaded": blocked}
+    print(f"stills parity: {json.dumps(out)}", flush=True)
+    check(not bad, f"stills read off cv2 / the JAX reader: {bad}")
+    check(not blocked, f"{blocked} imported by the readers")
+    return out
+
+
+def still_fit(path, name, ref_row, tmp, launches):
+    """Phase 27 (b), one depth: the CLI recipe on the DEM (`cli_recipe`),
+    the .smoe header's precision, the decode's PNG against the encoder's
+    reconstruction at the image's depth, the decoded dB beside the JAX
+    CLI's, K1 and K2 on the fit's last raster operands."""
+    from smoe_tpu_torch.io.images import read_still
+    row, orig, rec, dec, fargs = cli_recipe(path, tmp, PHOTO_CLI, launches)
+    *fargs, thr, floor = fargs
+    top = 2 ** row["precision"]
+    png = read_still(row["png"]).astype(np.int64)
+    want = np.round(np.clip(rec * (top if top > 256 else 255), 0,
+                            (top - 1) if top > 256 else 255)).astype(
+        np.int64).reshape(png.shape)
+    off = np.abs(png - want)
+    row.update({"thr": thr, "png_dtype": str(read_still(row["png"]).dtype),
+                "decode_vs_encoder_max_lsb": int(off.max()),
+                "decode_vs_encoder_within_1_lsb": float(np.mean(off <= 1)),
+                "decode_vs_encoder_identical": float(np.mean(off == 0)),
+                "jax_cpu": {k: ref_row[k] for k in (
+                    "best_db", "decoded_db", "bpp", "bit_depths",
+                    "nu_anchor", "gamma_anchor")}})
+    row["raster"] = compare_raster(f"still {name}, last sweep", fargs, thr,
+                                   floor, 27)
+    del fargs
+    free_card()
+    print(f"still fit {name}: " + json.dumps(
+        {k: v for k, v in row.items() if k != "raster"}), flush=True)
+    n = row["sweeps"]
+    check(row["k1_k2"][1] == n and row["k1_k2"][0] >= n, f"{name}: K1 / K2 "
+          f"launched {row['k1_k2']} times in {n} sweeps")
+    check(row["decode_k1"] == 1, f"{name}: the encode and decode launched "
+          f"K1 {row['decode_k1']} times")
+    check(row["decode_vs_encoder_within_1_lsb"] >= 0.999, f"{name}: the "
+          f"decode within 1 LSB of the encoder's reconstruction for "
+          f"{row['decode_vs_encoder_within_1_lsb']:.5f} of values")
+    check(abs(row["decoded_db"] - ref_row["decoded_db"]) <= STILL_DB_TOL,
+          f"{name}: decoded {row['decoded_db']:.3f} dB, the JAX CLI's "
+          f"{ref_row['decoded_db']:.3f}")
+    return row
+
+
+def still_paths(img, launches):
+    """Phase 27 (b): STILL_HELD sweeps of the 16-bit DEM's trainer (the
+    CLI's configuration: 12 x 12 kernels, in-graph lists, precision 16)
+    on the kernel path and the plain path from one init."""
+    from smoe_tpu_torch.fit.trainer import Smoe
+    mse = []
+    for mode in (KERNEL_MODE, "off"):
+        s = Smoe(img, kernels_per_dim=[12], precision=16, in_graph_ukl=True,
+                 use_pallas=mode, device=DEVICE)
+        s.set_optimizer()
+        reset_counts()
+        mse.append(np.asarray(s.run_batched_chunk(STILL_HELD)[1],
+                              np.float64))
+        counts = read_counts()
+        if mode == KERNEL_MODE:
+            launches[0] += counts[0]
+            launches[1] += counts[1]
+            k1_k2 = list(counts)
+        else:
+            check(counts == (0, 0), "the 16-bit plain path launched a "
+                  "kernel")
+        del s
+        free_card()
+    rel = float(np.max(np.abs(mse[0] - mse[1]) / mse[1]))
+    check(k1_k2[1] == STILL_HELD, f"the 16-bit kernel path launched K2 "
+          f"{k1_k2[1]} times in {STILL_HELD} sweeps")
+    check(rel <= TRAJ_RTOL, f"the 16-bit fit's kernel path off the plain "
+          f"path by {rel:.2e} in {STILL_HELD} sweeps")
+    return {"sweeps": STILL_HELD, "mse_max_rel": rel, "k1_k2": k1_k2}
+
+
+def still_phase(launches):
+    """Phase 27: the stills, (a)-(c)."""
+    import torch
+    from smoe_tpu_torch.apps import content
+    from smoe_tpu_torch.io.images import read_image, write_png
+    with open(STILLS_REF) as f:
+        ref = json.load(f)
+    out, t = {}, time.perf_counter()
+
+    def mark(key):
+        nonlocal t
+        out.setdefault("seconds", {})[key] = time.perf_counter() - t
+        t = time.perf_counter()
+        free_card()
+
+    out["a_parity"] = still_parity(ref)
+    mark("a_parity")
+    dem16 = os.path.join(STILLS, "dem16.tif")
+    img16, prec, _ = read_image(dem16)
+    check(prec == 16, f"dem16.tif reads at precision {prec}")
+    out["b_paths"] = still_paths(img16, launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["b_dem16"] = still_fit(dem16, "dem16.tif", ref["cli"][
+            "dem16.tif"], tmp, launches)
+        png8 = os.path.join(tmp, "dem8.png")
+        write_png(png8, np.uint8(np.round(
+            content.build_family("dem", 256)[..., 0] * 255)))
+        out["b_dem8"] = still_fit(png8, "dem8.png", ref["cli"]["dem8.png"],
+                                  tmp, launches)
+    d16 = out["b_dem16"]
+    check(d16["header_precision"] == 16 and d16["precision"] == 16
+          and d16["thr"] == 0.5 / 2 ** 16 and d16["png_dtype"] == "uint16",
+          f"the 16-bit fit: precision {d16['precision']}, header "
+          f"{d16['header_precision']}, cull {d16['thr']}, PNG "
+          f"{d16['png_dtype']}")
+    mark("b_fits")
+    with tempfile.TemporaryDirectory() as tmp:
+        row, orig, rec, dec, fargs = cli_recipe(
+            os.path.join(STILLS, "hopper_prog.jpg"), tmp,
+            ["-k", "12", "-n", "200", "-qm", "1"], launches)
+        del fargs
+        lsb, same = lsb_stats(dec, rec)
+    row.update({"decode_vs_encoder_max_lsb": lsb,
+                "decode_vs_encoder_identical": same})
+    out["c_progressive"] = row
+    print(f"still progressive jpeg: {json.dumps(row)}", flush=True)
+    check(row["k1_k2"][1] == 200, f"the progressive .jpg fit launched K2 "
+          f"{row['k1_k2'][1]} times in 200 sweeps")
+    check(lsb <= 1 and same >= 0.999, f"the progressive .jpg decode vs "
+          f"the encoder's reconstruction: {lsb} LSB, {same:.5f} identical")
+    mark("c_progressive")
+    out["card"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def still_summary(still, before, launches) -> dict:
+    """Phase 27's summary line."""
+    a = still["a_parity"]
+    slowest = max(a["host_ms"].items(),
+                  key=lambda kv: kv[1]["unchanged_ms"])
+    fits = {}
+    for key in ("b_dem16", "b_dem8"):
+        r = still[key]
+        fits[key[2:]] = {
+            "s_per_iter": r["s_per_iter"], "best_db": r["best_db"],
+            "decoded_db": r["decoded_db"], "bpp": r["bpp"],
+            "bit_depths": r["bit_depths"], "k1_k2": r["k1_k2"],
+            "jax_cpu_decoded_db_bpp": [r["jax_cpu"]["decoded_db"],
+                                       r["jax_cpu"]["bpp"]],
+            "decode_within_1_lsb_identical": [
+                r["decode_vs_encoder_within_1_lsb"],
+                r["decode_vs_encoder_identical"]],
+            "k1": {k: r["raster"]["k1"][k] for k in (
+                "ms", "bound_ms", "candidate_fraction", "survivors")},
+            "k2": {k: r["raster"]["k2"][k] for k in (
+                "ms", "bound_ms", "max_rel_err")}}
+    return {"seconds": still["seconds"],
+            "parity_sha256_equal": [a["sha256_equal"], 3 * a["files"]],
+            "dem16_read_ms": a["host_ms"]["dem16.tif"]["unchanged_ms"],
+            "hopper_prog_read_ms":
+                a["host_ms"]["hopper_prog.jpg"]["unchanged_ms"],
+            "slowest_read": [slowest[0], slowest[1]["unchanged_ms"]],
+            "paths_20_sweeps_mse_max_rel": still["b_paths"]["mse_max_rel"],
+            "fits": fits,
+            "progressive": {k: still["c_progressive"][k] for k in (
+                "best_db", "decoded_db", "bpp", "k1_k2",
+                "decode_vs_encoder_identical")},
+            "launches_k1_k2": [launches[i] - before[i] for i in range(2)]}
 
 
 def clock(label: str) -> None:
@@ -5813,6 +6168,15 @@ def main() -> int:
     check(all(launches[i] > before_anchor[i] for i in range(2)),
           f"phase 26 launched K1 / K2 "
           f"{[launches[i] - before_anchor[i] for i in range(2)]} times")
+    # phase 27: the stills and the 16-bit fit
+    before_still = list(launches)
+    still = still_phase(launches)
+    clock("phase 27")
+    print(f"stills ({card}): " + json.dumps(still_summary(
+        still, before_still, launches)), flush=True)
+    check(all(launches[i] > before_still[i] for i in range(2)),
+          f"phase 27 launched K1 / K2 "
+          f"{[launches[i] - before_still[i] for i in range(2)]} times")
     check(all(n > 0 for n in launches),
           f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
           f"{launches[2]} times")
@@ -5820,9 +6184,13 @@ def main() -> int:
     attr["e_photo_fit"] = photo["fit"]["attribution"]
     p_k1, p_k2 = photo["fit"]["raster"]["k1"], photo["fit"]["raster"]["k2"]
     g_k1, g_k2 = photo["grey"]["k1"], photo["grey"]["k2"]
-    max_err = max(max_err, g_k1["max_abs_err_res"])
-    max_err_bwd = max(max_err_bwd, g_k2["max_abs_err"])
-    max_rel_bwd = max(max_rel_bwd, g_k2["max_rel_err"])
+    s16, s8 = still["b_dem16"]["raster"], still["b_dem8"]["raster"]
+    max_err = max(max_err, g_k1["max_abs_err_res"], s16["k1"][
+        "max_abs_err_res"], s8["k1"]["max_abs_err_res"])
+    max_err_bwd = max(max_err_bwd, g_k2["max_abs_err"], s16["k2"][
+        "max_abs_err"], s8["k2"]["max_abs_err"])
+    max_rel_bwd = max(max_rel_bwd, g_k2["max_rel_err"], s16["k2"][
+        "max_rel_err"], s8["k2"]["max_rel_err"])
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     full = var[0]["variants"]["full"]
@@ -5872,13 +6240,21 @@ def main() -> int:
          "graph_phase_launches": before_programs[0] - before_graphs[0],
          "program_phase_launches": before_photo[0] - before_programs[0],
          "photo_phase_launches": before_anchor[0] - before_photo[0],
-         "anchor_phase_launches": launches[0] - before_anchor[0],
+         "anchor_phase_launches": before_still[0] - before_anchor[0],
+         "still_phase_launches": launches[0] - before_still[0],
          "photo_fit_ms": p_k1["ms"], "photo_fit_bound_ms": p_k1["bound_ms"],
          "photo_fit_candidate_fraction": p_k1["candidate_fraction"],
          "photo_fit_max_abs_err": p_k1["max_abs_err_res"],
          "grey_c1_ms": g_k1["ms"], "grey_c1_plain_ms": g_k1["plain_ms"],
          "grey_c1_bound_ms": g_k1["bound_ms"],
-         "grey_c1_max_abs_err": g_k1["max_abs_err_res"]},
+         "grey_c1_max_abs_err": g_k1["max_abs_err_res"],
+         "dem16_fit_ms": s16["k1"]["ms"],
+         "dem16_fit_bound_ms": s16["k1"]["bound_ms"],
+         "dem16_fit_candidate_fraction": s16["k1"]["candidate_fraction"],
+         "dem16_fit_max_abs_err": s16["k1"]["max_abs_err_res"],
+         "dem8_fit_ms": s8["k1"]["ms"],
+         "dem8_fit_bound_ms": s8["k1"]["bound_ms"],
+         "dem8_fit_candidate_fraction": s8["k1"]["candidate_fraction"]},
         {"name": "gate_expert_bwd", "route": "cuda", "source": BWD_SRC,
          "replaces": BWD_REPLACES, "launches": launches[1],
          "max_abs_err": max_err_bwd, "max_rel_err": max_rel_bwd,
@@ -5911,12 +6287,18 @@ def main() -> int:
          "graph_phase_launches": before_programs[1] - before_graphs[1],
          "program_phase_launches": before_photo[1] - before_programs[1],
          "photo_phase_launches": before_anchor[1] - before_photo[1],
-         "anchor_phase_launches": launches[1] - before_anchor[1],
+         "anchor_phase_launches": before_still[1] - before_anchor[1],
+         "still_phase_launches": launches[1] - before_still[1],
          "photo_fit_ms": p_k2["ms"], "photo_fit_bound_ms": p_k2["bound_ms"],
          "photo_fit_max_rel_err": p_k2["max_rel_err"],
          "grey_c1_ms": g_k2["ms"], "grey_c1_plain_ms": g_k2["plain_ms"],
          "grey_c1_bound_ms": g_k2["bound_ms"],
-         "grey_c1_max_rel_err": g_k2["max_rel_err"]},
+         "grey_c1_max_rel_err": g_k2["max_rel_err"],
+         "dem16_fit_ms": s16["k2"]["ms"],
+         "dem16_fit_bound_ms": s16["k2"]["bound_ms"],
+         "dem16_fit_max_rel_err": s16["k2"]["max_rel_err"],
+         "dem8_fit_ms": s8["k2"]["ms"],
+         "dem8_fit_bound_ms": s8["k2"]["bound_ms"]},
         {"name": "gate_expert_variants", "route": "cuda", "source": VAR_SRC,
          "replaces": VAR_REPLACES, "launches": launches[2],
          "max_abs_err": max_err_var, "max_rel_err": max_rel_var,

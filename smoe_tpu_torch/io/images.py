@@ -1,27 +1,37 @@
 """Image, video and light-field input and output of the port (from
-smoe_tpu/io/images.py:24-191; PNG, JPEG and binary PGM / PPM images,
-`.npz` video bundles and `.mat` light fields in, PNG, raw I420 `.yuv`
-video and `.mat` light fields out).
+smoe_tpu/io/images.py:24-191; every still the JAX reader takes, `.npz`
+video bundles and `.mat` light fields in, PNG, raw I420 `.yuv` video and
+`.mat` light fields out).
 
 Written in numpy, zlib and struct alone, so it runs where OpenCV and PIL
-are absent:
-  * `read_png` decodes an 8- or 16-bit gray, gray+alpha, RGB or RGBA PNG
-    (all five row filters) into what `cv2.imread(path, IMREAD_UNCHANGED)`
-    returns: (H, W) gray, (H, W, 3) BGR or (H, W, 4) BGRA;
+are absent.  A still's extension must be one of IMG_EXT (the JAX
+reader's gate); its decoder is then chosen by the file's signature, as
+cv2's findDecoder chooses it, and returns cv2.imread(path,
+IMREAD_UNCHANGED)'s array:
+  * `read_png`: every colour type, bit depth and Adam7 interlace, as
+    libpng expands them for OpenCV: (H, W) gray (1 / 2 / 4-bit scaled to
+    0..255, a tRNS colour ignored), (H, W, 3) BGR (a palette expanded),
+    (H, W, 4) BGRA (gray+alpha, RGBA, RGB or palette with tRNS);
+  * a JPEG through `io/jpeg.py` (sequential and progressive, any integral
+    sampling, CMYK / YCCK; EXIF orientation ignored, as IMREAD_UNCHANGED
+    ignores it), a TIFF through `io/tiff.py`;
+  * `read_pnm`: P1-P6 (PxM's rules: ASCII samples clamped to maxval and
+    scaled below 256, binary ones as stored, a bitmap's 1 black);
+  * a signature outside these raises NotImplementedError naming the
+    format (BMP, JPEG 2000, WebP, PAM, Radiance HDR, PFM, ...) and
+    ROADMAP.md; no signature at all raises ValueError, where cv2.imread
+    returns None and the JAX reader raises ValueError;
   * `bgr_to_yuv` is OpenCV's `COLOR_BGR2YUV`: the 14-bit fixed-point
-    integer path on uint8 and uint16 and the fused-multiply-add float path
-    on float32 (OpenCV's scalar loop; its vector loop, which wide float
-    rows take, can round the last bit otherwise), so `read_image` gives
+    integer path on uint8 and uint16 and the float path on float32 as
+    OpenCV's AVX2 build rounds it (its vector loop over a row's first W -
+    W % 8 pixels, its scalar loop over the rest), so `read_image` gives
     the JAX package's values;
-  * a `.jpg` / `.jpeg` decodes through `io/jpeg.py` (libjpeg-turbo's
-    arithmetic, OpenCV's pixels bit for bit; EXIF orientation ignored, as
-    IMREAD_UNCHANGED ignores it), a binary `.pgm` / `.ppm` (P5 / P6, 8-
-    or 16-bit, its values as stored) through `read_pnm`;
-  * `read_image` keeps the JAX reader's gray auto-detect, alpha drop and
-    uint16 scaling;
+  * `read_image` keeps the JAX reader's gray auto-detect, alpha drop,
+    uint16 scaling (precision 16) and float clipping, and raises its
+    exception classes;
   * `read_color` is `cv2.imread(path, IMREAD_COLOR)`: 8-bit BGR, gray
-    replicated, alpha dropped, 16-bit to its high byte, a JPEG's EXIF
-    orientation applied;
+    replicated, alpha dropped, 16-bit samples to their high byte (a TIFF
+    through libtiff's RGBA path), a JPEG's EXIF orientation applied;
   * `yuv_to_bgr` is OpenCV's integer `COLOR_YUV2BGR` (color_yuv: 14-bit
     fixed-point coefficients 2.032 / -0.395 / -0.581 / 1.140, round half
     up by CV_DESCALE, saturating), so the PNG matches `cv2.cvtColor`;
@@ -37,14 +47,14 @@ are absent:
     h5py when it imports; without h5py a v7.3 file raises the JAX
     package's ValueError naming the conversion.  `write_image` writes
     d = 4 through `scipy.io.savemat`, or as v7.3 through h5py.
-TIFF, ASCII PNM, progressive or arithmetic-coded JPEG and cv2's video
-containers (`.mp4`, `.avi`, ...: the card's machine has no OpenCV to
-decode them; convert to `.npz`) raise NotImplementedError naming
-ROADMAP.md.
+cv2's video containers (`.mp4`, `.avi`, ...: the card's machine has no
+OpenCV to decode them; convert to `.npz`) raise NotImplementedError
+naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from typing import Optional, Tuple
@@ -52,6 +62,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from smoe_tpu_torch.io.jpeg import ROADMAP, read_jpeg
+from smoe_tpu_torch.io.tiff import read_tiff, unpack_bits
 
 _YUV_SHIFT = 14
 # OpenCV's YUV -> RGB coefficients (R from V, G from V, G from U, B from U)
@@ -60,6 +71,7 @@ _C_RV, _C_GV, _C_GU, _C_BU = 18678, -9519, -6472, 33292
 _C_BY, _C_GY, _C_RY, _C_RV_I, _C_BU_I = 1868, 9617, 4899, 14369, 8061
 _F_BY, _F_GY, _F_RY, _F_RV, _F_BU = (np.float32(v) for v in
                                      (0.114, 0.587, 0.299, 0.877, 0.492))
+_CV_LANES = 8               # float32 lanes of OpenCV's AVX2 colour loops
 
 IMG_EXT = (".png", ".tif", ".tiff", ".pgm", ".ppm", ".jpg", ".jpeg")
 VID_EXT = (".mp4", ".avi", ".mov", ".mkv", ".flv")
@@ -77,12 +89,14 @@ def _fma32(a: np.ndarray, b: np.float32, c) -> np.ndarray:
 
 
 def bgr_to_yuv(bgr: np.ndarray) -> np.ndarray:
-    """(..., 3) BGR -> YUV of the same dtype, as cv2.cvtColor(x,
-    cv2.COLOR_BGR2YUV): uint8 and uint16 through the integer path
-    (CV_DESCALE by 2^14, chroma offset half the range, saturating),
-    float32 through the float path of OpenCV's scalar loop (Y = fma(R,
-    .299, fma(B, .114, G * .587)), U = fma(B - Y, .492, .5), V = fma(R - Y,
-    .877, .5)); OpenCV's vector loop can round the last bit otherwise."""
+    """(..., W, 3) BGR -> YUV of the same dtype, as cv2.cvtColor(x,
+    cv2.COLOR_BGR2YUV) of each row of W pixels: uint8 and uint16 through
+    the integer path (CV_DESCALE by 2^14, chroma offset half the range,
+    saturating), float32 through the float path as OpenCV's AVX2 build
+    runs it: its 8-lane vector loop over a row's first W - W % 8 pixels
+    (Y = fma(B, .114, fma(G, .587, R * .299))) and its scalar loop over
+    the rest (Y = fma(R, .299, fma(B, .114, G * .587))); then U = fma(B -
+    Y, .492, .5), V = fma(R - Y, .877, .5)."""
     if bgr.dtype in (np.uint8, np.uint16):
         info = np.iinfo(bgr.dtype)
         b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
@@ -98,19 +112,23 @@ def bgr_to_yuv(bgr: np.ndarray) -> np.ndarray:
                          f"{bgr.dtype}")
     b, g, r = (bgr[..., i] for i in range(3))
     y = _fma32(r, _F_RY, _fma32(b, _F_BY, g * _F_GY))
+    lanes = bgr.shape[-2] - bgr.shape[-2] % _CV_LANES if bgr.ndim > 1 else 0
+    y[..., :lanes] = _fma32(b[..., :lanes], _F_BY, _fma32(
+        g[..., :lanes], _F_GY, r[..., :lanes] * _F_RY))
     u = _fma32(b - y, _F_BU, 0.5)
     v = _fma32(r - y, _F_RV, 0.5)
     return np.stack([y, u, v], -1)
 
 
-def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+def _unfilter(data: bytes, pos: int, h: int, stride: int,
+              bpp: int) -> np.ndarray:
     """Undo the PNG row filters (None, Sub, Up, Average, Paeth) of h rows
-    of `stride` bytes, `bpp` bytes per pixel; returns (h, stride) uint8."""
-    if len(data) < h * (stride + 1):
+    of `stride` bytes from data[pos:], `bpp` bytes per pixel (at least 1);
+    returns (h, stride) uint8."""
+    if len(data) < pos + h * (stride + 1):
         raise ValueError("PNG image data is truncated")
     out = np.empty((h, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
-    pos = 0
     for y in range(h):
         ftype = data[pos]
         row = np.frombuffer(data, np.uint8, stride, pos + 1)
@@ -118,8 +136,10 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
         if ftype == 0:
             cur = row
         elif ftype == 1:            # Sub: running sum per byte of a pixel
-            cur = np.cumsum(row.reshape(-1, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
+            pad = (-stride) % bpp
+            cur = np.cumsum(np.concatenate([row, np.zeros(pad, np.uint8)])
+                            .reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)[:stride]
         elif ftype == 2:            # Up
             cur = row + prior
         elif ftype in (3, 4):       # Average, Paeth: sequential along x
@@ -144,16 +164,55 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _unpack(rows: np.ndarray, w: int, ns: int, depth: int) -> np.ndarray:
+    """(h, stride) bytes of packed samples -> (h, w * ns) int64 samples:
+    big-endian 16-bit, bytes, or 1 / 2 / 4-bit samples MSB first."""
+    if depth == 16:
+        return rows.view(">u2").astype(np.int64)
+    if depth == 8:
+        return rows.astype(np.int64)
+    return unpack_bits(rows, w * ns, depth)
+
+
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+
+
+def _png_samples(raw: bytes, w: int, h: int, ns: int, depth: int,
+                 interlace: int) -> np.ndarray:
+    """The (h, w, ns) int64 samples of a PNG's inflated image data, its
+    passes put in place when Adam7-interlaced."""
+    bpp = max(1, ns * depth // 8)
+    out = np.zeros((h, w, ns), np.int64)
+    pos = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue        # an empty pass holds no rows, not even filters
+        stride = -(-pw * ns * depth // 8)
+        rows = _unfilter(raw, pos, ph, stride, bpp)
+        pos += ph * (stride + 1)
+        out[y0::dy, x0::dx] = _unpack(rows, pw, ns, depth).reshape(ph, pw,
+                                                                    ns)
+    return out
+
+
 def read_png(path: str) -> np.ndarray:
-    """Decode a PNG as cv2.imread(path, cv2.IMREAD_UNCHANGED) does: (H, W)
-    gray, (H, W, 3) BGR or (H, W, 4) BGRA (gray+alpha becomes BGRA), uint8
-    or uint16.  Palette, sub-byte and interlaced PNGs raise
-    NotImplementedError."""
+    """Decode a PNG as cv2.imread(path, cv2.IMREAD_UNCHANGED) does through
+    libpng: every colour type, bit depth and Adam7 interlace.  Gray gives
+    (H, W), its 1 / 2 / 4-bit samples scaled to 0..255 and a tRNS colour
+    ignored; gray+alpha (H, W, 4) BGRA; RGB (H, W, 3) BGR, or BGRA when a
+    tRNS colour makes that colour's alpha 0; a palette expanded to BGR, or
+    BGRA with the tRNS alphas (255 past them); RGBA BGRA.  uint8, or
+    uint16 at 16 bits."""
     with open(path, "rb") as fd:
         buf = fd.read()
     if buf[:8] != _PNG_MAGIC:
         raise ValueError(f"cannot read image {path}: not a PNG")
-    pos, ihdr, idat = 8, None, []
+    pos, ihdr, idat, plte, trns = 8, None, [], None, None
     while pos + 8 <= len(buf):
         length, tag = struct.unpack(">I4s", buf[pos:pos + 8])
         data = buf[pos + 8:pos + 8 + length]
@@ -166,82 +225,181 @@ def read_png(path: str) -> np.ndarray:
             ihdr = struct.unpack(">IIBBBBB", data)
         elif tag == b"IDAT":
             idat.append(data)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(data, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = data
         elif tag == b"IEND":
             break
     if ihdr is None or not idat:
         raise ValueError(f"cannot read image {path}: no IHDR or IDAT")
     w, h, depth, color, _, _, interlace = ihdr
-    if color not in _PNG_CHANNELS or depth not in (8, 16) or interlace:
-        raise NotImplementedError(
-            f"{path}: PNG color type {color}, bit depth {depth}, interlace "
-            f"{interlace}; smoe_tpu_torch reads non-interlaced 8- and 16-bit "
-            "gray, gray+alpha, RGB and RGBA PNGs")
-    ch = _PNG_CHANNELS[color]
-    bpp = ch * depth // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
-    img = (rows.view(">u2").astype(np.uint16) if depth == 16
-           else rows).reshape(h, w, ch)
-    if ch == 1:
-        return img[..., 0]
-    if ch == 2:                                 # gray+alpha -> BGRA
+    if depth not in _PNG_DEPTHS.get(color, ()) or interlace > 1 or (
+            color == 3 and plte is None):
+        raise ValueError(f"cannot read image {path}: PNG colour type "
+                         f"{color}, bit depth {depth}, interlace "
+                         f"{interlace}")
+    ns = _PNG_CHANNELS.get(color, 1)
+    img = _png_samples(zlib.decompress(b"".join(idat)), w, h, ns, depth,
+                       interlace)
+    dt = np.uint16 if depth == 16 else np.uint8
+    if color == 0:
+        if depth < 8:                   # png_set_expand_gray_1_2_4_to_8
+            img = img * (255 // ((1 << depth) - 1))
+        return img[..., 0].astype(dt)
+    if color == 3:
+        idx = img[..., 0]
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(plte)] = plte
+        rgb = pal[idx]
+        if trns is None:
+            return np.ascontiguousarray(rgb[..., ::-1])
+        alpha = np.full(256, 255, np.uint8)
+        alpha[:len(trns)] = np.frombuffer(trns, np.uint8)[:256]
+        return np.concatenate([rgb[..., ::-1], alpha[idx][..., None]], -1)
+    if color == 2 and trns is not None and len(trns) >= 6:
+        key = np.array(struct.unpack(">HHH", trns[:6]), np.int64)
+        top = (1 << depth) - 1
+        alpha = np.where((img == key).all(-1), 0, top)[..., None]
+        return np.concatenate([img[..., ::-1], alpha], -1).astype(dt)
+    img = img.astype(dt)
+    if ns == 2:                                 # gray+alpha -> BGRA
         return img[..., [0, 0, 0, 1]]
-    return img[..., [2, 1, 0, 3][:ch]]          # RGB(A) -> BGR(A)
+    return img[..., [2, 1, 0, 3][:ns]]          # RGB(A) -> BGR(A)
+
+
+def _pnm_tokens(buf: bytes, i: int, n: int):
+    """n whitespace-separated integers of a PNM from byte i, '#' comments
+    skipped to the line's end; (the integers, the offset after the last)."""
+    out = []
+    while len(out) < n:
+        while i < len(buf) and buf[i:i + 1].isspace():
+            i += 1
+        if buf[i:i + 1] == b"#":
+            j = buf.find(b"\n", i)
+            i = len(buf) if j < 0 else j + 1
+            continue
+        j = i
+        while j < len(buf) and buf[j:j + 1].isdigit():
+            j += 1
+        if j == i:
+            raise ValueError(f"PNM: expected a number at byte {i}")
+        out.append(int(buf[i:j]))
+        i = j
+    return out, i
 
 
 def read_pnm(path: str) -> np.ndarray:
-    """A binary PGM (P5) or PPM (P6) as cv2.imread(path, IMREAD_UNCHANGED)
-    reads it: (H, W) gray or (H, W, 3) BGR, uint8 for a maxval below 256
-    and big-endian uint16 above, the values as stored (not rescaled)."""
+    """A PBM, PGM or PPM (P1-P6, whatever its extension) as
+    cv2.imread(path, IMREAD_UNCHANGED) reads it: (H, W) gray or (H, W, 3)
+    BGR, uint8 for a maxval below 256 and uint16 above.  Binary samples
+    keep their stored values; ASCII ones are clamped to maxval, and at 8
+    bits scaled to i * 255 // maxval; a bitmap's 0 reads 255 and its 1
+    reads 0."""
     with open(path, "rb") as fd:
         buf = fd.read()
-    fields, i = [], 2
     magic = buf[:2]
-    if magic not in (b"P5", b"P6"):
-        raise NotImplementedError(
-            f"{path}: PNM {magic!r}; smoe_tpu_torch reads binary P5 / P6 "
-            f"files ({ROADMAP})")
-    while len(fields) < 3:
-        while buf[i:i + 1].isspace():
-            i += 1
-        if buf[i:i + 1] == b"#":
-            i = buf.index(b"\n", i) + 1
-            continue
-        j = i
-        while not buf[j:j + 1].isspace():
-            j += 1
-        fields.append(int(buf[i:j]))
-        i = j
-    i += 1                              # the one whitespace after maxval
-    w, h, maxval = fields
-    ch = 3 if magic == b"P6" else 1
-    dt = np.dtype(">u2") if maxval > 255 else np.dtype(np.uint8)
-    img = np.frombuffer(buf, dt, h * w * ch, i).astype(
-        np.uint16 if maxval > 255 else np.uint8).reshape(h, w, ch)
+    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
+        raise ValueError(f"cannot read image {path}: not a PNM")
+    kind = magic[1] - ord("0")
+    bitmap = kind in (1, 4)
+    (w, h, *mv), i = _pnm_tokens(buf, 2, 2 if bitmap else 3)
+    maxval = 1 if bitmap else mv[0]
+    if not 0 < maxval < 65536:
+        raise ValueError(f"cannot read image {path}: maxval {maxval}")
+    ch = 3 if kind in (3, 6) else 1
+    if kind == 1:               # '0' / '1' digits, whitespace optional
+        digits = np.frombuffer(buf, np.uint8, offset=i)
+        digits = digits[(digits == ord("0")) | (digits == ord("1"))]
+        img = np.where(digits[:h * w] == ord("1"), 0, 255).astype(np.uint8)
+        return img.reshape(h, w)
+    i += 1                      # the one whitespace after the header
+    if kind == 4:
+        rows = np.frombuffer(buf, np.uint8, h * (-(-w // 8)), i)
+        bits = np.unpackbits(rows.reshape(h, -1), axis=1)[:, :w]
+        return np.where(bits == 1, 0, 255).astype(np.uint8)
+    wide = maxval > 255
+    if kind in (5, 6):
+        dt = np.dtype(">u2") if wide else np.dtype(np.uint8)
+        img = np.frombuffer(buf, dt, h * w * ch, i).astype(
+            np.uint16 if wide else np.uint8).reshape(h, w, ch)
+    else:
+        body = re.sub(rb"#[^\n]*", b" ", buf[i - 1:])
+        toks = body.split()
+        if len(toks) < h * w * ch or (len(toks) == h * w * ch
+                                      and not body[-1:].isspace()):
+            # OpenCV reads each number up to the byte after it
+            raise ValueError(f"cannot read image {path}: the ASCII "
+                             "samples end early")
+        vals = np.array(toks[:h * w * ch], np.int64)
+        vals = np.minimum(vals, maxval)
+        if not wide:
+            vals = vals * 255 // maxval
+        img = vals.astype(np.uint16 if wide else np.uint8).reshape(h, w, ch)
     return img[..., 0] if ch == 1 else img[..., ::-1].copy()
 
 
-def read_still(path: str) -> np.ndarray:
-    """A still image as cv2.imread(path, IMREAD_UNCHANGED) returns it: PNG,
-    JPEG or binary PGM / PPM; TIFF raises NotImplementedError."""
-    p = path.lower()
-    if p.endswith(".png"):
-        return read_png(path)
-    if p.endswith((".jpg", ".jpeg")):
-        return read_jpeg(path, "unchanged")
-    if p.endswith((".pgm", ".ppm")):
-        return read_pnm(path)
+def _sniff(head: bytes) -> str:
+    """The decoder cv2's findDecoder picks by a file's first bytes: "png",
+    "jpeg", "tiff" or "pnm"; another signature names its format and
+    raises NotImplementedError."""
+    if head[:8] == _PNG_MAGIC:
+        return "png"
+    if head[:2] == b"\xff\xd8":
+        return "jpeg"
+    if head[:4] in (b"II*\0", b"MM\0*"):
+        return "tiff"
+    if len(head) >= 3 and head[0:1] == b"P" and head[1:2] in b"123456" \
+            and head[2:3].isspace():
+        return "pnm"
+    known = ((b"BM", "BMP"), (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
+             (b"\xffO\xffQ", "JPEG 2000 codestream"), (b"P7", "PAM"),
+             (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
+             (b"PF", "PFM"), (b"Pf", "PFM"), (b"II+\0", "BigTIFF"),
+             (b"MM\0+", "BigTIFF"), (b"GIF8", "GIF"),
+             (b"\x59\xa6\x6a\x95", "Sun raster"), (b"v/1\x01", "OpenEXR"))
+    name = next((n for sig, n in known if head.startswith(sig)), None)
+    if name is None and head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        name = "WebP"
+    if name is None:            # cv2.imread returns None, JAX raises this
+        raise ValueError(f"cannot read image: no decoder for first bytes "
+                         f"{head[:12]!r}")
     raise NotImplementedError(
-        f"{path}: smoe_tpu_torch reads PNG, JPEG and binary PGM / PPM "
-        f"stills; TIFF is not read yet ({ROADMAP}); convert to PNG")
+        f"{name} (first bytes {head[:12]!r}); "
+        f"smoe_tpu_torch reads PNG, JPEG, TIFF and PNM stills ({ROADMAP})")
 
 
-def read_color(path: str) -> np.ndarray:
-    """cv2.imread(path, IMREAD_COLOR): (H, W, 3) uint8 BGR; a gray image
-    replicated, alpha dropped, 16-bit samples to their high byte, a JPEG's
-    EXIF orientation applied."""
-    if path.lower().endswith((".jpg", ".jpeg")):
-        return read_jpeg(path, "color")
-    img = read_still(path)
+def _decoder(path: str) -> str:
+    """read_still's choice of decoder for `path`: IMG_EXT's gate, then
+    the file's signature."""
+    if not path.lower().endswith(IMG_EXT):
+        raise ValueError(f"Unknown data format: {path}")
+    try:
+        with open(path, "rb") as fd:
+            head = fd.read(16)
+    except OSError as e:
+        raise ValueError(f"cannot read image {path}") from e
+    try:
+        return _sniff(head)
+    except (NotImplementedError, ValueError) as e:
+        raise type(e)(f"{path}: {e}") from None
+
+
+def _decode(path: str, mode: str) -> np.ndarray:
+    """cv2.imread(path, IMREAD_UNCHANGED) ("unchanged") or IMREAD_COLOR
+    ("color") through the decoder the file's signature picks; a decoder's
+    error on a broken file becomes ValueError."""
+    kind = _decoder(path)
+    try:
+        if kind == "jpeg":
+            return read_jpeg(path, mode)
+        if kind == "tiff":
+            return read_tiff(path, mode)
+        img = read_png(path) if kind == "png" else read_pnm(path)
+    except (IndexError, struct.error, zlib.error) as e:
+        raise ValueError(f"cannot read image {path}: {e!r}") from e
+    if mode == "unchanged":
+        return img
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
     if img.ndim == 2:
@@ -249,6 +407,24 @@ def read_color(path: str) -> np.ndarray:
     if img.shape[2] == 1:
         return np.repeat(img, 3, -1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def read_still(path: str) -> np.ndarray:
+    """A still image as cv2.imread(path, IMREAD_UNCHANGED) returns it: the
+    extension must be one of IMG_EXT, as the JAX reader's gate asks; the
+    decoder is then chosen by the file's signature, as cv2 chooses it (a
+    JPEG named .png reads as a JPEG).  A file no decoder takes, or one
+    its decoder finds broken, raises ValueError, where cv2.imread returns
+    None and the JAX reader raises ValueError."""
+    return _decode(path, "unchanged")
+
+
+def read_color(path: str) -> np.ndarray:
+    """cv2.imread(path, IMREAD_COLOR): (H, W, 3) uint8 BGR.  A PNG or PNM
+    replicates gray, drops alpha and keeps a 16-bit sample's high byte; a
+    TIFF goes through libtiff's RGBA path (io/tiff.py); a JPEG applies its
+    EXIF orientation (io/jpeg.py)."""
+    return _decode(path, "color")
 
 
 def read_mat(path: str) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Baseline JPEG in numpy, with libjpeg-turbo's integer arithmetic, so a
+"""JPEG in numpy, with libjpeg-turbo's integer arithmetic, so a
 file decodes to `cv2.imdecode`'s pixels and `encode` writes
 `cv2.imencode('.jpg', img, [IMWRITE_JPEG_QUALITY, q])`'s bytes, bit for bit
 (OpenCV on libjpeg-turbo 3.1, its defaults: islow DCT, fancy upsampling,
@@ -14,18 +14,28 @@ the standard Huffman tables), on a machine without OpenCV.
                        (H, W) gray or (H, W, 3) BGR uint8 -> the JFIF
                        file's bytes
 
-The decoder takes sequential Huffman files (SOF0 / SOF1) of 8-bit samples,
-1 or 3 components at 4:4:4, 4:2:2 or 4:2:0, any DHT / DQT, restart
-markers, one or several scans; APPn and COM are skipped.  Progressive,
-arithmetic-coded, 12-bit, lossless and 4-component files and other
-sampling factors raise NotImplementedError naming ROADMAP.md.  The
+The decoder takes what OpenCV's libjpeg-turbo 3.1 decodes here:
+sequential (SOF0 / SOF1) and progressive (SOF2: spectral selection,
+successive approximation, EOB runs) Huffman files of 8-bit samples, 1, 3
+(YCbCr, or RGB by the Adobe marker or component ids) or 4 components
+(CMYK, or YCCK by the Adobe marker, turned into BGR by OpenCV's
+icvCvt_CMYK2BGR), any integral sampling factors, any DHT / DQT, restart
+markers; APPn and COM are skipped.  A progressive file whose
+coefficients 1-9 are not all complete takes jdcoefct.c's block smoothing
+(`_smooth_blocks`: each still-zero coefficient estimated from a 5 x 5
+neighbourhood of DC values, and the DC itself when only DC is known).
+Arithmetic coding, lossless (SOF3) and 12-bit samples raise
+NotImplementedError naming ROADMAP.md: neither cv2 nor PIL here writes
+such a file, so no decoder of them could be held to cv2.  The
 arithmetic follows libjpeg-turbo's C sources: jfdctint.c / jidctint.c
 (islow, CONST_BITS 13, PASS1_BITS 2, the IDCT's range-limit table),
 jcdctmgr.c's reciprocal quantizer, jccolor.c / jdcolor.c (16-bit fixed
-point), jcsample.c (h2v1 / h2v2 with alternating bias) and jdsample.c
-(fancy h2v1 / h2v2, box below three chroma columns).  The DCT, colour,
-resampling and the encoder's entropy coding run vectorised; the decoder's
-symbol loop runs serially on lookup tables.  Host code, not a kernel.
+point), jcsample.c (h2v1 / h2v2 with alternating bias), jdsample.c
+(fancy h2v1 / h2v2, box below three chroma columns, fancy h1v2,
+int_upsample for other factors such as 4:1:1), jdphuff.c and
+jdcoefct.c.  The DCT, colour, resampling, smoothing and the encoder's
+entropy coding run vectorised; the decoder's symbol loops (sequential and
+progressive) run serially on lookup tables.  Host code, not a kernel.
 """
 
 from __future__ import annotations
@@ -507,8 +517,8 @@ def encode(img: np.ndarray, quality: int = 95, sampling: str = "420",
 def _refuse(what: str):
     raise NotImplementedError(
         f"JPEG: {what} is not read by smoe_tpu_torch ({ROADMAP}); the port "
-        "decodes sequential Huffman files of 8-bit samples, 1 or 3 "
-        "components at 4:4:4, 4:2:2 or 4:2:0")
+        "decodes sequential and progressive Huffman files of 8-bit "
+        "samples, 1, 3 or 4 components at integral sampling factors")
 
 
 @functools.lru_cache(maxsize=16)
@@ -621,6 +631,209 @@ def _decode_segment(win, mcus, plan, coef):
                     break
 
 
+def _decode_prog_segment(win, mcus, plan, coef, ss, se, ah, al):
+    """Decode `mcus` MCUs of one restart interval of a progressive scan
+    (jdphuff.c): a DC first (ah = 0) or refinement scan over the plan's
+    blocks, or an AC first or refinement scan of band ss..se of one
+    component, with its EOB runs.  Successive approximation: a first
+    scan stores its values shifted up by al, a refinement adds bit al."""
+    pos = 0
+    pred = {}
+    eobrun = 0
+    zz = ZIGZAG.tolist()
+    p1, m1 = 1 << al, -1 << al
+
+    def huff(t):
+        nonlocal pos
+        o = pos & 7
+        w = (win[pos >> 3] >> (16 - o)) & 0xFFFF
+        pos += t.size[w]
+        return t.sym[w]
+
+    def bits(n):
+        nonlocal pos
+        o = pos & 7
+        v = (win[pos >> 3] >> (32 - n - o)) & ((1 << n) - 1)
+        pos += n
+        return v
+
+    def extend(v, n):
+        return v if v >= 1 << (n - 1) else v - (1 << n) + 1
+
+    for m in range(mcus):
+        for dct, act, ci, bases in plan:
+            out = coef[ci]
+            base = bases[m]
+            if ss == 0:
+                if ah == 0:
+                    n = huff(dct)
+                    dc = pred.get(ci, 0) + (extend(bits(n), n) if n else 0)
+                    pred[ci] = dc
+                    out[base] = dc << al
+                elif bits(1):
+                    out[base] |= p1
+                continue
+            if ah == 0:
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    rs = huff(act)
+                    r, n = rs >> 4, rs & 15
+                    if n:
+                        k += r
+                        out[base + zz[k]] = extend(bits(n), n) << al
+                        k += 1
+                    elif r == 15:
+                        k += 16
+                    else:
+                        eobrun = (1 << r) + (bits(r) if r else 0) - 1
+                        break
+                continue
+            k = ss
+            if eobrun == 0:
+                while k <= se:
+                    rs = huff(act)
+                    r, n = rs >> 4, rs & 15
+                    if n:
+                        n = p1 if bits(1) else m1
+                    elif r != 15:
+                        eobrun = (1 << r) + (bits(r) if r else 0)
+                        break
+                    # past the nonzero coefficients (a correction bit
+                    # each) and r zero ones, to the new coefficient
+                    while k <= se:
+                        idx = base + zz[k]
+                        c = out[idx]
+                        if c:
+                            if bits(1) and not c & p1:
+                                out[idx] = c + p1 if c >= 0 else c + m1
+                        else:
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                    if n and k <= se:
+                        out[base + zz[k]] = n
+                    k += 1
+            if eobrun > 0:
+                while k <= se:
+                    idx = base + zz[k]
+                    c = out[idx]
+                    if c and bits(1) and not c & p1:
+                        out[idx] = c + p1 if c >= 0 else c + m1
+                    k += 1
+                eobrun -= 1
+
+
+# jdcoefct.c's block smoothing: the natural positions of zigzag
+# coefficients 1-9, and each one's estimate from the 5 x 5 neighbourhood
+# of DC values (rows of the tuple: block rows -2..+2, columns -2..+2),
+# with DC interpolation (all of 1-9 unknown) and without
+_SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+_SMOOTH_DC = np.array(
+    [[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8],
+     [-6, 6, 42, 6, -6], [-2, -6, -8, -6, -2]], np.int64)
+_SMOOTH_INTERP = np.array([
+    [[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+     [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]],                  # AC01
+    [[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0, 0, 0, 0, 0],
+     [1, -13, -38, -13, 1], [1, 3, 3, 3, 1]],                  # AC10
+    [[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+     [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]],                        # AC20
+    [[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0, 0, 0, 0, 0],
+     [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]],                      # AC11
+    [[0, 0, 0, 0, 0], [0, 2, -5, 2, 0], [1, 7, -14, 7, 1],
+     [0, 2, -5, 2, 0], [0, 0, 0, 0, 0]],                       # AC02
+    [[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, 2, 0, -2, 0],
+     [0, 1, 0, -1, 0], [0, 0, 0, 0, 0]],                       # AC03
+    [[0, 0, 0, 0, 0], [0, 1, -3, 1, 0], [0, 0, 0, 0, 0],
+     [0, -1, 3, -1, 0], [0, 0, 0, 0, 0]],                      # AC12
+    [[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, -3, 0, 3, 0],
+     [0, 1, 0, -1, 0], [0, 0, 0, 0, 0]],                       # AC21
+    [[0, 0, 0, 0, 0], [0, 1, 2, 1, 0], [0, 0, 0, 0, 0],
+     [0, -1, -2, -1, 0], [0, 0, 0, 0, 0]]], np.int64)          # AC30
+_SMOOTH_PLAIN = np.array([
+    [[0, 0, 0, 0, 0], [0, 0, 0, 0, 0], [-7, 50, 0, -50, 7],
+     [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]],                        # AC01
+    [[0, 0, -7, 0, 0], [0, 0, 50, 0, 0], [0, 0, 0, 0, 0],
+     [0, 0, -50, 0, 0], [0, 0, 7, 0, 0]],                      # AC10
+    [[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0],
+     [0, 0, 13, 0, 0], [0, 0, -1, 0, 0]],                      # AC20
+    [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0, 0, 0, 0, 0],
+     [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]],                   # AC11
+    [[0, 0, 0, 0, 0], [0, 0, 0, 0, 0], [-1, 13, -24, 13, -1],
+     [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]]], np.int64)             # AC02
+
+
+def _smooth_rows(hib: int, v: int, total: int) -> np.ndarray:
+    """(hib, 5) block-row indices of rows -2..+2 around each block row, as
+    decompress_smooth_data picks them: per iMCU row of v block rows (the
+    last one holding only its real rows), a row's neighbours are counted
+    on output_iMCU_row * block_rows + block_row against block_rows *
+    total_iMCU_rows, and replicated past those bounds."""
+    out = []
+    for m in range(total):
+        rows = v if m < total - 1 else (hib % v or v)
+        image_rows = rows * total
+        for b in range(rows):
+            ibr, r = m * rows + b, m * v + b
+            prev = r - 1 if ibr > 0 else r
+            pprev = r - 2 if ibr > 1 else prev
+            nxt = r + 1 if ibr < image_rows - 1 else r
+            nnxt = r + 2 if ibr < image_rows - 2 else nxt
+            out.append((pprev, prev, r, nxt, nnxt))
+    return np.array(out[:hib], np.int64)
+
+
+def _smooth_blocks(c: np.ndarray, hib: int, wib: int, v: int, total: int,
+                   bits: list, q: np.ndarray) -> np.ndarray:
+    """jdcoefct.c decompress_smooth_data on one component's (rows, cols,
+    64) quantized coefficients: each of zigzag coefficients 1-9 whose bits
+    are not all known (`bits`, coef_bits: -1 never sent, Al > 0 partly)
+    and that is still 0 takes its estimate from the neighbours' DC values,
+    clamped below 1 << Al; with none of 1-9 sent, the DC is interpolated
+    too.  Returns the real blocks' coefficients to transform."""
+    work = c[:hib, :wib].copy()
+    dc = c[..., 0]
+    rows = _smooth_rows(hib, v, total)
+    cols = np.clip(np.arange(wib)[:, None] + np.arange(-2, 3), 0, wib - 1)
+    nb = dc[rows[:, :, None, None], cols[None, None, :, :]]  # (h,5,w,5)
+    nb = nb.transpose(0, 2, 1, 3)                            # (h,w,5,5)
+    interp = all(b == -1 for b in bits[1:10])
+    weights = _SMOOTH_INTERP if interp else _SMOOTH_PLAIN
+    q00 = int(q[0])
+    for i, w in enumerate(weights):
+        al, pos = bits[1 + i], _SMOOTH_POS[i]
+        if al == 0:
+            continue
+        qk = int(q[pos])
+        num = q00 * np.einsum("hwij,ij->hw", nb, w)
+        mag = ((qk << 7) + np.abs(num)) // (qk << 8)
+        if al > 0:
+            mag = np.minimum(mag, (1 << al) - 1)
+        est = np.where(num >= 0, mag, -mag)
+        work[..., pos] = np.where(work[..., pos] == 0, est, work[..., pos])
+    if interp:
+        num = q00 * np.einsum("hwij,ij->hw", nb, _SMOOTH_DC)
+        mag = ((q00 << 7) + np.abs(num)) // (q00 << 8)
+        work[..., 0] = np.where(num >= 0, mag, -mag)
+    return work
+
+
+def _fancy_h1v2(p: np.ndarray) -> np.ndarray:
+    """jdsample.c h1v2_fancy_upsample: 3/4 nearer + 1/4 further row,
+    rounding 1 (above) / 2 (below), the edges replicated."""
+    x = p.astype(np.int64)
+    up = np.concatenate([x[:1], x[:-1]], 0)
+    down = np.concatenate([x[1:], x[-1:]], 0)
+    out = np.empty((2 * x.shape[0], x.shape[1]), np.int64)
+    out[0::2] = (3 * x + up + 1) >> 2
+    out[1::2] = (3 * x + down + 2) >> 2
+    return out
+
+
 def _fancy_h2v1(p: np.ndarray) -> np.ndarray:
     """jdsample.c h2v1_fancy_upsample: 3/4 nearer + 1/4 further sample,
     rounding 1 / 2 alternately, the edges replicated."""
@@ -723,14 +936,19 @@ def _entropy_segments(data: bytes, i: int):
             return segs, k
 
 
-def _decode_scan(sos: bytes, frame, dht, restart: int, segs, coef):
+def _decode_scan(sos: bytes, frame, dht, restart: int, segs, coef,
+                 prog=None):
     """One scan's blocks into coef: its components (one: the component's
     blocks row by row; several: MCU by MCU, each component's v x h
-    blocks), `restart` MCUs a segment."""
+    blocks), `restart` MCUs a segment.  prog: None for a sequential scan,
+    else the coef_bits lists (updated here) of a progressive frame."""
     h, w, comps, hmax, vmax, mcux, mcuy = frame
     ids = [c[0] for c in comps]
+    ncs = sos[0]
     sc = [(ids.index(sos[1 + 2 * k]), sos[2 + 2 * k] >> 4,
-           sos[2 + 2 * k] & 15) for k in range(sos[0])]
+           sos[2 + 2 * k] & 15) for k in range(ncs)]
+    ss, se = sos[1 + 2 * ncs], sos[2 + 2 * ncs]
+    ah, al = sos[3 + 2 * ncs] >> 4, sos[3 + 2 * ncs] & 15
     plan_blocks = []
     if len(sc) == 1:
         ci = sc[0][0]
@@ -746,7 +964,10 @@ def _decode_scan(sos: bytes, frame, dht, restart: int, segs, coef):
                     plan_blocks.append((ci, [
                         ((my * vs + yy) * mcux * hs + mx * hs + xx) * 64
                         for my in range(mcuy) for mx in range(mcux)]))
-    tables = {ci: (dht[(0, td)], dht[(1, ta)]) for ci, td, ta in sc}
+    tables = {ci: (dht.get((0, td)), dht.get((1, ta))) for ci, td, ta in sc}
+    if prog is not None:
+        for ci, _, _ in sc:     # jdphuff.c start_pass_phuff_decoder
+            prog[ci][ss:se + 1] = [al] * (se - ss + 1)
     total = len(plan_blocks[0][1])
     per = restart or total
     for s_i, seg in enumerate(segs):
@@ -756,7 +977,40 @@ def _decode_scan(sos: bytes, frame, dht, restart: int, segs, coef):
             break
         plan = [(*tables[ci], ci, bases[lo:lo + n])
                 for ci, bases in plan_blocks]
-        _decode_segment(_unstuff(seg), n, plan, coef)
+        if prog is None:
+            _decode_segment(_unstuff(seg), n, plan, coef)
+        else:
+            _decode_prog_segment(_unstuff(seg), n, plan, coef, ss, se, ah,
+                                 al)
+
+
+def _upsample(px: np.ndarray, fh: int, fv: int) -> np.ndarray:
+    """jdsample.c's choice for a component sampled fh x fv below the
+    frame: fancy h2v1 and h2v2 (box at two columns or fewer), fancy h1v2,
+    and int_upsample's replication for every other integral factor."""
+    wide = px.shape[1] > 2
+    if (fh, fv) == (2, 1) and wide:
+        return _fancy_h2v1(px)
+    if (fh, fv) == (2, 2) and wide:
+        return _fancy_h2v2(px)
+    if (fh, fv) == (1, 2):
+        return _fancy_h1v2(px)
+    return np.repeat(np.repeat(px, fv, 0), fh, 1)
+
+
+def _cmyk_to_bgr(c, m, y, k) -> np.ndarray:
+    """OpenCV's icvCvt_CMYK2BGR_8u_C4C3R: each of C, M, Y becomes
+    k - ((255 - x) * k >> 8)."""
+    k = k.astype(np.int64)
+    return np.stack([k - ((255 - x.astype(np.int64)) * k >> 8)
+                     for x in (y, m, c)], -1).astype(np.uint8)
+
+
+def _ycck_to_cmyk(y, cb, cr, k):
+    """jdcolor.c ycck_cmyk_convert: C, M, Y are 255 less the R, G, B of
+    the YCC triple; K passes through."""
+    bgr = _ycc_to_bgr(y, cb, cr).astype(np.int64)
+    return 255 - bgr[..., 2], 255 - bgr[..., 1], 255 - bgr[..., 0], k
 
 
 def decode(data: bytes, mode: str = "unchanged") -> np.ndarray:
@@ -770,8 +1024,8 @@ def decode(data: bytes, mode: str = "unchanged") -> np.ndarray:
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file: no SOI marker")
     qt, dht, restart = {}, {}, 0
-    frame = None
-    coef = None
+    frame = coef = prog = adobe = None
+    jfif = False
     i = 2
     while i < len(data):
         if data[i] != 0xFF:
@@ -805,11 +1059,12 @@ def decode(data: bytes, mode: str = "unchanged") -> np.ndarray:
                 j += 17 + n
         elif marker == 0xDD:
             restart = _u16(seg, 0)
-        elif marker in (0xC0, 0xC1):
+        elif marker in (0xC0, 0xC1, 0xC2):
             if seg[0] != 8:
-                _refuse(f"{seg[0]}-bit samples")
+                _refuse(f"{seg[0]}-bit samples (neither cv2 nor PIL here "
+                        "writes such a file to hold a decoder to)")
             h, w, nc = _u16(seg, 1), _u16(seg, 3), seg[5]
-            if nc not in (1, 3):
+            if nc not in (1, 3, 4):
                 _refuse(f"{nc} components")
             comps = [(seg[6 + 3 * c], seg[7 + 3 * c] >> 4,
                       seg[7 + 3 * c] & 15, seg[8 + 3 * c])
@@ -819,54 +1074,71 @@ def decode(data: bytes, mode: str = "unchanged") -> np.ndarray:
             if nc == 1:
                 comps = [(comps[0][0], 1, 1, comps[0][3])]
                 hmax = vmax = 1
-            else:
-                factors = (comps[0][1], comps[0][2])
-                if factors not in SAMPLING.values() or any(
-                        (c[1], c[2]) != (1, 1) for c in comps[1:]):
-                    _refuse("sampling factors "
-                            + " ".join(f"{c[1]}x{c[2]}" for c in comps))
+            elif any(not 1 <= c[1] <= 4 or not 1 <= c[2] <= 4
+                     or hmax % c[1] or vmax % c[2] for c in comps):
+                _refuse("sampling factors "
+                        + " ".join(f"{c[1]}x{c[2]}" for c in comps))
             mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
             frame = (h, w, comps, hmax, vmax, mcux, mcuy)
             coef = [[0] * (mcuy * c[2] * mcux * c[1] * 64) for c in comps]
-        elif marker in (0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB,
-                        0xCD, 0xCE, 0xCF):
-            _refuse({0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)"}
-                    .get(marker, f"SOF{marker - 0xC0} (arithmetic coding "
-                         "or hierarchical)"))
+            if marker == 0xC2:
+                prog = [[-1] * 64 for _ in comps]
+        elif marker in (0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD,
+                        0xCE, 0xCF):
+            _refuse({0xC3: "lossless (SOF3)"}.get(
+                marker, f"SOF{marker - 0xC0} (arithmetic coding or "
+                "hierarchical)") + "; neither cv2 nor PIL here writes such "
+                "a file to hold a decoder to")
+        elif marker == 0xE0 and seg[:5] == b"JFIF\0":
+            jfif = True
+        elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+            adobe = seg[11]
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG: SOS before SOF")
             segs, i = _entropy_segments(data, i)
-            _decode_scan(seg, frame, dht, restart, segs, coef)
+            _decode_scan(seg, frame, dht, restart, segs, coef, prog)
         # APPn, COM and the rest: skipped
     if frame is None:
         raise ValueError("JPEG: no frame")
     h, w, comps, hmax, vmax, mcux, mcuy = frame
+    # jdcoefct.c smoothing_ok: a progressive file whose DC is known in
+    # every component and whose coefficients 1-9 are not all complete
+    smooth = prog is not None and all(b[0] >= 0 for b in prog) and any(
+        b[k] != 0 for b in prog for k in range(1, 10))
     planes = []
-    need = 1 if mode == "gray" else len(comps)
+    need = 1 if mode == "gray" and len(comps) != 4 else len(comps)
     for ci, (cid, hs, vs, tq) in enumerate(comps[:need]):
         c = np.asarray(coef[ci], np.int64).reshape(mcuy * vs, mcux * hs,
-                                                   8, 8)
-        c = c * qt[tq].reshape(8, 8)
+                                                   64)
+        dw_, dh_ = -(-w * hs // hmax), -(-h * vs // vmax)
+        if smooth:
+            hib, wib = -(-dh_ // 8), -(-dw_ // 8)
+            c[:hib, :wib] = _smooth_blocks(c, hib, wib, vs, mcuy, prog[ci],
+                                           qt[tq])
+        c = c.reshape(mcuy * vs, mcux * hs, 8, 8) * qt[tq].reshape(8, 8)
         px = idct_islow(c.reshape(-1, 8, 8)).reshape(
             mcuy * vs, mcux * hs, 8, 8).swapaxes(1, 2).reshape(
             mcuy * vs * 8, mcux * hs * 8)
-        dw_, dh_ = -(-w * hs // hmax), -(-h * vs // vmax)
         px = px[:dh_, :dw_]
         fh, fv = hmax // hs, vmax // vs
         if (fh, fv) != (1, 1):
-            if fv == 2 and dw_ > 2:
-                px = _fancy_h2v2(px)
-            elif fv == 1 and dw_ > 2:
-                px = _fancy_h2v1(px)
-            else:
-                px = np.repeat(np.repeat(px, fv, 0), fh, 1)
-            px = px[:h, :w]
+            px = _upsample(px, fh, fv)[:h, :w]
         planes.append(px)
-    if mode == "gray" or len(comps) == 1:
+    if len(comps) == 4:
+        cmyk = planes if adobe in (None, 0) else _ycck_to_cmyk(*planes)
+        out = _cmyk_to_bgr(*cmyk)
+        if mode == "gray":      # OpenCV's icvCvt_CMYK2Gray_8u_C4C1R
+            v = out.astype(np.int64)
+            out = ((v[..., 0] * 1868 + v[..., 1] * 9617 + v[..., 2] * 4899
+                    + 8192) >> 14).astype(np.uint8)
+    elif mode == "gray" or len(comps) == 1:
         out = planes[0].astype(np.uint8)
         if mode == "color":
             out = np.repeat(out[..., None], 3, -1)
+    elif not jfif and (adobe == 0 or adobe is None and [
+            c[0] for c in comps] == [82, 71, 66]):  # an RGB file
+        out = np.stack(planes[::-1], -1).astype(np.uint8)
     else:
         out = _ycc_to_bgr(*planes)
     if mode == "color":

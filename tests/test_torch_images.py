@@ -152,9 +152,14 @@ def test_yuv_round_trip_through_write_image(tmp_path):
 
 @pytest.mark.parametrize("name,match", [
     ("clip.mp4", ".npz"), ("scan.tif", "PNG")])
-def test_other_formats_raise(name, match):
+def test_other_formats_raise(tmp_path, name, match):
+    """A video container, and a still whose signature names a format the
+    port does not decode (a BMP named .tif)."""
+    path = str(tmp_path / name)
+    with open(path, "wb") as fd:
+        fd.write(b"BM" + bytes(64))
     with pytest.raises(NotImplementedError, match=match):
-        timg.read_image(name)
+        timg.read_image(path)
 
 
 def test_unsupported_png_kinds_raise(tmp_path):
@@ -165,7 +170,8 @@ def test_unsupported_png_kinds_raise(tmp_path):
                                              0)))
         fd.write(_chunk(b"IDAT", zlib.compress(b"\x00\x00\x00" * 2)))
         fd.write(_chunk(b"IEND", b""))
-    with pytest.raises(NotImplementedError, match="color type 3"):
+    # a palette PNG without its PLTE chunk is malformed (cv2 reads none)
+    with pytest.raises(ValueError, match="colour type 3"):
         timg.read_png(path)
     bad = bytearray(open(path, "rb").read())
     bad[-5] ^= 1                                   # corrupt IEND's CRC

@@ -156,9 +156,9 @@ def _retagged(data: bytes, offset_marker: bytes, new: bytes) -> bytes:
 @pytest.mark.parametrize("kind", ["progressive", "arithmetic", "12-bit"])
 def test_unported_jpeg_kinds_raise_naming_roadmap(kind):
     img = picture(16, 16)
-    if kind == "progressive":
+    if kind == "progressive":                  # SOF10: arithmetic-coded
         ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-        data = buf.tobytes()
+        data = _retagged(buf.tobytes(), b"\xff\xc2", b"\xff\xca")
     elif kind == "arithmetic":                 # SOF9 in place of SOF0
         data = _retagged(cv2_file(img, 75, "420"), b"\xff\xc0", b"\xff\xc9")
     else:                                      # SOF1 with 12-bit samples
@@ -204,13 +204,19 @@ def test_binary_pnm_reads_as_cv2_and_jax(tmp_path, ext, maxval):
 
 
 def test_ascii_pnm_and_tiff_raise_naming_roadmap(tmp_path):
+    """The kinds still refused beside them: a PAM (P7, an ASCII header)
+    named .pgm and a JPEG-compressed TIFF."""
     path = str(tmp_path / "a.pgm")
     with open(path, "wb") as f:
-        f.write(b"P2\n2 1\n255\n1 2\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        f.write(b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\nENDHDR\n\1\2")
+    with pytest.raises(NotImplementedError, match="PAM.*ROADMAP.md"):
         timg.read_image(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        timg.read_image(str(tmp_path / "scan.tiff"))
+    tif = str(tmp_path / "scan.tiff")
+    with open(tif, "wb") as f:
+        f.write(b"II*\0\x08\0\0\0\x01\0" + struct.pack("<HHII", 259, 3, 1,
+                                                       7) + bytes(4))
+    with pytest.raises(NotImplementedError, match="JPEG.*ROADMAP.md"):
+        timg.read_image(tif)
 
 
 def test_quality_tables_are_libjpeg_scaling():

@@ -59,6 +59,7 @@ def test_every_module_imports_without_jax():
 assert {"smoe_tpu_torch.bench.flagship", "smoe_tpu_torch.bench.decode",
         "smoe_tpu_torch.apps.exp_a_domain",
         "smoe_tpu_torch.apps.dryrun_tp_bigk", "smoe_tpu_torch.io.jpeg",
+        "smoe_tpu_torch.io.tiff",
         "smoe_tpu_torch.apps.anchor_jpeg", "smoe_tpu_torch.apps.anchor_video",
         "smoe_tpu_torch.apps.anchor_lf"} <= set(names)
 """, prelude=_BLOCK)
@@ -93,6 +94,39 @@ with contextlib.redirect_stdout(io.StringIO()), \
 assert len(rows) == 10 and all(r["bpp"] > 0 for r in rows)
 assert s.get_num_pis()[-1][1] == 4
 shutil.rmtree(d)
+"""
+    _run(extra, prelude=_BLOCK)
+
+
+def test_stills_read_without_jax():
+    """Every still fixture (tests/data/stills) through read_still,
+    read_color and read_image in a process where jax, smoe_tpu,
+    matplotlib and cv2 are refused and PIL is never imported: the arrays'
+    sha256 are cv2's and the JAX reader's recorded ones
+    (tests/data/stills_ref.json)."""
+    extra = """
+import hashlib, json, os
+import numpy as np
+from smoe_tpu_torch.io import images, tiff
+def sha(a):
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+with open(os.path.join("tests", "data", "stills_ref.json")) as f:
+    ref = json.load(f)["files"]
+for name, row in ref.items():
+    p = os.path.join("tests", "data", "stills", name)
+    assert sha(images.read_still(p)) == row["unchanged"]["sha256"], name
+    if row["color"] is None:
+        try:
+            images.read_color(p)
+            raise AssertionError(name)
+        except ValueError:
+            pass
+    else:
+        assert sha(images.read_color(p)) == row["color"]["sha256"], name
+    img, prec, _ = images.read_image(p)
+    assert (sha(img), prec) == (row["read_image"]["sha256"],
+                                row["read_image"]["precision"]), name
+assert len(ref) >= 25 and "PIL" not in sys.modules
 """
     _run(extra, prelude=_BLOCK)
 
