@@ -3,8 +3,8 @@ ablation variants, encode CLI, fit CLI with its plots, video path,
 light-field path, SV residual / subsampling, mesh paths, applications,
 bench modules, the graphed training chunk, the other graphed programs
 (evals, LS refresh, encode, decoder, NCCL mesh sweep) and the
-real-photograph path, the JPEG anchors and the still readers with the
-16-bit fit on one NVIDIA GPU.
+real-photograph path, the JPEG anchors, the still readers with the
+16-bit fit and compute_dtype="bfloat16" on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -357,6 +357,28 @@ no result line) on any fault:
      and candidate fraction; (c) hopper_prog.jpg through cli.fit -k 12
      -n 200 -qm 1, cli.reconstruct and cli.decode within 1 LSB (>= 99.9 %
      identical) of the encoder's reconstruction.
+ 28. compute_dtype="bfloat16": (a) the bf16 instances of K1 and K2
+     (their maha on the tensor core) against their plain bf16 versions at
+     every width on random operands, at the flagship's shape and on the
+     raster operands phases 8, 17, 18 and 25 built (kept on the host):
+     res within RES_TOL plus 2 * BF16_ULPS * 2^-24 * sum_j |phi_j q'_j| *
+     max |G . xe| a row, cull flips counted, K2 within BWD_REL_TOL plus
+     the same share; each time beside the fp32 instance's, the plain
+     version's and the bound (tensor-core and fp32 parts); (b) the bf16
+     K1 at K = 16384 (F = 7 and 21) bit for bit against the dense bf16
+     witness (FULL_DENSE with the bf16 maha, K3's library's C interface),
+     and K2 fed its denominator; (c) Smoe(img, compute_dtype="bfloat16")
+     at the flagship: the graphed chunk bit for bit against eager(), 20
+     sweeps held stepped against the plain bf16 path (BF16_FIT_RTOL), the
+     free runs printed, s/iter beside fp32's, the light and quantized
+     evals, the .smoe writer and the fp32 serving decode (its share
+     within 1 LSB of the bf16 encoder printed, not held); (d) the hopper
+     fit of phase 25 (b) at bf16: 100 sweeps stepped, the 1000-sweep best
+     PSNR of both paths beside the JAX CPU bf16 record, BASELINE.md's TPU
+     numbers and phase 25's fp32 fit; (e) bench.lf at the script's
+     defaults cut to --s 24 --n 600, beside tests/data/lf_defaults_ref.json
+     (trained-view dB within LF_DEFAULTS_DB_TOL of the JAX fused record).
+     The bf16 instances' launches in (c) and (d) are counted apart.
 Launch counts are zeroed before each path and read after it; the launches
 made to compare a kernel with its plain version are not counted.  Under a
 graph a capture takes back the launches it counted and each replay adds
@@ -1153,6 +1175,15 @@ def reset_counts():
     gate_expert_variant.launches = 0
 
 
+def reset_bf16_counts():
+    """The bf16 instances' own counts (K1's and K2's counts include them,
+    and reset_counts leaves these alone)."""
+    from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
+                                                    gate_expert_fwd)
+    gate_expert_fwd.launches_bf16 = 0
+    gate_expert_bwd.launches_bf16 = 0
+
+
 def read_counts():
     from smoe_tpu_torch.kernels.gate_expert import (gate_expert_bwd,
                                                     gate_expert_fwd)
@@ -1893,15 +1924,17 @@ def fit_cli_recipe(img, launches):
     return out
 
 
-def stepped_from_kernel_path(s_k, s_p, n, **kw):
+def stepped_from_kernel_path(s_k, s_p, n, forward=False, **kw):
     """n sweeps of the kernel-path trainer s_k, each also taken by the
     plain-path trainer s_p from the very state s_k starts it from (params,
     Adam moments, kernel lists copied over first); after each, both
     updated models are evaluated on the exact path.  Returns the per-sweep
     relative difference of those two mse values: the kernel path's step
     against the plain path's, without the chaos a free-running pair of
-    trajectories through a quantizer accumulates.  kw: the sweeps'
-    run_batched_chunk arguments."""
+    trajectories through a quantizer accumulates.  forward: compare the
+    two sweeps' own mse instead (their forward from that one state, before
+    the update), and evaluate nothing.  kw: the sweeps' run_batched_chunk
+    arguments."""
     from smoe_tpu_torch.core.params import adam_state_from_numpy
     from smoe_tpu_torch.fit.trainer import PARAM_FIELDS
     rel = []
@@ -1913,8 +1946,11 @@ def stepped_from_kernel_path(s_k, s_p, n, **kw):
             s_p.load_adam_state(adam_state_from_numpy(
                 st["mu"], st["nu"], st["count"], device=s_p.device))
         s_p.kernel_lists = s_k.kernel_lists.clone()
-        s_k.run_batched_chunk(1, **kw)
-        s_p.run_batched_chunk(1, **kw)
+        mk = s_k.run_batched_chunk(1, **kw)[1][0]
+        mp = s_p.run_batched_chunk(1, **kw)[1][0]
+        if forward:
+            rel.append(float(abs(mk - mp) / mp))
+            continue
         lists = s_k.kernel_lists.clone()
         mk = s_k.run_batched(train=False, update_reconstruction=True)[1]
         mp = s_p.run_batched(train=False, update_reconstruction=True)[1]
@@ -2480,6 +2516,7 @@ def video_phase(thr, floor, launches):
                  affines=affines)
         vid, _, affines = read_image(clip)
         s_k, fit, (fargs, thr_f, floor_f) = video_fit(vid, affines, launches)
+        keep_operands("cif_fit_f26", fargs)
         raster = compare_raster("CIF video fit, sweep 20 (F26)", fargs,
                                 thr_f, floor_f, 17, cancelling=True)
         raster["k1"]["mh_rounding"] = mh_rounding(fargs)
@@ -2793,6 +2830,7 @@ def lf_phase(thr, floor, launches):
     import torch
     kern = lf_kernels(thr, floor)
     fit, (fargs, thr_f, floor_f) = lf_fit(build_lf(), launches)
+    keep_operands("lf_fit_f21", fargs)
     raster = compare_raster("LF fit 518,400 x 576, sweep 20 (F21)", fargs,
                             thr_f, floor_f, 18)
     del fargs
@@ -4702,21 +4740,29 @@ def photo_content(ref):
     return out, got["hopper_256"]
 
 
+def nudge_nu(s, member: int) -> None:
+    """Member `member`'s start: a seeded half of the trainer s's nu_e
+    entries moved up by 1 ulp (none for member 0)."""
+    from smoe_tpu_torch.fit.trainer import PARAM_FIELDS
+    if not member:
+        return
+    p = {f: getattr(s.params, f).detach().cpu().numpy().copy()
+         for f in PARAM_FIELDS}
+    nu = p["nu_e"]
+    up = np.random.default_rng(member).random(nu.shape) < 0.5
+    nu[up] = np.nextafter(nu[up], np.float32(np.inf))
+    s.set_params(p)
+
+
 def photo_smoe(img, mode, member=0):
     """The BASELINE bisect's trainer: 12 x 12 kernels, YUV loss,
     determinant gating, the flagship optimizer; a member > 0 moves a
     seeded half of the init's nu_e entries up by 1 ulp."""
-    from smoe_tpu_torch.fit.trainer import PARAM_FIELDS, Smoe
+    from smoe_tpu_torch.fit.trainer import Smoe
     s = Smoe(img, kernels_per_dim=[12], use_yuv=True, use_determinant=True,
              use_pallas=mode, device=DEVICE)
     s.set_optimizer()
-    if member:
-        p = {f: getattr(s.params, f).detach().cpu().numpy().copy()
-             for f in PARAM_FIELDS}
-        nu = p["nu_e"]
-        up = np.random.default_rng(member).random(nu.shape) < 0.5
-        nu[up] = np.nextafter(nu[up], np.float32(np.inf))
-        s.set_params(p)
+    nudge_nu(s, member)
     return s
 
 
@@ -4796,8 +4842,8 @@ def photo_stepped(s_k, s_p):
         out = real(*a, **kw)
         cap.update(args=a, denom=kw.get("denom"), out=out)
         return out
-    # a comparison: the wrapper keeps its own count, the real one stays
-    recorded.launches = 0
+    # a comparison: the wrapper keeps its own counts, the real ones stay
+    recorded.launches = recorded.launches_bf16 = 0
     with eager():
         for s in (s_k, s_p):
             ge.gate_expert_bwd = recorded if s is s_k else real
@@ -4945,6 +4991,7 @@ def photo_fit(img, ref, thr, floor, launches):
               and e["k2_vs_f64_of_abs_sum"] <= BWD_REL_TOL,
               f"photo fit, stepped: K2's {label} on the fit's cotangent {e}")
     # K1 and K2 on the sweep-1000 operands, and the attribution's set (e)
+    keep_operands("hopper_fit", fargs)
     out["raster"] = compare_raster("photo fit, sweep 1000", fargs, thr_f,
                                    floor_f, 25)
     out["attribution"] = attribution("(e) photo fit, sweep 1000", fargs,
@@ -4959,26 +5006,41 @@ def member_init(member: int):
     followed by member `member`'s 1-ulp move of a seeded half of nu_e,
     as photo_smoe moves its members' (none for member 0); the same move
     scripts/make_torch_photo_cli_record.py makes in the JAX CLI."""
-    from smoe_tpu_torch.fit.trainer import PARAM_FIELDS, Smoe
+    from smoe_tpu_torch.fit.trainer import Smoe
     real = Smoe.ls_init_experts
     moved = set()
 
     def ls_init_experts(self, *a, **kw):
         out = real(self, *a, **kw)
-        if member and id(self) not in moved:
+        if id(self) not in moved:
             moved.add(id(self))
-            p = {f: getattr(self.params, f).detach().cpu().numpy().copy()
-                 for f in PARAM_FIELDS}
-            nu = p["nu_e"]
-            up = np.random.default_rng(member).random(nu.shape) < 0.5
-            nu[up] = np.nextafter(nu[up], np.float32(np.inf))
-            self.set_params(p)
+            nudge_nu(self, member)
         return out
     Smoe.ls_init_experts = ls_init_experts
     try:
         yield
     finally:
         Smoe.ls_init_experts = real
+
+
+@contextlib.contextmanager
+def member_start(member: int):
+    """Within: a trainer's first set_optimizer (a fit without an LS init)
+    is preceded by member `member`'s move of nu_e (`nudge_nu`)."""
+    from smoe_tpu_torch.fit.trainer import Smoe
+    real = Smoe.set_optimizer
+    moved = set()
+
+    def set_optimizer(self, *a, **kw):
+        if id(self) not in moved:
+            moved.add(id(self))
+            nudge_nu(self, member)
+        return real(self, *a, **kw)
+    Smoe.set_optimizer = set_optimizer
+    try:
+        yield
+    finally:
+        Smoe.set_optimizer = real
 
 
 def cli_recipe(path, tmp, flags, launches, member=0):
@@ -5795,6 +5857,663 @@ def still_summary(still, before, launches) -> dict:
             "launches_k1_k2": [launches[i] - before[i] for i in range(2)]}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: compute_dtype="bfloat16"
+# ---------------------------------------------------------------------------
+
+# the bf16 instances' tolerance against their plain versions.  Both take the
+# maha from the same bf16-rounded operands, whose products are exact; the
+# plain version sums them in fp32 with round-to-nearest, the tensor core
+# aligns and accumulates them otherwise.  A correct pair of evaluations of
+# mh = phi . q' may then part by a multiple of 2^-24 * S, S = sum_j
+# |phi_j q'_j| of the pair (not of |mh|: the quadratic features cancel
+# B-scale terms).  BF16_ULPS is that multiple; a weight moves by up to twice
+# its own size times it (exp, then the normalisation), res by that times
+# max |G_k . xe_n|.  A pair whose plain weight sits that close to the cull
+# threshold may flip: such pairs are counted, never absorbed.  On an H100
+# the bf16 instances measured at most 3.6 of these units on res (phase 28
+# (a)'s cases); 16 leaves room for other inputs.
+BF16_ULPS = 16
+BF16_SRC = {"k1": KERNEL_SRC + " (smoe_gate_expert_fwd_bf16)",
+            "k2": BWD_SRC + " (smoe_gate_expert_bwd_bf16)"}
+BF16_REPLACES = {"k1": "smoe_tpu/kernels/gate_expert.py:113 (bf16=True, "
+                       ":121-123)",
+                 "k2": "smoe_tpu/kernels/gate_expert.py:236 (bf16=True, "
+                       ":246-247)"}
+BF16_PEAK_FLOPS = 989e12     # dense bf16 tensor-core peak (data sheet)
+
+
+def bf16_depth(f: int) -> int:
+    """The bf16 maha's padded depth (csrc/gate_expert_common.cuh)."""
+    return (f + 15) // 16 * 16
+
+
+def bf16_bound(fp32_flops, tc_flops, nbytes):
+    """(least ms, what binds, parts): the larger of the fp32 work over the
+    fp32 peak, the tensor-core work over the bf16 peak (the two pipes run
+    side by side) and the bytes over the memory bandwidth."""
+    from smoe_tpu_torch.diag.contraction import (FP32_PEAK_FLOPS,
+                                                 HBM_BYTES_PER_S)
+    t_fp, t_tc = fp32_flops / FP32_PEAK_FLOPS, tc_flops / BF16_PEAK_FLOPS
+    t_b = nbytes / HBM_BYTES_PER_S
+    parts = {"fp32_ms": t_fp * 1e3, "tensor_core_ms": t_tc * 1e3,
+             "bytes_ms": t_b * 1e3}
+    return (max(t_fp, t_tc, t_b) * 1e3,
+            "operations" if max(t_fp, t_tc) >= t_b else "bytes", parts)
+
+
+def k1_bf16_bound(n, k, f, e, c, survivors):
+    """K1's least work at bf16: every pair the maha on the tensor core
+    over the padded depth (2 D flops) and min, exp, multiply and the
+    denominator add in fp32 (4); every survivor the division and the mix
+    (1 + 2 E*C); K1's bytes."""
+    from smoe_tpu_torch.diag.contraction import mode_work
+    p = n * k
+    nbytes = mode_work("production", n, k, f, e, c, survivors)[2]
+    return bf16_bound(4 * p + (1 + 2 * e * c) * survivors,
+                      2 * bf16_depth(f) * p, nbytes)
+
+
+def k2_bf16_bound(n, k, f, e, c, survivors):
+    """K2's least work at bf16 (`k2_bound`'s, the maha on the tensor
+    core): every pair 2 D tensor-core flops, then exp, multiply, dn, dpi,
+    the clamp factor and the F dq' FMAs on the fp32 phi (2F + 10); every
+    survivor 4 E*C + 4; K2's bytes with K1's denominator."""
+    p = n * k
+    nbytes = 4 * (n * (f + e + c + 1) + 2 * k * (f + e * c + 1))
+    return bf16_bound(p * (2 * f + 10) + survivors * (4 * e * c + 4),
+                      2 * bf16_depth(f) * p, nbytes)
+
+
+def bf16_fwd_vs_plain(args, res_k, surv_k, thr, floor, name):
+    """K1's bf16 instance against its plain version (bf16=True) on the
+    same inputs, PLAIN_ROWS rows per plain call: max |res error|, and the
+    same in units of 2^-24 * S_n * M_n (S_n the largest sum_j |phi_j q'_j|
+    of the row's pairs that carry a weight above 1e-7, M_n = sum_j |xe_nj|
+    * max |G|), which 2 * BF16_ULPS bounds (beside RES_TOL); surv within
+    SURV_TOL plus its largest weight's own share of that bound; cull flips
+    counted."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import (_plain_gate,
+                                                    gate_expert_reference,
+                                                    round_bf16)
+    phi, xe, q, G, pi_det, mask = args
+    n, k = phi.shape[0], q.shape[0]
+    surv_p = torch.zeros_like(surv_k)
+    near_k = torch.zeros((k,), dtype=torch.bool, device=phi.device)
+    surv_tol = torch.full_like(surv_k, SURV_TOL)
+    q_abs = round_bf16(q * (0.5 * mask)[:, None]).abs()
+    g_max = float(G.abs().max())
+    max_res, max_ulps, bad_rows, flips, unexplained = 0.0, 0.0, 0, 0, 0
+    rows = plain_rows(k)
+    for i in range(0, n, rows):
+        sl = slice(i, i + rows)
+        res_p, s_p = gate_expert_reference(phi[sl], xe[sl], q, G, pi_det,
+                                           mask, thr, floor, bf16=True)
+        surv_p = torch.maximum(surv_p, s_p)
+        d_res = (res_k[sl] - res_p).abs().amax(1)
+        n_w, denom = _plain_gate(phi[sl], q, pi_det, mask, floor, bf16=True)
+        w = n_w / denom
+        s_pair = round_bf16(phi[sl]).abs() @ q_abs.T
+        s_row = torch.where(w > 1e-7, s_pair, torch.zeros_like(s_pair)) \
+            .amax(1)
+        unit = 2.0 ** -24 * s_row * xe[sl].abs().sum(1) * g_max
+        tol = RES_TOL + 2 * BF16_ULPS * unit
+        w_err = 2 * BF16_ULPS * 2.0 ** -24 * s_pair * w
+        near = (w - thr).abs() <= w_err
+        surv_tol = torch.maximum(surv_tol, SURV_TOL + w_err.amax(0))
+        bad = d_res > tol
+        max_res = max(max_res, float(d_res.max()))
+        max_ulps = max(max_ulps, float((d_res / unit.clamp_min(1e-30))
+                                       .max()))
+        bad_rows += int(bad.sum())
+        flips += int(near[bad].sum())
+        unexplained += int((bad & ~near.any(1)).sum())
+        near_k |= near.any(0)
+        del n_w, w, s_pair, near, w_err
+    d_surv = (surv_k - surv_p).abs()
+    unexplained_k = int(((d_surv > surv_tol) & ~near_k).sum())
+    out = {"shape": name, "n": n, "k": k, "f": phi.shape[1],
+           "e": xe.shape[1], "c": res_k.shape[1], "max_abs_err_res": max_res,
+           "max_err_in_units_of_sum": max_ulps,
+           "max_abs_err_surv": float(d_surv.max()),
+           "rows_over_tol": bad_rows, "cull_flip_pairs": flips,
+           "survivor_flags_equal": bool(torch.equal(surv_k > 0,
+                                                    surv_p > 0))}
+    check(torch.isfinite(res_k).all().item(), f"{name}: non-finite res")
+    check(unexplained == 0 and unexplained_k == 0,
+          f"{name}: bf16 K1: {unexplained} rows / {unexplained_k} kernels "
+          f"exceed the tolerance without a cull flip ({out})")
+    check(bad_rows <= 1e-3 * n, f"{name}: bf16 K1: {bad_rows} rows over "
+          "tolerance")
+    return out
+
+
+def bf16_bwd_vs_plain(fargs, seed, thr, floor, name):
+    """K2's bf16 instance, fed the bf16 K1's denominator, against its
+    plain version (bf16=True; PLAIN_ROWS rows a call, the pixel sums in
+    fp64): max |error| / max |plain| per output, which BWD_REL_TOL bounds
+    where the maha is exact; here each term's weight carries the maha's
+    rounding too, so the bound is BWD_REL_TOL plus 4 * BF16_ULPS * 2^-24 *
+    the largest S of a pair that carries a weight above 1e-7, and the
+    error in those units is printed.  Reruns bit-identical."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import (_plain_gate,
+                                                    gate_expert_bwd,
+                                                    gate_expert_bwd_reference,
+                                                    gate_expert_fwd,
+                                                    round_bf16)
+    phi, xe, q, G, pi_det, mask = fargs
+    n, k, c = phi.shape[0], q.shape[0], G.shape[1] // xe.shape[1]
+    q_s = (q * (-0.5 * mask)[:, None]).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn((n, c), generator=gen, device="cuda") / n
+    args = (phi, xe, q_s, G, pi_det, g, thr, floor)
+    den = torch.empty((n,), dtype=torch.float32, device="cuda")
+    gate_expert_fwd(*fargs, thr, floor, denom_out=den, bf16=True)
+    out_k = gate_expert_bwd(*args, denom=den, bf16=True)
+    again = gate_expert_bwd(*args, denom=den, bf16=True)
+    torch.cuda.synchronize()
+    out_p = [torch.zeros(t.shape, dtype=torch.float64, device="cuda")
+             for t in out_k]
+    rows = plain_rows(k)
+    q_abs = round_bf16(q_s).abs()
+    s_max = 0.0
+    for i in range(0, n, rows):
+        sl = slice(i, i + rows)
+        for acc, t in zip(out_p, gate_expert_bwd_reference(
+                phi[sl], xe[sl], q_s, G, pi_det, g[sl], thr, floor,
+                bf16=True)):
+            acc += t.double()
+        n_w, denom = _plain_gate(phi[sl], q, pi_det, mask, floor, bf16=True)
+        s_pair = round_bf16(phi[sl]).abs() @ q_abs.T
+        s_max = max(s_max, float(torch.where(n_w / denom > 1e-7, s_pair,
+                                             torch.zeros_like(s_pair)).max()))
+        del n_w, s_pair
+    unit = 4 * 2.0 ** -24 * s_max
+    tol = BWD_REL_TOL + BF16_ULPS * unit
+    out = {"shape": name, "n": n, "k": k, "f": phi.shape[1],
+           "e": xe.shape[1], "c": c, "tol": tol}
+    rel = {}
+    for label, a, b in zip(("dq", "dG", "dpi"), out_k, out_p):
+        check(torch.isfinite(a).all().item(), f"{name}: non-finite {label}")
+        rel[label] = float((a.double() - b).abs().max()
+                           / b.abs().max().clamp_min(1e-30))
+    out["rel_err"] = rel
+    out["max_rel_err"] = max(rel.values())
+    out["max_err_in_units_of_sum"] = out["max_rel_err"] / max(unit, 1e-30)
+    out["max_abs_err"] = max(float((a.double() - b).abs().max())
+                             for a, b in zip(out_k, out_p))
+    out["bit_identical_rerun"] = all(torch.equal(a, b)
+                                     for a, b in zip(out_k, again))
+    check(out["max_rel_err"] <= tol,
+          f"{name}: bf16 K2 relative error {rel} over {tol}")
+    check(out["bit_identical_rerun"], f"{name}: bf16 K2 reruns differ")
+    return out, args, den
+
+
+def compare_bf16(name, fargs, thr, floor, seed, time_it=True):
+    """Phase 28 (a): K1's and K2's bf16 instances on `fargs` against their
+    plain bf16 versions, each kernel's time beside its bound (tensor-core
+    and fp32 parts), the plain version's time and the fp32 instance's."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import (
+        gate_expert_bwd, gate_expert_bwd_reference, gate_expert_fwd,
+        gate_expert_reference)
+    phi, xe, q, G = fargs[:4]
+    n, k, f, e = phi.shape[0], q.shape[0], phi.shape[1], xe.shape[1]
+    c = G.shape[1] // e
+    res_k, surv_k = gate_expert_fwd(*fargs, thr, floor, bf16=True)
+    torch.cuda.synchronize()
+    fwd = bf16_fwd_vs_plain(fargs, res_k, surv_k, thr, floor, name)
+    del res_k, surv_k
+    stats = torch.zeros((2,), dtype=torch.int64, device="cuda")
+    gate_expert_fwd(*fargs, thr, floor, stats=stats, bf16=True)
+    visited, survivors = (int(v) for v in stats.tolist())
+    fwd["candidate_fraction"], fwd["survivors"] = visited / (n * k), survivors
+    fwd["bound_ms"], fwd["bound_by"], fwd["bound_parts"] = k1_bf16_bound(
+        n, k, f, e, c, survivors)
+    bwd, args, den = bf16_bwd_vs_plain(fargs, seed, thr, floor, name)
+    bwd["bound_ms"], bwd["bound_by"], bwd["bound_parts"] = k2_bf16_bound(
+        n, k, f, e, c, survivors)
+    if time_it:
+        (fwd["ms_fp32"], _), (fwd["ms"], _) = in_turns(
+            lambda: cuda_ms(lambda: gate_expert_fwd(*fargs, thr, floor), 10),
+            lambda: cuda_ms(lambda: gate_expert_fwd(*fargs, thr, floor,
+                                                    bf16=True), 10))
+        (bwd["ms_fp32"], _), (bwd["ms"], _) = in_turns(
+            lambda: cuda_ms(lambda: gate_expert_bwd(*args, denom=den), 5),
+            lambda: cuda_ms(lambda: gate_expert_bwd(*args, denom=den,
+                                                    bf16=True), 5))
+        if n * k <= (1 << 27):
+            fwd["plain_ms"] = cuda_ms(lambda: gate_expert_reference(
+                *fargs, thr, floor, bf16=True), 3)
+            bwd["plain_ms"] = cuda_ms(lambda: gate_expert_bwd_reference(
+                *args, bf16=True), 2)
+        else:
+            fwd["plain_ms"] = bwd["plain_ms"] = None   # (N, K) maps too large
+    print(f"bf16 K1-vs-plain {json.dumps(fwd)}", flush=True)
+    print(f"bf16 K2-vs-plain {json.dumps(bwd)}", flush=True)
+    return {"k1": fwd, "k2": bwd}
+
+
+def dense_bf16_witness(phi, q, G, pi_det, thr, floor):
+    """The bf16 witness through K3's library's C interface (no wrapper
+    offers it): FULL_DENSE with the bf16 maha, one loop over every kernel,
+    divided and culled per pair.  Returns res (N, 3); not counted as a
+    launch (it is a comparison)."""
+    import ctypes
+    import torch
+    from smoe_tpu_torch.kernels import gate_expert_variants as tgv
+    lib = tgv._library()
+    fn = lib.smoe_gate_expert_dense_bf16
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [ptr] * 5 + [i32] * 4 + [f32, f32, ptr]
+    fn.restype = i32
+    n, f = phi.shape
+    q_s = (-0.5 * q).contiguous()
+    res = torch.empty((n, 3), dtype=torch.float32, device=phi.device)
+    err = fn(phi.data_ptr(), q_s.data_ptr(), G.data_ptr(), pi_det.data_ptr(),
+             res.data_ptr(), n, f, G.shape[1], q.shape[0], thr, floor,
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, "the bf16 dense witness did not launch: "
+          + lib.smoe_cuda_error_string(err).decode())
+    return res
+
+
+def bf16_witness(thr, floor):
+    """Phase 28 (b): K1's bf16 instance at K = 16384 (two segments, the
+    candidates compacted) bit for bit (xe = 1, mask = 1) against the dense
+    bf16 witness, at F = 7 and F = 21; and K2's bf16 instance fed that
+    K1's denominator against the plain version."""
+    import torch
+    from smoe_tpu_torch.kernels.gate_expert import gate_expert_fwd
+    out = {}
+    for name, n, k, d, seed in (("K16384 d2", 2053, 16384, 2, 5),
+                                ("K16384 d4", 2053, 16384, 4, 9)):
+        phi, _, q, G, pi_det, _ = random_case(n, k, d, 1, 3, seed, "cuda")
+        ones = torch.ones_like(pi_det)
+        k1, _ = gate_expert_fwd(phi, torch.ones_like(phi[:, :1]), q, G,
+                                pi_det, ones, thr, floor, bf16=True)
+        witness = dense_bf16_witness(phi, q, G, pi_det, thr, floor)
+        k1_fp32, _ = gate_expert_fwd(phi, torch.ones_like(phi[:, :1]), q, G,
+                                     pi_det, ones, thr, floor)
+        o = {"n": n, "k": k, "f": phi.shape[1],
+             "witness_bit_identical": bool(torch.equal(k1, witness)),
+             "max_abs_diff_from_fp32_instance":
+                 float((k1 - k1_fp32).abs().max())}
+        check(o["witness_bit_identical"], f"{name}: bf16 K1 is not "
+              "bit-identical to the dense bf16 witness")
+        fargs = (phi, torch.ones_like(phi[:, :1]), q, G, pi_det, ones)
+        o["k2"], _, _ = bf16_bwd_vs_plain(fargs, seed, thr, floor, name)
+        del phi, q, G, pi_det, k1, witness, k1_fp32, fargs
+        out[name] = o
+    free_card()
+    print(f"bf16 witness: {json.dumps(out)}", flush=True)
+    return out
+
+
+# phase 28 (a): the raster operands phases 8, 17, 18 and 25 build, kept on
+# the host by `keep_operands` where those phases make them
+BF16_RASTER = {}
+# every width of K1 / K2 (gate_expert_fwd.cu SMOE_WIDTHS): (d, E, C), and
+# the dual-model F = 26 as d = "dual"
+BF16_WIDTHS = [(d, e, c) for d, e1 in ((2, 3), (3, 4), (4, 5), ("dual", 4))
+               for e in (e1, 1) for c in (3, 1)]
+# phase 28 (c), (d): a bf16 fit's kernel path against its plain path.  The
+# plain path also rounds the expert products' operands (w_e, nu_e, gamma_e:
+# model.py:201-210) and so the cotangents there, the fused op only the
+# maha's operands: the two bf16 paths are different functions, as in the
+# JAX package.  And a bf16 maha moves by whole units where an fp32
+# rounding of A rounds q to a neighbouring bf16 value (a 2^-8 step of a
+# B-scale term): free-running fits part within a few sweeps (the port's
+# and JAX's CPU fits of the 16^2 flag-matrix toy through the fused op at
+# sweep 4, tests/test_torch_bf16.py), and even one
+# update taken by the two paths from one state moved the flagship's next
+# mse by up to 43 % (measured on an H100).  So each sweep's forward
+# is held stepped: both paths take the sweep from the kernel path's state
+# and their mse of that state (before the update) agree to BF16_FIT_RTOL,
+# the gap of the expert rounding (1.2e-3 at the flagship's init); the free
+# runs are printed beside.
+BF16_FIT_RTOL = 1e-2
+# phase 28 (d): the TPU's bf16 stall on the hopper fit (BASELINE.md:133,
+# 139): 15.8 dB with one bf16 pass on the maha, 21.8-22.08 dB exact
+BF16_TPU_DB = {"bf16_maha": 15.8, "exact": [21.8, 22.08]}
+PHOTO_BF16_REF = os.path.join(HERE, "tests", "data",
+                              "hopper256_k144_bf16_ref.npz")
+# phase 28 (e): bench.lf at the script's defaults, cut as
+# scripts/make_torch_lf_defaults_record.py cut the JAX record
+LF_DEFAULTS_REF = os.path.join(HERE, "tests", "data", "lf_defaults_ref.json")
+LF_DEFAULTS_CUT = ["--s", "24", "--n", "600"]
+# four members (the init and three 1-ulp moves of nu_e, `member_start`),
+# as phase 25 (c) holds the photo CLI: a 600-sweep fit's single run moves
+# by tenths of a dB with its start; the members' mean trained-view dB
+# within the anchors' 0.5 dB of the JAX record's fused path
+LF_DEFAULTS_MEMBERS = 4
+LF_DEFAULTS_DB_TOL = 0.5
+
+
+def keep_operands(name, fargs):
+    """A host copy of a fit's K1 operands, for phase 28 (a)."""
+    BF16_RASTER[name] = [t.detach().cpu() for t in fargs]
+
+
+def bf16_kernels(thr, floor):
+    """Phase 28 (a): the bf16 K1 and K2 against their plain versions at
+    every width on random operands, then on the raster operands of the
+    flagship (sweep 20), CIF (F = 26), light-field (F = 21) and hopper
+    fits; (b): the witness."""
+    out = {"widths": {}, "raster": {}}
+    for i, (d, e, c) in enumerate(BF16_WIDTHS):
+        if d == "dual":
+            fargs = random_dual_case(40009, 300, e, c, 40 + i, "cuda")
+        else:
+            fargs = random_case(40009, 300, d, e, c, 40 + i, "cuda")
+        name = f"F{fargs[0].shape[1]} E{e} C{c}"
+        out["widths"][name] = compare_bf16(name, fargs, thr, floor, 40 + i)
+        del fargs
+    flag = random_case(512 * 512, 256, 2, 3, 3, 1, "cuda")
+    out["flagship_random"] = compare_bf16("flagship 512^2 x K256 d2", flag,
+                                          thr, floor, 1)
+    del flag
+    for name, host in BF16_RASTER.items():
+        fargs = [t.to("cuda") for t in host]
+        out["raster"][name] = compare_bf16(name, fargs, thr, floor, 28)
+        del fargs
+        free_card()
+    out["witness"] = bf16_witness(thr, floor)
+    return out
+
+
+def bf16_smoe(img, mode, kpd, **kw):
+    """A bf16 trainer (compute_dtype="bfloat16", as a user asks for it)
+    with the flagship's flags."""
+    from smoe_tpu_torch.fit.trainer import Smoe
+    s = Smoe(img, kernels_per_dim=[kpd], use_yuv=True, use_determinant=True,
+             use_pallas=mode, compute_dtype="bfloat16", device=DEVICE, **kw)
+    s.set_optimizer()
+    return s
+
+
+def bf16_flagship(img, launches):
+    """Phase 28 (c): Smoe(img, compute_dtype="bfloat16") at the bench
+    flagship (512^2, 16 x 16 kernels): the graphed chunk against eager()
+    bit for bit; 20 sweeps on the kernel path (K1 + K2 bf16) each taken by
+    the plain bf16 path from its state (`stepped_from_kernel_path`, their
+    forward mse), and
+    20 free-running sweeps of each printed; s/iter beside the fp32 fit's,
+    in turns; the light
+    eval (K1 bf16); the quantized eval (plain bf16), quantize_params, the
+    .smoe writer and the serving decode, which builds an fp32 cfg from the
+    header: its share within 1 LSB of the bf16 encoder's reconstruction is
+    printed, not held (the two differ by design, as in JAX)."""
+    import torch
+    from smoe_tpu_torch.codec.bitstream import write_bitstream
+    from smoe_tpu_torch.codec.quantize import quantize_params, rescaler
+    from smoe_tpu_torch.codec.serve import decode_bitstream, read_model
+    out = {}
+    out["graph_witness"], _ = graph_witness(
+        "flagship bf16", lambda: bf16_smoe(img, KERNEL_MODE, 16), launches,
+        chunks=(10, 10))
+    s_k = bf16_smoe(img, KERNEL_MODE, 16)
+    s_p = bf16_smoe(img, "off", 16)
+    check(s_k.fused and not s_p.fused, "flagship bf16: the paths")
+    reset_counts()
+    stepped = stepped_from_kernel_path(s_k, s_p, FIT_SWEEPS, forward=True)
+    s_k = bf16_smoe(img, KERNEL_MODE, 16)
+    s_p = bf16_smoe(img, "off", 16)
+    _, mse_k, _, _ = s_k.run_batched_chunk(FIT_SWEEPS)
+    _, mse_p, _, _ = s_p.run_batched_chunk(FIT_SWEEPS)
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    out["launches_k1_k2"] = [n1, n2]
+    out["stepped_mse_rel"] = [float(v) for v in stepped]
+    out["stepped_mse_max_rel"] = max(stepped)
+    out["mse_kernel"] = [float(v) for v in mse_k]
+    out["mse_plain"] = [float(v) for v in mse_p]
+    out["free_run_kernel_vs_plain_mse_max_rel"] = max_rel(mse_k, mse_p)
+    ref = np.load(TRAIN_REF)
+    out["fp32_jax_recorded_mse"] = [float(v) for v in ref["mse"]]
+    # s/iter at bf16 beside fp32, graphed, in turns
+    reset_counts()
+    s32 = flagship_smoe(img, KERNEL_MODE)
+    s32.run_batched_chunk(FIT_SWEEPS)
+
+    def per_iter(s, n=100):
+        return host_s(lambda: s.run_batched_chunk(n))[0] / n
+    (out["s_per_iter_fp32"], r32), (out["s_per_iter_bf16"], r16) = \
+        in_turns(lambda: per_iter(s32), lambda: per_iter(s_k))
+    out["s_per_iter_readings_fp32_bf16"] = [r32, r16]
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    del s32, s_p
+    # the evals and the file
+    reset_counts()
+    _, light_mse, _, _ = s_k.run_batched(train=False)
+    check(read_counts()[0] >= 1, "flagship bf16: the light eval launched "
+          "no K1")
+    cfg = s_k.cfg
+    s_k.qparams = quantize_params(s_k.get_params(), cfg)
+    s_k.rparams = rescaler(s_k.qparams, cfg)
+    _, qmse, _, _ = s_k.run_batched(train=False, update_reconstruction=True,
+                                    with_quantized_params=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit512_bf16.smoe")
+        bits = write_bitstream(path, s_k.qparams, cfg, extra={
+            "shape_of_img": list(img.shape[:2]),
+            "dim_of_output": img.shape[-1], "use_yuv": cfg.use_yuv,
+            "use_determinant": cfg.use_determinant,
+            "train_gammas": cfg.train_gammas})
+        dcfg, _, _ = read_model(path)
+        rec = decode_bitstream(path, device=DEVICE)
+    n1, n2 = read_counts()
+    launches[0] += n1
+    launches[1] += n2
+    lsb, same = lsb_stats(rec, s_k.qreconstruction_image)
+    out.update({
+        "light_eval_psnr_db": psnr_of(light_mse),
+        "quantized_eval_psnr_db": psnr_of(qmse), "payload_bits": bits,
+        "decode_cfg_compute_dtype": dcfg.compute_dtype,
+        "decode_psnr_db": psnr_of(float(np.mean((rec - img) ** 2))
+                                  * 2 ** 16),
+        "decode_vs_bf16_encoder_max_lsb": lsb,
+        "decode_vs_bf16_encoder_identical": same})
+    print(f"bf16 flagship: {json.dumps(out)}", flush=True)
+    check(np.isfinite(mse_k).all() and np.isfinite(mse_p).all(),
+          "flagship bf16: a fit went non-finite")
+    check(out["stepped_mse_max_rel"] <= BF16_FIT_RTOL,
+          f"flagship bf16: the kernel path's step off the plain path's by "
+          f"{out['stepped_mse_max_rel']:.2e}")
+    check(dcfg.compute_dtype == "float32", "the decoder is not fp32")
+    check(rec.shape == img.shape and np.isfinite(rec).all(),
+          "flagship bf16 decode: bad output")
+    return out
+
+
+def bf16_hopper(launches):
+    """Phase 28 (d): the hopper photo fit of phase 25 (b) at bf16 (256^2,
+    12 x 12 kernels, 1000 sweeps in chunks of 10, a light eval every 100):
+    100 sweeps stepped, the plain bf16 path from the kernel path's state
+    each sweep (`stepped_from_kernel_path`, their forward mse); the
+    free-running best PSNR of
+    both paths beside the fp32 fit's (phase 25 (b)), the TPU's numbers
+    (BASELINE.md:133, 139) and the JAX CPU bf16 record
+    (scripts/make_torch_bf16_photo_record.py)."""
+    from smoe_tpu_torch.apps.content import build_family
+    img = build_family("hopper", 256)
+    ref = np.load(PHOTO_BF16_REF)
+    s_k, s_p = bf16_smoe(img, KERNEL_MODE, 12), bf16_smoe(img, "off", 12)
+    reset_counts()
+    stepped = stepped_from_kernel_path(s_k, s_p, PHOTO_HELD, forward=True)
+    m1, m2 = read_counts()
+    s_k, s_p = bf16_smoe(img, KERNEL_MODE, 12), bf16_smoe(img, "off", 12)
+    run_k = photo_run(s_k, ref)
+    n1, n2 = read_counts()
+    run_p = photo_run(s_p, ref)
+    check(read_counts() == (n1, n2), "hopper bf16: the plain path launched "
+          "a kernel")
+    launches[0] += n1
+    launches[1] += n2
+    every = int(ref["eval_every"])
+    out = {"stepped_sweeps": PHOTO_HELD,
+           "stepped_mse_max_rel": max(stepped),
+           "stepped_k1_k2": [m1, m2], "k1_k2": [n1 - m1, n2 - m2],
+           "best_psnr_db_kernel_plain_jax_bf16": [
+               run_k["best_psnr_db"], run_p["best_psnr_db"],
+               float(ref["best_psnr_db"])],
+           "tpu_baseline_md_db": BF16_TPU_DB,
+           "s_per_iter_kernel_plain": [run_k["s_per_iter"],
+                                       run_p["s_per_iter"]],
+           "trajectory": [{"sweep": every * (i + 1),
+                           "psnr_db_kernel_plain_jax": [
+                               psnr_of(run_k["eval_mse"][i]),
+                               psnr_of(run_p["eval_mse"][i]),
+                               psnr_of(float(ref["eval_mse"][i]))],
+                           "a_diag_max_kernel_plain_jax": [
+                               run_k["a_diag_max"][i], run_p["a_diag_max"][i],
+                               float(ref["a_diag_max"][i])]}
+                          for i in range(len(run_k["eval_mse"]))]}
+    print(f"bf16 hopper: {json.dumps(out)}", flush=True)
+    check(m2 == PHOTO_HELD, f"hopper bf16 stepped: K2 launched {m2} times")
+    check(np.isfinite(run_k["mse"]).all() and np.isfinite(run_p["mse"]).all(),
+          "hopper bf16: a fit went non-finite")
+    check(max(stepped) <= BF16_FIT_RTOL, f"hopper bf16: the kernel path's "
+          f"step off the plain path's by {max(stepped):.2e}")
+    return out
+
+
+def bf16_lf_defaults(launches):
+    """Phase 28 (e): bench.lf at the script's defaults, cut to --s 24 --n
+    600 as the JAX record (tests/data/lf_defaults_ref.json: the JAX CLI's
+    XLA and fused paths on a CPU) was cut, for LF_DEFAULTS_MEMBERS
+    members; their decodes printed beside the record, the members' mean
+    trained-view dB within LF_DEFAULTS_DB_TOL of the record's fused path
+    (the kernel path's semantics)."""
+    from smoe_tpu_torch.bench import lf
+    with open(LF_DEFAULTS_REF) as f:
+        rec = json.load(f)
+    rows, members = {}, []
+    for m in range(LF_DEFAULTS_MEMBERS):
+        with member_start(m):
+            lines, _ = bench_run("lf", lf.main, LF_DEFAULTS_CUT, launches,
+                                 rows, key=f"lf_defaults_cut_{m}")
+        b = lines[0]
+        members.append([b["value"], b["psnr_all_views_db"], b["coded_bpp"]])
+    mean = [float(np.mean([r[i] for r in members])) for i in range(3)]
+    out = {"flags": LF_DEFAULTS_CUT,
+           "wall_s": [r["wall_s"] for r in rows.values()],
+           "k1_k2": [r["k1_k2"] for r in rows.values()],
+           "port_members_trained_all_db_bpp": members,
+           "port_mean_trained_all_db_bpp": mean,
+           "jax_record": {m: [rec[m]["trained_db"], rec[m]["all_db"],
+                              rec[m]["bpp"]]
+                          for m in ("off", "on") if m in rec}}
+    print(f"bf16 phase, LF defaults cut: {json.dumps(out)}", flush=True)
+    base = rec["on" if "on" in rec else "off"]["trained_db"]
+    check(abs(mean[0] - base) <= LF_DEFAULTS_DB_TOL,
+          f"bench.lf at the defaults' cut: members' mean {mean[0]:.2f} dB "
+          f"({members}), the JAX record's {base}")
+    return out
+
+
+def bf16_phase(thr, floor, launches):
+    """Phase 28: compute_dtype="bfloat16", (a)-(e).  The bf16 launches of
+    the main paths ((c) and (d)) are counted from 0 apart."""
+    from smoe_tpu_torch.kernels.gate_expert import bf16_launch_counts
+    out = {"kernels": bf16_kernels(thr, floor)}
+    free_card()
+    before = list(launches)
+    reset_bf16_counts()
+    out["flagship"] = bf16_flagship(build_image(512), launches)
+    free_card()
+    out["hopper"] = bf16_hopper(launches)
+    out["bf16_launches_k1_k2"] = list(bf16_launch_counts())
+    free_card()
+    out["launches_k1_k2"] = [launches[0] - before[0],
+                             launches[1] - before[1]]
+    out["lf_defaults"] = bf16_lf_defaults(launches)
+    return out
+
+
+def bf16_summary(bf16, before, launches) -> dict:
+    """Phase 28's summary line: per case of (a) the bf16 K1's and K2's
+    errors, cull flips, ms beside the fp32 instance's, the plain ms and
+    the bound; (b)'s witness; (c)-(e)'s headline numbers; the launches."""
+    def case(o):
+        k1, k2 = o["k1"], o["k2"]
+        return {"k1_max_abs_err": k1["max_abs_err_res"],
+                "k1_err_units_of_sum": k1["max_err_in_units_of_sum"],
+                "k1_cull_flips": k1["cull_flip_pairs"],
+                "k1_ms_bf16_fp32_plain": [k1.get("ms"), k1.get("ms_fp32"),
+                                          k1.get("plain_ms")],
+                "k1_bound_ms": k1["bound_ms"],
+                "k1_candidate_fraction": k1["candidate_fraction"],
+                "k2_max_rel_err": k2["max_rel_err"],
+                "k2_ms_bf16_fp32_plain": [k2.get("ms"), k2.get("ms_fp32"),
+                                          k2.get("plain_ms")],
+                "k2_bound_ms": k2["bound_ms"]}
+    kern = bf16["kernels"]
+    fl, hp = bf16["flagship"], bf16["hopper"]
+    return {
+        "widths": {k: case(v) for k, v in kern["widths"].items()},
+        "flagship_random": case(kern["flagship_random"]),
+        "raster": {k: case(v) for k, v in kern["raster"].items()},
+        "witness_bit_identical": {k: v["witness_bit_identical"]
+                                  for k, v in kern["witness"].items()},
+        "flagship": {k: fl[k] for k in (
+            "stepped_mse_max_rel", "free_run_kernel_vs_plain_mse_max_rel",
+            "s_per_iter_fp32",
+            "s_per_iter_bf16", "light_eval_psnr_db",
+            "quantized_eval_psnr_db", "decode_psnr_db",
+            "decode_vs_bf16_encoder_max_lsb",
+            "decode_vs_bf16_encoder_identical")},
+        "flagship_graph_witness_bit_identical":
+            not fl["graph_witness"]["not_bit_identical"],
+        "hopper": {k: hp[k] for k in (
+            "stepped_mse_max_rel", "best_psnr_db_kernel_plain_jax_bf16",
+            "tpu_baseline_md_db", "s_per_iter_kernel_plain")},
+        "lf_defaults_cut": bf16["lf_defaults"],
+        "bf16_launches_k1_k2": bf16["bf16_launches_k1_k2"],
+        "launches_k1_k2": [launches[0] - before[0],
+                           launches[1] - before[1]]}
+
+
+def bf16_kernel_entries(bf16) -> list:
+    """The kernels line's entries of the bf16 instances of K1 and K2: the
+    flagship-shaped random case's numbers (as K1's and K2's own), their
+    launches in phase 28's fits, the largest error over every case of
+    (a), and each raster case's ms beside the fp32 instance's."""
+    kern = bf16["kernels"]
+    cases = [*kern["widths"].values(), kern["flagship_random"],
+             *kern["raster"].values()]
+    out = []
+    for i, key in enumerate(("k1", "k2")):
+        main = kern["flagship_random"][key]
+        e = {"name": f"gate_expert_{'fwd' if key == 'k1' else 'bwd'}_bf16",
+             "route": "cuda", "source": BF16_SRC[key],
+             "replaces": BF16_REPLACES[key],
+             "launches": bf16["bf16_launches_k1_k2"][i],
+             "max_abs_err": max(c[key]["max_abs_err_res" if key == "k1"
+                                       else "max_abs_err"] for c in cases),
+             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "library_ms": None, "bound_parts": main["bound_parts"],
+             "ms_fp32_instance": main["ms_fp32"],
+             "raster_ms_bf16_fp32": {k: [v[key]["ms"], v[key]["ms_fp32"]]
+                                     for k, v in kern["raster"].items()}}
+        if key == "k1":
+            e["max_err_in_units_of_sum"] = max(
+                c[key]["max_err_in_units_of_sum"] for c in cases)
+            e["cull_flip_pairs"] = sum(c[key]["cull_flip_pairs"]
+                                       for c in cases)
+        else:
+            e["max_rel_err"] = max(c[key]["max_rel_err"] for c in cases)
+        out.append(e)
+    return out
+
+
 def clock(label: str) -> None:
     """Print the seconds since the previous mark, for the phase `label`."""
     now = time.perf_counter()
@@ -6006,6 +6725,7 @@ def main() -> int:
     # encode CLI
     s_k, s_p, _, (*fargs, thr_f, floor_f) = trainer_flagship(img, launches)
     # K1 and K2 on the flagship fit's operands after its 20 sweeps
+    keep_operands("flagship_fit", fargs)
     raster["flagship"] = compare_raster("flagship fit, sweep 20", fargs,
                                         thr_f, floor_f, 8)
     attr["b_flagship_fit"] = attribution("(b) flagship fit, sweep 20", fargs,
@@ -6177,6 +6897,15 @@ def main() -> int:
     check(all(launches[i] > before_still[i] for i in range(2)),
           f"phase 27 launched K1 / K2 "
           f"{[launches[i] - before_still[i] for i in range(2)]} times")
+    # phase 28: compute_dtype="bfloat16"
+    before_bf16 = list(launches)
+    bf16 = bf16_phase(thr, floor, launches)
+    clock("phase 28")
+    print(f"bf16 ({card}): " + json.dumps(bf16_summary(
+        bf16, before_bf16, launches)), flush=True)
+    check(all(n > 0 for n in bf16["bf16_launches_k1_k2"]),
+          f"phase 28's fits launched the bf16 K1 / K2 "
+          f"{bf16['bf16_launches_k1_k2']} times")
     check(all(n > 0 for n in launches),
           f"main paths launched K1 {launches[0]} / K2 {launches[1]} / K3 "
           f"{launches[2]} times")
@@ -6299,6 +7028,7 @@ def main() -> int:
          "dem16_fit_max_rel_err": s16["k2"]["max_rel_err"],
          "dem8_fit_ms": s8["k2"]["ms"],
          "dem8_fit_bound_ms": s8["k2"]["bound_ms"]},
+        *bf16_kernel_entries(bf16),
         {"name": "gate_expert_variants", "route": "cuda", "source": VAR_SRC,
          "replaces": VAR_REPLACES, "launches": launches[2],
          "max_abs_err": max_err_var, "max_rel_err": max_rel_var,

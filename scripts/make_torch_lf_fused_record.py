@@ -58,9 +58,10 @@ def psnr_pair(dec, orig):
             float(10 * np.log10(1.0 / err2.mean())))
 
 
-def run(path_mode: str, sweeps: int) -> dict:
-    """bench_lf.py's main with use_pallas=path_mode, then the automatic
-    encode of its params_best.pkl and the decode of that file."""
+def run(path_mode: str, sweeps: int, flags=FLAGS) -> dict:
+    """bench_lf.py's main (with `flags`) with use_pallas=path_mode, then
+    the automatic encode of its params_best.pkl and the decode of that
+    file."""
     from scipy.io import loadmat
     from smoe_tpu.cli import reconstruct
     from smoe_tpu.codec.serve import decode_bitstream
@@ -71,7 +72,7 @@ def run(path_mode: str, sweeps: int) -> dict:
     try:
         bench_lf = _script("bench_lf")
         argv = sys.argv
-        sys.argv = ["bench_lf.py", "--n", str(sweeps)] + FLAGS
+        sys.argv = ["bench_lf.py", "--n", str(sweeps)] + list(flags)
         out = io.StringIO()
         t0 = time.time()
         try:

@@ -23,6 +23,14 @@ form cancels A^2-scale terms, so TF32 (like the TPU's one-pass bf16)
 breaks it; the small per-kernel contractions are written as elementwise
 products and sums, and the one (N, F) x (F, K) matmul refuses to run on a
 CUDA tensor while `torch.backends.cuda.matmul.allow_tf32` is set.
+
+compute_dtype="bfloat16" (model.py:121, 201; any other value is fp32) is
+the JAX package's opt-in: the operands of the maha and of both expert
+products are rounded to bf16 (`round_bf16`) and multiplied in fp32, so
+each product is exact and the sums fp32.  The rounding's autograd rounds
+the cotangents to bf16 at each cast, as JAX's astype does.  Never a
+matmul on bf16 tensors: it would return, and may sum in, bf16.  The fused
+op (forward_fused) rounds only the maha's operands, inside K1 and K2.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 
 from smoe_tpu_torch.config import SmoeConfig
 from smoe_tpu_torch.core.params import SmoeParams, assemble_A
+from smoe_tpu_torch.kernels.gate_expert import GateExpert, round_bf16
 from smoe_tpu_torch.parallel.compat import psum, pvary
 
 # Floor for the gating denominator.  Reference writes `10e-12` (= 1e-11),
@@ -56,6 +65,19 @@ def clip_unit(x: torch.Tensor) -> torch.Tensor:
     tie their gradient is 0.5, as jnp.maximum's and jnp.clip's are, where
     torch.clamp's is 1."""
     return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def is_bf16(cfg: SmoeConfig) -> bool:
+    """Whether the fit computes its products from bf16 operands: exactly
+    compute_dtype == "bfloat16", as in the JAX package."""
+    return cfg.compute_dtype == "bfloat16"
+
+
+def _operand(x: torch.Tensor, cfg: SmoeConfig) -> torch.Tensor:
+    """x as a product of the plain path takes it: rounded to bf16 under
+    compute_dtype="bfloat16" (JAX's x.astype(bfloat16); the cotangent is
+    rounded too), else as it is."""
+    return round_bf16(x) if is_bf16(cfg) else x
 
 
 def _exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -128,6 +150,7 @@ def maha_from_A(A: torch.Tensor, musX: torch.Tensor, cfg: SmoeConfig,
     Dual-model video: kernels with model_mask False are evaluated on
     `coords_raw` instead of the motion-transformed `coords`, through one
     product over the concatenated features (`dual_domain_features`).
+    compute_dtype="bfloat16": phi and q rounded to bf16 for the product.
     """
     B = A if cfg.train_inverse_cov else _aat(A)
     q = kernel_quadratics(B, musX)
@@ -135,7 +158,7 @@ def maha_from_A(A: torch.Tensor, musX: torch.Tensor, cfg: SmoeConfig,
         phi, q = dual_domain_features(coords, coords_raw, q, model_mask)
     else:
         phi = quadratic_features(coords)
-    maha = _exact_matmul(phi, q.T)
+    maha = _exact_matmul(_operand(phi, cfg), _operand(q.T, cfg))
     if not cfg.train_inverse_cov:
         maha = torch.maximum(maha, maha.new_zeros(()))
     return maha
@@ -183,12 +206,15 @@ def expert_regression(w_e: torch.Tensor, coords: torch.Tensor,
                       cfg: SmoeConfig, kernel_group=None) -> torch.Tensor:
     """res[n,c] = sum_k w[n,k] (gamma_k^T x_n + nu_k)  (model.py:188-215,
     reference smoe.py:840-848).  kernel_group: each rank's partial sum over
-    its kernels is psum'd over the 'k' group."""
+    its kernels is psum'd over the 'k' group.  compute_dtype="bfloat16":
+    w_e, nu_e and gamma_e rounded to bf16 for the two products, w_e once
+    for each (JAX casts it twice, and so rounds each cotangent apart)."""
     k, d, c = gamma_e.shape
-    res = _exact_matmul(w_e, nu_e)
+    res = _exact_matmul(_operand(w_e, cfg), _operand(nu_e, cfg))
     if cfg.train_gammas:
         gamma_e = _masked_gamma(gamma_e, cfg)
-        g = _exact_matmul(w_e, gamma_e.reshape(k, d * c)).reshape(-1, d, c)
+        g = _exact_matmul(_operand(w_e, cfg), _operand(
+            gamma_e.reshape(k, d * c), cfg)).reshape(-1, d, c)
         res = res + (coords[:, :, None] * g).sum(1)
     return psum(res, kernel_group)
 
@@ -280,6 +306,9 @@ def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
     transformed pixels, coords_raw the raw ones, and the op sees 2F-wide
     features (`dual_domain_features`; F = 13, so K1 and K2 run at 26).
 
+    compute_dtype="bfloat16": the op rounds phi and q' to bf16 for the maha
+    (K1's and K2's bf16 instances on the card; model.py:328, 336).
+
     k_cap: width cap of the capped-dense mode (model.py:318-329): the
     caller guarantees every kernel list holds at most k_cap active kernels;
     the active kernels are gathered first, in index order (a stable sort,
@@ -288,8 +317,6 @@ def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
     sv_add: (N,) residual added to the Y channel before the clip
     (model.py:337-339).
     """
-    from smoe_tpu_torch.kernels.gate_expert import GateExpert
-
     if coords.requires_grad:
         raise NotImplementedError(
             "forward_fused gives coords no gradient: a train_trafo video "
@@ -299,16 +326,17 @@ def forward_fused(A: torch.Tensor, musX: torch.Tensor, nu_e: torch.Tensor,
         A, musX, nu_e, gamma_e, pis, cfg, coords, kernel_mask,
         coords_raw=coords_raw, model_mask=model_mask)
     k = q.shape[0]
+    bf16 = is_bf16(cfg)
     if k_cap and k_cap < k:
         order = torch.argsort((mask == 0).to(torch.int32), stable=True)[:k_cap]
         res_raw, surv_c = GateExpert.apply(
             phi, xe, q[order], G[order], pi_det[order], mask[order], thr,
-            floor)
+            floor, bf16)
         surv = torch.zeros((k,), dtype=surv_c.dtype,
                            device=surv_c.device).index_put((order,), surv_c)
     else:
         res_raw, surv = GateExpert.apply(phi, xe, q, G, pi_det, mask, thr,
-                                         floor)
+                                         floor, bf16)
     if sv_add is not None:
         res_raw = torch.cat([res_raw[:, :1] + sv_add[:, None], res_raw[:, 1:]],
                             dim=1)

@@ -117,8 +117,9 @@ class SweepGraph:
     """fn() captured once into `pool` (a `torch.cuda.graph_pool_handle()`),
     with the generators it draws from registered, so that each replay
     draws what the next eager call would; `replay()` runs it again and
-    counts the K1 and K2 launches it holds (`held`).  `capture_s`: the
-    host seconds the capture took."""
+    counts the K1 and K2 launches it holds (`held`; `held_bf16`, those of
+    the bf16 instances among them).  `capture_s`: the host seconds the
+    capture took."""
 
     def __init__(self, fn: Callable[[], None], pool,
                  generators: Iterable[torch.Generator] = ()):
@@ -126,16 +127,18 @@ class SweepGraph:
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
-        before = ge.launch_counts()
+        before, before_bf16 = ge.launch_counts(), ge.bf16_launch_counts()
         _capture(self.graph, fn, pool)
         self.capture_s = time.perf_counter() - t0
         self.held: Tuple[int, int] = tuple(
             a - b for a, b in zip(ge.launch_counts(), before))
-        ge.add_launches(*(-n for n in self.held))
+        self.held_bf16: Tuple[int, int] = tuple(
+            a - b for a, b in zip(ge.bf16_launch_counts(), before_bf16))
+        ge.add_launches(*(-n for n in self.held + self.held_bf16))
 
     def replay(self) -> None:
         self.graph.replay()
-        ge.add_launches(*self.held)
+        ge.add_launches(*self.held, *self.held_bf16)
 
 
 class Programs:

@@ -392,12 +392,6 @@ def fit_mesh_to_blocks(mesh, num_blocks: int):
         f"multiple of the fleet size")
 
 
-def _check_ported(cfg: SmoeConfig) -> None:
-    if cfg.compute_dtype != "float32":
-        raise ValueError("compute_dtype must be 'float32': a bf16 maha is "
-                         "a measured fault and is not ported")
-
-
 class Smoe:
     """SMoE model + fitting loop with the JAX `Smoe`'s API
     (trainer.py:934-1833, reference class Smoe, smoe.py:37)."""
@@ -439,7 +433,6 @@ class Smoe:
                              kernels_per_dim=kpd, **cfg_overrides)
         if image.shape[-1] != 3 and cfg.use_yuv:
             cfg = cfg.replace(use_yuv=False)
-        _check_ported(cfg)
         if cfg.dim_domain == 3 and cfg.train_trafo and cfg.num_frames == 0:
             cfg = cfg.replace(num_frames=image.shape[2])
 

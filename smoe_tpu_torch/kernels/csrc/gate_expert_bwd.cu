@@ -63,6 +63,20 @@
 // cores, no TF32 (the quadratic-feature maha cancels A^2-scale terms).
 // Built without --use_fast_math: expf, IEEE division.
 //
+// BF16 (the bf16 instance, compute_dtype="bfloat16"; the TPU kernel's
+// bf16=True, smoe_tpu/kernels/gate_expert.py:246-247): the recomputed maha
+// comes from the bf16 tensor core through gate_expert_common.cuh's routine
+// K1's bf16 instance uses, so it has K1's bits and K2 re-decides K1's cull
+// alike.  Pass A as K1's pass 1 (the warp's pixels as A fragments, a
+// (32, 8) tile every eighth kernel); pass B stages the CTA's KB kernels'
+// q' and each tile's pixels as bf16, and per 16-pixel sub-tile each warp
+// forms the maha of its threads' kernels (columns t and t + TK of a
+// (16, KB) tile), read by the unchanged per-thread code; q' then needs no
+// registers (at F = 26, E = 4, C = 3 pass B takes 204 registers against
+// the fp32 instance's 253).  dq' sums over the fp32 phi, as the TPU
+// kernel's (:300).  Bound: the 2 D tensor-core flops of a pair's maha
+// (989 TFLOP/s) are small beside the fp32 work that stays (67 TFLOP/s).
+
 // What bounds it (a reckoning, not a measurement).  Per (pixel, kernel)
 // pair: two maha recomputations (2F FMAs), two expf, the dpi and dq'
 // accumulation (F + 2 FMAs) in pass B; the divisions and the dw dots only
@@ -86,6 +100,11 @@ constexpr int TK = 64;      // pass B: threads per CTA
 constexpr int KB = TK * KPT;   // pass B: kernels per CTA
 constexpr int TP = 128;     // pass B: pixels per staged tile
 constexpr int TARGET_CTAS = 132 * 8;
+// BF16 pass B: rows of the (16 pixels, KB kernels) maha tile are MT_LDB
+// floats apart (4 more than KB: a warp's stores spread over the banks)
+constexpr int MT_LDB = KB + 4;
+static_assert(TK == 64 && KPT == 2,
+              "BF16 pass B: two warps, each the columns t and t + TK");
 constexpr int MAX_SPLITS = 512;
 
 int num_splits(int n, int k) {
@@ -98,7 +117,7 @@ int num_splits(int n, int k) {
 }
 
 // ---- A: per-pixel denominator, s_n and the culled pairs' dn_w -----------
-template <int F, int E, int C>
+template <int F, int E, int C, bool BF16>
 __global__ void __launch_bounds__(TPB)
 bwd_pixel_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
                  const float* __restrict__ qs, const float* __restrict__ G,
@@ -109,15 +128,27 @@ bwd_pixel_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
                  float floor_) {
   constexpr int EC = E * C;
   constexpr int FP = smoe::pad4(F);
-  __shared__ __align__(16) float s_q[KC * FP];
+  constexpr int D = smoe::bf16_depth(F);
+  static_assert(KC == TPB, "BF16 stages the CTA's pixels in s_q");
+  // q' rows of FP floats, or (BF16) of D bf16s, as K1 stages them
+  __shared__ __align__(16) float s_q[BF16 ? KC * D / 2 : KC * FP];
   __shared__ float s_G[KC * EC];
   __shared__ float s_pi[KC];
 
   const int row = blockIdx.x * TPB + threadIdx.x;
   const bool valid = row < n;
   float ph[F];
+  smoe::FragA<D> afr[2];  // BF16: the warp's 32 pixels, K1's A fragments
+  float* s_mt = nullptr;  // BF16: the warp's (32, 8) maha tile
+  __nv_bfloat16* const s_qb = reinterpret_cast<__nv_bfloat16*>(s_q);
+  if constexpr (BF16) {
+    __shared__ float s_tile[TPB * smoe::MT_LD];
+    s_mt = s_tile + (threadIdx.x >> 5) * 32 * smoe::MT_LD;
+    smoe::pixel_frags_bf16<F, TPB>(afr, s_qb, phi, blockIdx.x * TPB, n);
+  } else {
 #pragma unroll
-  for (int j = 0; j < F; ++j) ph[j] = valid ? phi[(size_t)row * F + j] : 0.f;
+    for (int j = 0; j < F; ++j) ph[j] = valid ? phi[(size_t)row * F + j] : 0.f;
+  }
 
   const float denom = valid ? den_in[row] : floor_;
   const float cut = smoe::cull_cut(thr, denom);
@@ -136,13 +167,20 @@ bwd_pixel_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
   for (int k0 = 0; k0 < k; k0 += KC) {
     const int kc = min(KC, k - k0);
     __syncthreads();
-    smoe::stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
+    if constexpr (BF16)
+      smoe::stage_bf16<F, TPB>(s_qb, qs, k0, kc, (kc + 7) & ~7, nullptr);
+    else
+      smoe::stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
     for (int i = threadIdx.x; i < kc * EC; i += TPB) s_G[i] = G[(size_t)k0 * EC + i];
     for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
     __syncthreads();
     for (int kk = 0; kk < kc; ++kk) {
-      const float n_w = __fmul_rn(
-          expf(fminf(smoe::dot_padded<F>(ph, s_q + kk * FP), 0.f)), s_pi[kk]);
+      float mh;
+      if constexpr (BF16)
+        mh = smoe::pixel_maha_bf16<D>(afr, s_qb, s_mt, kk);
+      else
+        mh = smoe::dot_padded<F>(ph, s_q + kk * FP);
+      const float n_w = __fmul_rn(expf(fminf(mh, 0.f)), s_pi[kk]);
       if (n_w < cut) continue;    // certainly culled: adds an exact zero
       const float wt = __fdiv_rn(n_w, denom);
       if (wt > thr) {             // culled pairs add exact zeros
@@ -162,7 +200,7 @@ bwd_pixel_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
 }
 
 // ---- B: kernel-major accumulation over a fixed set of pixel tiles --------
-template <int F, int E, int C>
+template <int F, int E, int C, bool BF16>
 __global__ void __launch_bounds__(TK)
 bwd_accum_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
                  const float* __restrict__ qs, const float* __restrict__ G,
@@ -172,9 +210,26 @@ bwd_accum_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
   constexpr int EC = E * C;
   constexpr int FP = smoe::pad4(F);
   constexpr int V = F + EC + 1;
+  constexpr int D = smoe::bf16_depth(F);
   __shared__ __align__(16) float s_phi[TP * FP];
   __shared__ float s_dwg[TP * EC];
   __shared__ float4 s_px[TP];     // (denom, cut, s_n * live, dn0)
+  // BF16: the tile's pixels and the CTA's KB kernels as bf16 rows of depth
+  // D, and the (16 pixels, KB kernels) maha of one sub-tile
+  __nv_bfloat16* s_phib = nullptr;
+  __nv_bfloat16* s_qkb = nullptr;
+  float* s_mt = nullptr;
+  if constexpr (BF16) {
+    __shared__ __align__(16) __nv_bfloat16 s_pb[TP * D];
+    __shared__ __align__(16) __nv_bfloat16 s_kb[KB * D];
+    __shared__ float s_tile[16 * MT_LDB];
+    s_phib = s_pb;
+    s_qkb = s_kb;
+    s_mt = s_tile;
+    smoe::stage_bf16<F, TK>(s_kb, qs, blockIdx.y * KB,
+                            min(KB, k - (int)blockIdx.y * KB), KB, nullptr);
+    // the first tile's staging below is followed by __syncthreads()
+  }
 
   int kid[KPT];
   bool act[KPT];
@@ -185,7 +240,7 @@ bwd_accum_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
     act[r] = kid[r] < k;
 #pragma unroll
     for (int j = 0; j < F; ++j) {
-      qk[r][j] = act[r] ? qs[(size_t)kid[r] * F + j] : 0.f;
+      if constexpr (!BF16) qk[r][j] = act[r] ? qs[(size_t)kid[r] * F + j] : 0.f;
       aq[r][j] = 0.f;
     }
 #pragma unroll
@@ -213,9 +268,28 @@ bwd_accum_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
                            g[(size_t)(r0 + p) * C + c]);
     }
     for (int i = threadIdx.x; i < rows; i += TK) s_px[i] = pix[r0 + i];
+    if constexpr (BF16)
+      smoe::stage_bf16<F, TK>(s_phib, phi, r0, rows, TP, nullptr);
     __syncthreads();
-    if (!act[0]) continue;      // act[0] is false only if every act[r] is
+    // act[0] is false only if every act[r] is; BF16 keeps such threads for
+    // the warp's mma
+    if (!BF16 && !act[0]) continue;
     for (int p = 0; p < rows; ++p) {
+      if constexpr (BF16) {
+        if ((p & 15) == 0) {
+          // the sub-tile's maha: this warp's columns t and t + TK of the
+          // tile, the kernels its threads read
+          const int w = threadIdx.x >> 5;
+          smoe::FragA<D> a[1];
+          __syncwarp();
+          smoe::load_frag_a<D>(a[0], s_phib + p * D);
+          smoe::maha_bf16_tile<D, 1, 4>(a, s_qkb + 32 * w * D, s_mt + 32 * w,
+                                        MT_LDB);
+          smoe::maha_bf16_tile<D, 1, 4>(a, s_qkb + (TK + 32 * w) * D,
+                                        s_mt + TK + 32 * w, MT_LDB);
+          __syncwarp();
+        }
+      }
       float ph[FP];
       const float4* ph4 = reinterpret_cast<const float4*>(s_phi + p * FP);
 #pragma unroll
@@ -231,8 +305,12 @@ bwd_accum_kernel(const float* __restrict__ phi, const float* __restrict__ xe,
       for (int r = 0; r < KPT; ++r) {
         if (!act[r]) continue;
         float mh = 0.f;
+        if constexpr (BF16) {
+          mh = s_mt[(p & 15) * MT_LDB + r * TK + threadIdx.x];
+        } else {
 #pragma unroll
-        for (int j = 0; j < F; ++j) mh = fmaf(ph[j], qk[r][j], mh);
+          for (int j = 0; j < F; ++j) mh = fmaf(ph[j], qk[r][j], mh);
+        }
         const float e = expf(fminf(mh, 0.f));
         if (e == 0.f) continue;    // every contribution is an exact zero
         const float n_w = __fmul_rn(e, pk[r]);
@@ -292,7 +370,7 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ part,
     dpi[kid] = acc;
 }
 
-template <int F, int E, int C>
+template <int F, int E, int C, bool BF16>
 cudaError_t launch(const float* phi, const float* xe, const float* qs,
                    const float* G, const float* pi_det, const float* g,
                    const float* den_in, float* dq, float* dG, float* dpi,
@@ -302,12 +380,12 @@ cudaError_t launch(const float* phi, const float* xe, const float* qs,
   float4* pix = reinterpret_cast<float4*>(ws);
   float* part = ws + (size_t)n * 4;
   const int splits = num_splits(n, k);
-  bwd_pixel_kernel<F, E, C><<<(n + TPB - 1) / TPB, TPB, 0, stream>>>(
+  bwd_pixel_kernel<F, E, C, BF16><<<(n + TPB - 1) / TPB, TPB, 0, stream>>>(
       phi, xe, qs, G, pi_det, g, den_in, pix, n, k, thr, floor_);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid_b(splits, (k + KB - 1) / KB);
-  bwd_accum_kernel<F, E, C><<<grid_b, TK, 0, stream>>>(
+  bwd_accum_kernel<F, E, C, BF16><<<grid_b, TK, 0, stream>>>(
       phi, xe, qs, G, pi_det, g, pix, part, n, k, thr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -318,6 +396,38 @@ cudaError_t launch(const float* phi, const float* xe, const float* qs,
 }
 
 }  // namespace
+
+extern "C" int smoe_gate_expert_bwd_supported(int f, int e, int c);
+
+// Every width has an fp32 and a bf16 instance, as in gate_expert_fwd.cu.
+template <bool BF16>
+int dispatch(const float* phi, const float* xe, const float* qs,
+             const float* G, const float* pi_det, const float* g,
+             const float* den, float* dq, float* dG, float* dpi, int n, int f,
+             int e, int c, int k, float thr, float floor_, float* ws,
+             void* stream_ptr) {
+  if (!smoe_gate_expert_bwd_supported(f, e, c) || n < 0 || k < 0 ||
+      (n > 0 && !den))
+    return (int)cudaErrorInvalidValue;
+  if (k == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (n == 0) {
+    cudaMemsetAsync(dq, 0, sizeof(float) * (size_t)k * f, s);
+    cudaMemsetAsync(dG, 0, sizeof(float) * (size_t)k * e * c, s);
+    cudaMemsetAsync(dpi, 0, sizeof(float) * (size_t)k, s);
+    return (int)cudaGetLastError();
+  }
+#define SMOE_CASE(F_, E_, C_)                                                 \
+  if (f == F_ && e == E_ && c == C_)                                          \
+    return (int)launch<F_, E_, C_, BF16>(phi, xe, qs, G, pi_det, g, den, dq,  \
+                                         dG, dpi, n, k, thr, floor_, ws, s);
+  SMOE_CASE(7, 3, 3) SMOE_CASE(7, 1, 3) SMOE_CASE(7, 3, 1) SMOE_CASE(7, 1, 1)
+  SMOE_CASE(13, 4, 3) SMOE_CASE(13, 1, 3) SMOE_CASE(13, 4, 1) SMOE_CASE(13, 1, 1)
+  SMOE_CASE(21, 5, 3) SMOE_CASE(21, 1, 3) SMOE_CASE(21, 5, 1) SMOE_CASE(21, 1, 1)
+  SMOE_CASE(26, 4, 3) SMOE_CASE(26, 1, 3) SMOE_CASE(26, 4, 1) SMOE_CASE(26, 1, 1)
+#undef SMOE_CASE
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" {
 
@@ -346,27 +456,22 @@ int smoe_gate_expert_bwd(const float* phi, const float* xe, const float* qs,
                          const float* den, float* dq, float* dG, float* dpi,
                          int n, int f, int e, int c, int k, float thr,
                          float floor_, float* ws, void* stream_ptr) {
-  if (!smoe_gate_expert_bwd_supported(f, e, c) || n < 0 || k < 0 ||
-      (n > 0 && !den))
-    return (int)cudaErrorInvalidValue;
-  if (k == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  if (n == 0) {
-    cudaMemsetAsync(dq, 0, sizeof(float) * (size_t)k * f, s);
-    cudaMemsetAsync(dG, 0, sizeof(float) * (size_t)k * e * c, s);
-    cudaMemsetAsync(dpi, 0, sizeof(float) * (size_t)k, s);
-    return (int)cudaGetLastError();
-  }
-#define SMOE_CASE(F_, E_, C_)                                                \
-  if (f == F_ && e == E_ && c == C_)                                         \
-    return (int)launch<F_, E_, C_>(phi, xe, qs, G, pi_det, g, den, dq, dG,   \
-                                   dpi, n, k, thr, floor_, ws, s);
-  SMOE_CASE(7, 3, 3) SMOE_CASE(7, 1, 3) SMOE_CASE(7, 3, 1) SMOE_CASE(7, 1, 1)
-  SMOE_CASE(13, 4, 3) SMOE_CASE(13, 1, 3) SMOE_CASE(13, 4, 1) SMOE_CASE(13, 1, 1)
-  SMOE_CASE(21, 5, 3) SMOE_CASE(21, 1, 3) SMOE_CASE(21, 5, 1) SMOE_CASE(21, 1, 1)
-  SMOE_CASE(26, 4, 3) SMOE_CASE(26, 1, 3) SMOE_CASE(26, 4, 1) SMOE_CASE(26, 1, 1)
-#undef SMOE_CASE
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(phi, xe, qs, G, pi_det, g, den, dq, dG, dpi, n, f,
+                         e, c, k, thr, floor_, ws, stream_ptr);
+}
+
+// The same with the recomputed maha on the bf16 tensor core (compute_dtype=
+// "bfloat16"), as gate_expert_fwd.cu's smoe_gate_expert_fwd_bf16 computes
+// it; dq' still sums over the fp32 phi.
+int smoe_gate_expert_bwd_bf16(const float* phi, const float* xe,
+                              const float* qs, const float* G,
+                              const float* pi_det, const float* g,
+                              const float* den, float* dq, float* dG,
+                              float* dpi, int n, int f, int e, int c, int k,
+                              float thr, float floor_, float* ws,
+                              void* stream_ptr) {
+  return dispatch<true>(phi, xe, qs, G, pi_det, g, den, dq, dG, dpi, n, f, e,
+                        c, k, thr, floor_, ws, stream_ptr);
 }
 
 const char* smoe_cuda_error_string(int err) {

@@ -23,6 +23,14 @@
 // C = 3 instance takes 80 registers with 48 bytes of spills and 43 KB of
 // static shared memory (nvcc -Xptxas -v; PERF.md section 6).
 //
+// Each width has a second instance, K1's bf16 one (smoe_gate_expert_fwd_bf16,
+// the body's BF16 parameter), which replaces the same TPU kernel with its
+// static bf16=True (gate_expert.py:121-123, compute_dtype="bfloat16"): the
+// maha from phi and q' rounded to bf16 on the tensor core (mma.sync
+// m16n8k16, fp32 accumulation), all else as the fp32 instance.  At F = 26,
+// E = 4, C = 3 it takes 80 registers, no spills and 39,984 B of static
+// shared memory (the per-warp maha tiles; q' staged as bf16).
+//
 // Optional outputs: den_out (N,) receives each pixel's max(floor, sum n_w)
 // for the backward K2 (gate_expert_bwd.cu), which then skips its own
 // denominator pass; raw > floor is den_out > floor.  stats (2,) receives
@@ -38,7 +46,7 @@ namespace {
 
 using smoe::TPB;
 
-template <int F, int E, int C>
+template <int F, int E, int C, bool BF16>
 __global__ void __launch_bounds__(TPB)
 gate_expert_fwd_kernel(const float* __restrict__ phi,     // (N, F)
                        const float* __restrict__ xe,      // (N, E)
@@ -50,24 +58,24 @@ gate_expert_fwd_kernel(const float* __restrict__ phi,     // (N, F)
                        float* __restrict__ den_out,       // (N,) or null
                        unsigned long long* __restrict__ stats,  // (2,) or null
                        int n, int k, float thr, float floor_) {
-  smoe::gate_expert_fwd_body<F, E, C, smoe::MODE_PRODUCTION>(
+  smoe::gate_expert_fwd_body<F, E, C, smoe::MODE_PRODUCTION, BF16>(
       phi, xe, qs, G, pi_det, res, surv, den_out, stats, n, k, thr, floor_);
 }
 
 // A cudaError_t.  The CTA keeps min(K, SEG) words in dynamic shared memory;
 // past the default 48 KB per block it needs the opt-in, set on every launch.
-template <int F, int E, int C>
+template <int F, int E, int C, bool BF16>
 int launch(const float* phi, const float* xe, const float* qs, const float* G,
            const float* pi_det, float* res, float* surv, float* den_out,
            unsigned long long* stats, int n, int k, float thr, float floor_,
            cudaStream_t stream) {
   const int dyn = smoe::fwd_dynamic_smem(smoe::MODE_PRODUCTION, k);
   cudaError_t err = cudaFuncSetAttribute(
-      gate_expert_fwd_kernel<F, E, C>,
+      gate_expert_fwd_kernel<F, E, C, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return err;
   const int grid = (n + TPB - 1) / TPB;
-  gate_expert_fwd_kernel<F, E, C><<<grid, TPB, (size_t)dyn, stream>>>(
+  gate_expert_fwd_kernel<F, E, C, BF16><<<grid, TPB, (size_t)dyn, stream>>>(
       phi, xe, qs, G, pi_det, res, reinterpret_cast<unsigned*>(surv), den_out,
       stats, n, k, thr, floor_);
   return (int)cudaGetLastError();
@@ -80,6 +88,28 @@ int launch(const float* phi, const float* xe, const float* qs, const float* G,
   X(13, 4, 3) X(13, 1, 3) X(13, 4, 1) X(13, 1, 1)                          \
   X(21, 5, 3) X(21, 1, 3) X(21, 5, 1) X(21, 1, 1)                          \
   X(26, 4, 3) X(26, 1, 3) X(26, 4, 1) X(26, 1, 1)
+
+extern "C" int smoe_gate_expert_fwd_supported(int f, int e, int c);
+
+// Every width of SMOE_WIDTHS has an fp32 and a bf16 instance: a bf16 fit may
+// be of any domain.
+template <bool BF16>
+int dispatch(const float* phi, const float* xe, const float* qs,
+             const float* G, const float* pi_det, float* res, float* surv,
+             float* den_out, unsigned long long* stats, int n, int f, int e,
+             int c, int k, float thr, float floor_, void* stream_ptr) {
+  if (!smoe_gate_expert_fwd_supported(f, e, c) || n < 0 || k < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+#define SMOE_CASE(F_, E_, C_)                                              \
+  if (f == F_ && e == E_ && c == C_)                                       \
+    return launch<F_, E_, C_, BF16>(phi, xe, qs, G, pi_det, res, surv,     \
+                                    den_out, stats, n, k, thr, floor_, s);
+  SMOE_WIDTHS(SMOE_CASE)
+#undef SMOE_CASE
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" {
 
@@ -103,17 +133,20 @@ int smoe_gate_expert_fwd(const float* phi, const float* xe, const float* qs,
                          unsigned long long* stats, int n, int f, int e,
                          int c, int k, float thr, float floor_,
                          void* stream_ptr) {
-  if (!smoe_gate_expert_fwd_supported(f, e, c) || n < 0 || k < 0)
-    return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-#define SMOE_CASE(F_, E_, C_)                                             \
-  if (f == F_ && e == E_ && c == C_)                                      \
-    return launch<F_, E_, C_>(phi, xe, qs, G, pi_det, res, surv, den_out, \
-                              stats, n, k, thr, floor_, s);
-  SMOE_WIDTHS(SMOE_CASE)
-#undef SMOE_CASE
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(phi, xe, qs, G, pi_det, res, surv, den_out, stats,
+                         n, f, e, c, k, thr, floor_, stream_ptr);
+}
+
+// The same with the maha on the bf16 tensor core (compute_dtype=
+// "bfloat16"): phi and q' rounded to bf16 for the maha only.
+int smoe_gate_expert_fwd_bf16(const float* phi, const float* xe,
+                              const float* qs, const float* G,
+                              const float* pi_det, float* res, float* surv,
+                              float* den_out, unsigned long long* stats,
+                              int n, int f, int e, int c, int k, float thr,
+                              float floor_, void* stream_ptr) {
+  return dispatch<true>(phi, xe, qs, G, pi_det, res, surv, den_out, stats, n,
+                        f, e, c, k, thr, floor_, stream_ptr);
 }
 
 const char* smoe_cuda_error_string(int err) {

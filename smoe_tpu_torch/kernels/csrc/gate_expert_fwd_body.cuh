@@ -75,6 +75,23 @@
 // a chunk of KC kernels is some 10-20 loads a thread against ~KC * (F + 12)
 // instructions of arithmetic.
 //
+// BF16 (K1's bf16 instance, compute_dtype="bfloat16"; the TPU kernel's
+// bf16=True, smoe_tpu/kernels/gate_expert.py:121-123): the maha alone comes
+// from the bf16 tensor core, through gate_expert_common.cuh's one routine
+// (maha_bf16_tile): before pass 1 the CTA stages its pixels' phi rounded to
+// bf16 (into s_q) and each warp keeps its 32 rows as mma A fragments; every
+// staging of q' rounds it to bf16 rows of depth D (16 or 32), padded with
+// dead kernels to a whole n8 tile; at every eighth staged kernel each warp
+// forms its (32 pixels, 8 kernels) tile in shared memory, from which the
+// unchanged per-thread code reads its pixel's maha.  Pass 1, the later
+// segments' maxima and pass 2 (the candidates sit at other tile columns)
+// take the same routine, so a pair has the same maha bits in each, which
+// FULL_DENSE's bf16 instance witnesses.  Everything after the maha is the
+// fp32 code above.  What bounds it: the maha's 2 D flops a pair on the
+// tensor core (989 TFLOP/s bf16 dense: 2.2 us at the flagship's 6.7e7
+// pairs) sit far below the fp32 and SFU work that stays (67 TFLOP/s), so
+// the instance is bound as the fp32 one is, less the F FMAs a pair.
+
 // Optional outputs (PRODUCTION): den_out (N,) receives each pixel's
 // max(floor, sum n_w) for the backward K2 (gate_expert_bwd.cu), which then
 // skips its own denominator pass; raw > floor is den_out > floor.  stats
@@ -163,7 +180,7 @@ __device__ __forceinline__ void record_max(unsigned* s_wmax, float n_w,
 // The forward of one CTA.  xe, surv, den_out and stats are read or written
 // by MODE_PRODUCTION only (the others take null); the launch gives
 // fwd_dynamic_smem(MODE, k) bytes of dynamic shared memory.
-template <int F, int E, int C, int MODE>
+template <int F, int E, int C, int MODE, bool BF16 = false>
 __device__ __forceinline__ void gate_expert_fwd_body(
     const float* __restrict__ phi,     // (N, F)
     const float* __restrict__ xe,      // (N, E)
@@ -183,7 +200,11 @@ __device__ __forceinline__ void gate_expert_fwd_body(
   constexpr int EC = E * C;
   constexpr int FP = pad4(F);
   constexpr int GW = EC > NW ? EC : NW;
-  __shared__ __align__(16) float s_q[KC * FP];
+  constexpr int D = bf16_depth(F);
+  static_assert(KC == TPB, "BF16 stages the CTA's pixels in s_q");
+  // staged q' rows: FP floats each, or (BF16) D bf16s, no more bytes; BF16
+  // stages the CTA's phi rows there first
+  __shared__ __align__(16) float s_q[BF16 ? KC * D / 2 : KC * FP];
   __shared__ float s_gw[KC * GW];    // maxima passes: (NW, KC); pass 2: G
   __shared__ float s_pi[KC];
   __shared__ unsigned s_surv[KC];
@@ -201,8 +222,37 @@ __device__ __forceinline__ void gate_expert_fwd_body(
   const int warp = threadIdx.x >> 5;
 
   float ph[F];
+  FragA<D> afr[2];        // BF16: the warp's 32 pixels as the mma's A
+  float* s_mt = nullptr;  // BF16: the warp's (32 pixels, 8 kernels) tile
+  __nv_bfloat16* const s_qb = reinterpret_cast<__nv_bfloat16*>(s_q);
+  if constexpr (BF16) {
+    __shared__ float s_tile[NW * 32 * MT_LD];
+    s_mt = s_tile + warp * 32 * MT_LD;
+    // the first staging below starts with __syncthreads()
+    pixel_frags_bf16<F, TPB>(afr, s_qb, phi, blockIdx.x * TPB, n);
+  } else {
 #pragma unroll
-  for (int j = 0; j < F; ++j) ph[j] = valid ? phi[(size_t)row * F + j] : 0.f;
+    for (int j = 0; j < F; ++j) ph[j] = valid ? phi[(size_t)row * F + j] : 0.f;
+  }
+
+  // Stage kc kernels' q' (rows k0 .., or idx[k0 ..]) for the maha; BF16
+  // pads them with dead kernels to a whole n8 tile.
+  auto stage_q = [&](int k0, int kc, const int* idx) {
+    if constexpr (BF16)
+      stage_bf16<F, TPB>(s_qb, qs, k0, kc, (kc + 7) & ~7, idx);
+    else
+      stage_padded<F, TPB>(s_q, qs, k0, kc, idx);
+  };
+  // The raw maha phi . q' of this thread's pixel and staged kernel kk: the
+  // fp32 FMA chain, or (BF16) the warp's tensor-core tile, formed at every
+  // eighth kernel (kk runs uniformly over the CTA, so the warp is whole).
+  auto maha_at = [&](int kk) -> float {
+    if constexpr (BF16) {
+      return pixel_maha_bf16<D>(afr, s_qb, s_mt, kk);
+    } else {
+      return dot_padded<F>(ph, s_q + kk * FP);
+    }
+  };
 
   // pass 1: the gating denominator, with the first segment's maxima, then
   // (past SEG kernels) the rest of the denominator: one FMA chain in k order
@@ -213,12 +263,11 @@ __device__ __forceinline__ void gate_expert_fwd_body(
     for (int k0 = 0; k0 < seg0; k0 += KC) {
       const int kc = min(KC, seg0 - k0);
       __syncthreads();
-      stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
+      stage_q(k0, kc, nullptr);
       for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
       __syncthreads();
       for (int kk = 0; kk < kc; ++kk) {
-        const float e =
-            gate_exp<MODE>(fminf(dot_padded<F>(ph, s_q + kk * FP), 0.f));
+        const float e = gate_exp<MODE>(fminf(maha_at(kk), 0.f));
         denom = fmaf(e, s_pi[kk], denom);
         record_max(s_wmax, __fmul_rn(e, s_pi[kk]), valid, lane, warp, kk);
       }
@@ -228,12 +277,11 @@ __device__ __forceinline__ void gate_expert_fwd_body(
     for (int k0 = seg0; k0 < k; k0 += KC) {
       const int kc = min(KC, k - k0);
       __syncthreads();
-      stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
+      stage_q(k0, kc, nullptr);
       for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
       __syncthreads();
       for (int kk = 0; kk < kc; ++kk) {
-        const float e =
-            gate_exp<MODE>(fminf(dot_padded<F>(ph, s_q + kk * FP), 0.f));
+        const float e = gate_exp<MODE>(fminf(maha_at(kk), 0.f));
         denom = fmaf(e, s_pi[kk], denom);
       }
     }
@@ -272,12 +320,11 @@ __device__ __forceinline__ void gate_expert_fwd_body(
         for (int k0 = s0; k0 < s0 + sk; k0 += KC) {
           const int kc = min(KC, s0 + sk - k0);
           __syncthreads();
-          stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
+          stage_q(k0, kc, nullptr);
           for (int i = threadIdx.x; i < kc; i += TPB) s_pi[i] = pi_det[k0 + i];
           __syncthreads();
           for (int kk = 0; kk < kc; ++kk) {
-            const float e =
-                gate_exp<MODE>(fminf(dot_padded<F>(ph, s_q + kk * FP), 0.f));
+            const float e = gate_exp<MODE>(fminf(maha_at(kk), 0.f));
             record_max(s_wmax, __fmul_rn(e, s_pi[kk]), valid, lane, warp, kk);
           }
           __syncthreads();
@@ -317,7 +364,7 @@ __device__ __forceinline__ void gate_expert_fwd_body(
       const int kc = min(KC, ncand - c0);
       __syncthreads();
       if constexpr (COMPACT) {
-        stage_padded<F, TPB>(s_q, qs, c0, kc, cand);
+        stage_q(c0, kc, cand);
         for (int i = threadIdx.x; i < kc * EC; i += TPB) {
           const int r = i / EC, j = i - r * EC;
           s_gw[i] = G[(size_t)cand[c0 + r] * EC + j];
@@ -328,7 +375,7 @@ __device__ __forceinline__ void gate_expert_fwd_body(
         }
       } else {
         const int k0 = s0 + c0;
-        stage_padded<F, TPB>(s_q, qs, k0, kc, nullptr);
+        stage_q(k0, kc, nullptr);
         for (int i = threadIdx.x; i < kc * EC; i += TPB)
           s_gw[i] = G[(size_t)k0 * EC + i];
         if constexpr (PI)
@@ -336,7 +383,7 @@ __device__ __forceinline__ void gate_expert_fwd_body(
       }
       __syncthreads();
       for (int kk = 0; kk < kc; ++kk) {
-        const float mh = fminf(dot_padded<F>(ph, s_q + kk * FP), 0.f);
+        const float mh = fminf(maha_at(kk), 0.f);
         float w;
         if constexpr (MODE == MODE_NO_EXP) {
           w = mh;

@@ -52,7 +52,7 @@ using smoe::TPB;
 
 constexpr int C = 3;  // the TPU variant's fixed channel count
 
-template <int F, int E, int MODE>
+template <int F, int E, int MODE, bool BF16 = false>
 __global__ void __launch_bounds__(TPB)
 gate_expert_variant_kernel(const float* __restrict__ phi,     // (N, F)
                            const float* __restrict__ qs,      // (K, F) prescaled
@@ -60,22 +60,23 @@ gate_expert_variant_kernel(const float* __restrict__ phi,     // (N, F)
                            const float* __restrict__ pi_det,  // (K,)
                            float* __restrict__ res,           // (N, C)
                            int n, int k, float thr, float floor_) {
-  smoe::gate_expert_fwd_body<F, E, C, MODE>(phi, nullptr, qs, G, pi_det, res,
-                                            nullptr, nullptr, nullptr, n, k,
-                                            thr, floor_);
+  smoe::gate_expert_fwd_body<F, E, C, MODE, BF16>(phi, nullptr, qs, G, pi_det,
+                                                  res, nullptr, nullptr,
+                                                  nullptr, n, k, thr, floor_);
 }
 
-template <int F, int E, int MODE>
+template <int F, int E, int MODE, bool BF16 = false>
 cudaError_t launch(const float* phi, const float* qs, const float* G,
                    const float* pi_det, float* res, int n, int k, float thr,
                    float floor_, cudaStream_t stream) {
   const int dyn = smoe::fwd_dynamic_smem(MODE, k);
   cudaError_t err = cudaFuncSetAttribute(
-      gate_expert_variant_kernel<F, E, MODE>,
+      gate_expert_variant_kernel<F, E, MODE, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return err;
   const int grid = (n + TPB - 1) / TPB;
-  gate_expert_variant_kernel<F, E, MODE><<<grid, TPB, (size_t)dyn, stream>>>(
+  gate_expert_variant_kernel<F, E, MODE, BF16>
+      <<<grid, TPB, (size_t)dyn, stream>>>(
       phi, qs, G, pi_det, res, n, k, thr, floor_);
   return cudaGetLastError();
 }
@@ -133,6 +134,30 @@ int smoe_gate_expert_variant(const float* phi, const float* qs, const float* G,
   if (f == F_ && ec == E_ * C)                                              \
     return (int)launch_mode<F_, E_>(mode, phi, qs, G, pi_det, res, n, k,    \
                                     thr, floor_, s);
+  SMOE_VARIANT_WIDTHS(SMOE_CASE)
+#undef SMOE_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 witness: mode 5 (FULL_DENSE) with the maha on the bf16 tensor
+// core, the body K1's bf16 instance (smoe_gate_expert_fwd_bf16) is made
+// of, without compaction.  Not a K3 mode (K3 is fp32 only, as the TPU
+// variant is): chip_smoke.py holds K1's bf16 compaction and segments to it
+// bit for bit, which also holds the mma's result to depend on its row and
+// column operands only (the candidates sit at other tile positions).
+int smoe_gate_expert_dense_bf16(const float* phi, const float* qs,
+                                const float* G, const float* pi_det,
+                                float* res, int n, int f, int ec, int k,
+                                float thr, float floor_, void* stream_ptr) {
+  if (!smoe_gate_expert_variant_supported(f, ec, smoe::MODE_FULL_DENSE) ||
+      n < 0 || k < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+#define SMOE_CASE(F_, E_)                                                   \
+  if (f == F_ && ec == E_ * C)                                              \
+    return (int)launch<F_, E_, smoe::MODE_FULL_DENSE, true>(                \
+        phi, qs, G, pi_det, res, n, k, thr, floor_, s);
   SMOE_VARIANT_WIDTHS(SMOE_CASE)
 #undef SMOE_CASE
   return (int)cudaErrorInvalidValue;

@@ -285,7 +285,7 @@ def test_k1_and_k3_are_instances_of_one_body():
         code = _code(_csrc(name))
         assert '#include "gate_expert_fwd_body.cuh"' in code, name
         assert "smoe::gate_expert_fwd_body<" in code, name
-    assert ("gate_expert_fwd_body<F, E, C, smoe::MODE_PRODUCTION>"
+    assert ("gate_expert_fwd_body<F, E, C, smoe::MODE_PRODUCTION, BF16>"
             in _code(_csrc("gate_expert_fwd.cu")))
     var = _code(_csrc("gate_expert_variants.cu"))
     for loop in ("for (", "while (", "__syncthreads", "dot_padded",

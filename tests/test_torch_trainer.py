@@ -258,14 +258,6 @@ def test_phase_breakdown_on_cpu():
     assert ph["step"] > 0 and ph["fwd"] > 0 and ph["k_cap"] == 128.0
 
 
-@pytest.mark.parametrize("what", ["bf16"])
-def test_unported_options_raise(what):
-    img = _toy(16)
-    with pytest.raises(ValueError, match="float32"):
-        Smoe(img, kernels_per_dim=[2], device="cpu",
-             compute_dtype="bfloat16")
-
-
 def test_phase_timer_matches_jax():
     from smoe_tpu.diag.profile import PhaseTimer as JTimer
     from smoe_tpu_torch.diag.profile import PhaseTimer
