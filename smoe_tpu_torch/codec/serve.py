@@ -44,6 +44,7 @@ import torch
 from smoe_tpu_torch.config import SmoeConfig
 from smoe_tpu_torch.core.model import (expert_regression, fake_quant_unit,
                                        forward_fused, gating, maha_from_A)
+from smoe_tpu_torch.diag.profile import span
 from smoe_tpu_torch.fit.graph import Programs, graphed
 from smoe_tpu_torch.parallel.compat import gather_rows
 from smoe_tpu_torch.video.motion import transform_coords
@@ -214,7 +215,9 @@ def read_model(path: str, layers: Optional[int] = None,
     Returns (cfg, params, header): params is the rescaler output as numpy
     arrays (A, musX, nu_e, gamma_e, pis over the K' coded kernels).
     `layers=m` keeps the first m tiers of a layered file; `max_bytes=n`
-    picks the largest tier prefix that fits n bytes.
+    picks the largest tier prefix that fits n bytes.  The entropy decode
+    runs in the span `smoe.decode.range_decode`, the dequantization in
+    `smoe.decode.rescale`.
     """
     from smoe_tpu_torch.codec.bitstream import (_grid_of_used,
                                                 layers_for_budget,
@@ -225,7 +228,8 @@ def read_model(path: str, layers: Optional[int] = None,
         if layers is not None:
             raise ValueError("pass layers= or max_bytes=, not both")
         layers = layers_for_budget(path, max_bytes)
-    qp, header = read_bitstream(path, max_layers=layers)
+    with span("smoe.decode.range_decode"):
+        qp, header = read_bitstream(path, max_layers=layers)
     img_shape = tuple(int(v) for v in np.ravel(header["shape_of_img"]))
     c = int(np.ravel(header.get("dim_of_output", [3]))[0])
     d = len(img_shape)
@@ -243,7 +247,8 @@ def read_model(path: str, layers: Optional[int] = None,
         num_params_model=int(header.get("num_params_model", 8)),
         num_frames=int(header.get("num_frames",
                                   img_shape[2] if d == 3 else 0)))
-    rp = rescaler(qp, cfg, musX_grid=_grid_of_used(qp, cfg))
+    with span("smoe.decode.rescale"):
+        rp = rescaler(qp, cfg, musX_grid=_grid_of_used(qp, cfg))
     return cfg, rp, header
 
 
@@ -310,27 +315,31 @@ def decode_bitstream(path: str, chunk_pixels: Optional[int] = None,
     range keeps the native t of its frames, so each pixel still finds its
     own frame's motion.  `mesh=` splits the pixels over the processes of
     a one-dimensional DeviceMesh (see `make_decoder`); every rank returns
-    the whole image.
+    the whole image.  The call is the span `smoe.decode`; the host's wait
+    for the decode and the copy of its image is `smoe.decode.to_host`.
     """
-    cfg, rp, header = read_model(path, layers=layers, max_bytes=max_bytes)
-    motion = header.get("motion")
-    if motion is not None:
-        motion = np.asarray(motion, np.float32)
-    model_mask = header.get("model_mask")
-    if model_mask is not None:
-        model_mask = np.asarray(model_mask, bool)
-    img_shape = tuple(int(v) for v in np.ravel(header["shape_of_img"]))
-    c, d = cfg.num_channels, cfg.dim_domain
-    k = int(np.asarray(rp["pis"]).shape[0])
-    padded = pad_decoded_params(rp, max(k, 1), d, c)
-    sample_points = None
-    if out_shape is None and (scale is not None or roi is not None
-                              or frames is not None or views is not None):
-        sample_points = sample_grid(img_shape, scale, roi, frames, views)
-    dec = make_decoder(out_shape or img_shape, c, cfg, max(k, 1),
-                       chunk_pixels, motion=motion, model_mask=model_mask,
-                       sample_points=sample_points, mesh=mesh, device=device,
-                       reference=reference)
-    rec = dec(padded["A"], padded["musX"], padded["nu_e"],
-              padded["gamma_e"], padded["pis"]).cpu().numpy()
-    return (rec, header) if return_header else rec
+    with span("smoe.decode"):
+        cfg, rp, header = read_model(path, layers=layers, max_bytes=max_bytes)
+        motion = header.get("motion")
+        if motion is not None:
+            motion = np.asarray(motion, np.float32)
+        model_mask = header.get("model_mask")
+        if model_mask is not None:
+            model_mask = np.asarray(model_mask, bool)
+        img_shape = tuple(int(v) for v in np.ravel(header["shape_of_img"]))
+        c, d = cfg.num_channels, cfg.dim_domain
+        k = int(np.asarray(rp["pis"]).shape[0])
+        padded = pad_decoded_params(rp, max(k, 1), d, c)
+        sample_points = None
+        if out_shape is None and (scale is not None or roi is not None
+                                  or frames is not None or views is not None):
+            sample_points = sample_grid(img_shape, scale, roi, frames, views)
+        dec = make_decoder(out_shape or img_shape, c, cfg, max(k, 1),
+                           chunk_pixels, motion=motion, model_mask=model_mask,
+                           sample_points=sample_points, mesh=mesh,
+                           device=device, reference=reference)
+        rec = dec(padded["A"], padded["musX"], padded["nu_e"],
+                  padded["gamma_e"], padded["pis"])
+        with span("smoe.decode.to_host"):
+            rec = rec.cpu().numpy()
+        return (rec, header) if return_header else rec

@@ -5,6 +5,24 @@ smoe_tpu/diag/profile.py).
     where there is a card, CUDA activity) that writes a Chrome trace of
     everything inside, the counterpart of the JAX package's jax.profiler
     trace (the fit CLI's --profile_dir);
+  * `span(name)`: a named range of the program, recorded by whatever
+    `torch.profiler` session is running (so on the clock of its device
+    trace, in its event list, and on the host's track of `trace`'s Chrome
+    trace) and nothing without one.  A span's parent is the innermost
+    span around it on its thread.  The program's spans, each where its
+    work happens:
+    `smoe.fit.train` (`Smoe.train`) around `smoe.fit.chunk`
+    (`run_batched_chunk`, its one host pull included), `smoe.fit.eval`
+    (`run_batched`'s evaluation), `smoe.fit.update_kernel_list`,
+    `smoe.fit.ls_refresh` (`ls_init_experts`); `smoe.graph.warm_up` (the
+    eager first run of a program's key, as before each capture and in
+    each `decode_bitstream` call's one decode) and `smoe.graph.capture`
+    (fit/graph.py);
+    `smoe.decode` (`codec.serve.decode_bitstream`) around
+    `smoe.decode.range_decode` and `smoe.decode.rescale` (`read_model`)
+    and `smoe.decode.to_host` (the wait for the card and the copy of the
+    image).  None is opened inside a captured region or once a sweep, so
+    their number grows with chunks, evals and requests;
   * `PhaseTimer`: what `Smoe.train()` uses.  It reads the host clock, so a
     phase that launches work on the card measures its enqueue plus
     whatever host syncs the phase makes (the trainer pulls its metrics once
@@ -16,7 +34,14 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import ContextManager, Dict, Iterator
+
+import torch
+from torch._C._autograd import _profiler_enabled
+
+# one context that does nothing, shared by every span taken while no
+# profiler runs
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -25,7 +50,6 @@ def trace(log_dir: str) -> Iterator[None]:
     trace to log_dir/trace.json."""
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -34,6 +58,21 @@ def trace(log_dir: str) -> Iterator[None]:
     with profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str) -> ContextManager:
+    """A range named `name` in the running profiler session's trace, or,
+    with no profiler running, a shared context that does nothing (one
+    check of the profiler's state).
+
+    The range is an operator's record (`RecordFunctionFast`, as the
+    profiler records an aten op), not `torch.profiler.record_function`'s
+    user annotation: kineto draws a user annotation a second time, of the
+    same name, over the device work it launched, which a reader of the
+    host's events cannot tell from the range itself."""
+    if not _profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 class PhaseTimer:

@@ -37,6 +37,7 @@ from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
+from smoe_tpu_torch.diag.profile import span
 from smoe_tpu_torch.kernels import gate_expert as ge
 
 _EAGER = [0]       # depth of eager() blocks
@@ -83,12 +84,14 @@ def side_stream():
 
 def warm_up(fn: Callable[[], None]) -> None:
     """fn() eagerly on the side stream, ordered after and before the
-    current stream's work (torch.cuda.graph's warm-up)."""
-    side = side_stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
+    current stream's work (torch.cuda.graph's warm-up), in the span
+    `smoe.graph.warm_up`."""
+    with span("smoe.graph.warm_up"):
+        side = side_stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
 
 
 def _capture(graph, fn: Callable[[], None], pool) -> None:
@@ -119,16 +122,17 @@ class SweepGraph:
     draws what the next eager call would; `replay()` runs it again and
     counts the K1 and K2 launches it holds (`held`; `held_bf16`, those of
     the bf16 instances among them).  `capture_s`: the host seconds the
-    capture took."""
+    capture took, in the span `smoe.graph.capture`."""
 
     def __init__(self, fn: Callable[[], None], pool,
                  generators: Iterable[torch.Generator] = ()):
         t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            self.graph.register_generator_state(g)
-        before, before_bf16 = ge.launch_counts(), ge.bf16_launch_counts()
-        _capture(self.graph, fn, pool)
+        with span("smoe.graph.capture"):
+            self.graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                self.graph.register_generator_state(g)
+            before, before_bf16 = ge.launch_counts(), ge.bf16_launch_counts()
+            _capture(self.graph, fn, pool)
         self.capture_s = time.perf_counter() - t0
         self.held: Tuple[int, int] = tuple(
             a - b for a, b in zip(ge.launch_counts(), before))

@@ -86,7 +86,7 @@ from smoe_tpu_torch.core.params import (SmoeParams, adam_state_from_numpy,
                                         assemble_A, params_from_numpy)
 from smoe_tpu_torch.core.quant import apply_qat
 from smoe_tpu_torch.core.ssim import ssim_loss
-from smoe_tpu_torch.diag.profile import PhaseTimer
+from smoe_tpu_torch.diag.profile import PhaseTimer, span
 from smoe_tpu_torch.fit.blocks import (_block_view, build_blockset,
                                        initialize_kernel_lists, probe_points,
                                        row_chunks, stitch_blocks,
@@ -1223,61 +1223,62 @@ class Smoe:
         sweeps after the first replay one captured graph: a chunk whose key
         has no graph runs its first sweep eagerly as the warm-up, then
         captures one.  A gloo mesh sweeps eagerly (`_sweep_captured`)."""
-        if self.optimizer is None:
-            self.set_optimizer()
-        reg = RegWeights(float(pis_l1), float(u_l1), float(sv_l1_sub_l2))
-        lw = self.loss_mask if use_loss_mask else None
-        tsv = 0.0 if thr_sv is None else float(thr_sv)
-        sample_n = self._sample_n(sampling_percentage)
-        k_cap = self._current_k_cap()
-        # the in-graph refresh does not run while the inc rows train: their
-        # pis are 0 until apply_inc, so a refresh would drop them from every
-        # list and cut their gradients
-        refresh = bool(self.cfg.in_graph_ukl and not train_inc)
-        lists, row = self._sweep_buffers()
-        lists.copy_(self._kernel_lists)
-        args = (lists, row, reg, lw, k_cap, sample_n, tsv, bool(train_orig),
-                bool(train_inc), refresh)
+        with span("smoe.fit.chunk"):
+            if self.optimizer is None:
+                self.set_optimizer()
+            reg = RegWeights(float(pis_l1), float(u_l1), float(sv_l1_sub_l2))
+            lw = self.loss_mask if use_loss_mask else None
+            tsv = 0.0 if thr_sv is None else float(thr_sv)
+            sample_n = self._sample_n(sampling_percentage)
+            k_cap = self._current_k_cap()
+            # the in-graph refresh does not run while the inc rows train:
+            # their pis are 0 until apply_inc, so a refresh would drop them
+            # from every list and cut their gradients
+            refresh = bool(self.cfg.in_graph_ukl and not train_inc)
+            lists, row = self._sweep_buffers()
+            lists.copy_(self._kernel_lists)
+            args = (lists, row, reg, lw, k_cap, sample_n, tsv,
+                    bool(train_orig), bool(train_inc), refresh)
 
-        def sweep():
-            self._sweep(*args)
+            def sweep():
+                self._sweep(*args)
 
-        n = int(n_steps)
-        ys = torch.empty((n, 5), device=self.device)
-        done, graph = 0, None
-        if n and self._sweep_captured():
-            graph = self._graphs.get(self._graph_key(args))
-            if graph is None:
-                warm_up(sweep)
-                ys[0].copy_(row)
-                done = 1
-                # keyed after the warm-up, which made Adam's state
-                graph = self._graphs[self._graph_key(args)] = \
-                    self._new_graph(sweep)
-        for i in range(done, n):
-            if graph is None:
-                sweep()
-            else:
-                graph.replay()
-            ys[i].copy_(row)
-        # survivor feedback only shrinks the lists: keep the cached cap
-        self._kernel_lists = lists.clone()
-        self.valid = False
-        ys = ys.cpu().numpy()                      # the one host pull
-        loss_a, mse_a = ys[:, 0], ys[:, 1]
-        npi_a, nsv_a = ys[:, 2].astype(np.int32), ys[:, 3].astype(np.int32)
-        kmax_last = int(ys[-1, 4]) if len(ys) else 0
-        # adapt the capped width from the list count that rode along
-        # (trainer.py:1284-1293)
-        if self.fused and len(ys):
-            cur = self._k_cap_cache[0]
-            if self.cfg.in_graph_ukl:
-                self._k_cap_cache = (self._cap_bucket(kmax_last + 128),)
-            else:
-                new = self._cap_bucket(kmax_last)
-                if new is not None and (cur is None or new < cur):
-                    self._k_cap_cache = (new,)
-        return loss_a, mse_a, npi_a, nsv_a
+            n = int(n_steps)
+            ys = torch.empty((n, 5), device=self.device)
+            done, graph = 0, None
+            if n and self._sweep_captured():
+                graph = self._graphs.get(self._graph_key(args))
+                if graph is None:
+                    warm_up(sweep)
+                    ys[0].copy_(row)
+                    done = 1
+                    # keyed after the warm-up, which made Adam's state
+                    graph = self._graphs[self._graph_key(args)] = \
+                        self._new_graph(sweep)
+            for i in range(done, n):
+                if graph is None:
+                    sweep()
+                else:
+                    graph.replay()
+                ys[i].copy_(row)
+            # survivor feedback only shrinks the lists: keep the cached cap
+            self._kernel_lists = lists.clone()
+            self.valid = False
+            ys = ys.cpu().numpy()                      # the one host pull
+            loss_a, mse_a = ys[:, 0], ys[:, 1]
+            npi_a, nsv_a = ys[:, 2].astype(np.int32), ys[:, 3].astype(np.int32)
+            kmax_last = int(ys[-1, 4]) if len(ys) else 0
+            # adapt the capped width from the list count that rode along
+            # (trainer.py:1284-1293)
+            if self.fused and len(ys):
+                cur = self._k_cap_cache[0]
+                if self.cfg.in_graph_ukl:
+                    self._k_cap_cache = (self._cap_bucket(kmax_last + 128),)
+                else:
+                    new = self._cap_bucket(kmax_last)
+                    if new is not None and (cur is None or new < cur):
+                        self._k_cap_cache = (new,)
+            return loss_a, mse_a, npi_a, nsv_a
 
     def _time_s(self, fn) -> float:
         """Seconds of fn(): CUDA events on the card, the host clock on the
@@ -1449,46 +1450,47 @@ class Smoe:
                 use_loss_mask=use_loss_mask)
             return float(loss[-1]), float(mse[-1]), int(npi[-1]), int(nsv[-1])
 
-        reg = RegWeights(float(pis_l1), float(u_l1), float(sv_l1_sub_l2))
-        lw = self.loss_mask if use_loss_mask else None
-        with_rec, exact = bool(update_reconstruction), \
-            bool(with_quantized_params)
-        # the SVs evaluate at the reporting threshold (smoe.py:1536, 1558)
-        tsv = SV_COUNT_THRESHOLD if thr_sv is None else float(thr_sv)
-        if exact:
-            self._load_rparams()
-        # the lists in the sweep's own buffer, which every chunk refills
-        lists, _ = self._sweep_buffers()
-        lists.copy_(self.kernel_lists)
-        t = tensor_key
-        key = ("eval", with_rec, exact, tsv, reg, t(lists), t(lw),
-               tuple(t(b) for b in self._qeff) if exact else None,
-               self._state_key())
-        h, surv, *rec = self._program(key, lambda: self._eval_program(
-            lists, lw, reg, with_rec, exact, tsv))
-        h = h.cpu().numpy()                        # the one host pull
-        if update_reconstruction:
-            res, wam, probs = rec[:3]
-            sv_map = rec[3] if len(rec) > 3 else None
-            # in place: a captured subsampled sweep reads this tensor
-            self.sampling_probs.copy_(probs)
-            if sv_map is not None:
-                self.reconstruction_sv = stitch_blocks(
-                    sv_map[..., None], self.bset)[..., 0].cpu().numpy()
-            image = stitch_blocks(res, self.bset).cpu().numpy()
-            wam = stitch_blocks(wam[..., None], self.bset)[..., 0] \
-                .cpu().numpy()
-            if with_quantized_params:
-                self.qreconstruction_image = image
-                self.qweight_matrix_argmax = wam
-                self.qvalid = True
-            else:
-                self.reconstruction_image = image
-                self.weight_matrix_argmax = wam
-                self.valid = True
-        if not with_quantized_params:
-            self._update_kernel_lists_from(surv.clone())
-        return float(h[0]), float(h[1]), int(h[2]), int(h[3])
+        with span("smoe.fit.eval"):
+            reg = RegWeights(float(pis_l1), float(u_l1), float(sv_l1_sub_l2))
+            lw = self.loss_mask if use_loss_mask else None
+            with_rec, exact = bool(update_reconstruction), \
+                bool(with_quantized_params)
+            # the SVs evaluate at the reporting threshold (smoe.py:1536, 1558)
+            tsv = SV_COUNT_THRESHOLD if thr_sv is None else float(thr_sv)
+            if exact:
+                self._load_rparams()
+            # the lists in the sweep's own buffer, which every chunk refills
+            lists, _ = self._sweep_buffers()
+            lists.copy_(self.kernel_lists)
+            t = tensor_key
+            key = ("eval", with_rec, exact, tsv, reg, t(lists), t(lw),
+                   tuple(t(b) for b in self._qeff) if exact else None,
+                   self._state_key())
+            h, surv, *rec = self._program(key, lambda: self._eval_program(
+                lists, lw, reg, with_rec, exact, tsv))
+            h = h.cpu().numpy()                        # the one host pull
+            if update_reconstruction:
+                res, wam, probs = rec[:3]
+                sv_map = rec[3] if len(rec) > 3 else None
+                # in place: a captured subsampled sweep reads this tensor
+                self.sampling_probs.copy_(probs)
+                if sv_map is not None:
+                    self.reconstruction_sv = stitch_blocks(
+                        sv_map[..., None], self.bset)[..., 0].cpu().numpy()
+                image = stitch_blocks(res, self.bset).cpu().numpy()
+                wam = stitch_blocks(wam[..., None], self.bset)[..., 0] \
+                    .cpu().numpy()
+                if with_quantized_params:
+                    self.qreconstruction_image = image
+                    self.qweight_matrix_argmax = wam
+                    self.qvalid = True
+                else:
+                    self.reconstruction_image = image
+                    self.weight_matrix_argmax = wam
+                    self.valid = True
+            if not with_quantized_params:
+                self._update_kernel_lists_from(surv.clone())
+            return float(h[0]), float(h[1]), int(h[2]), int(h[3])
 
     @torch.no_grad()
     def _eval_program(self, lists, lw, reg: RegWeights, with_rec: bool,
@@ -1525,12 +1527,14 @@ class Smoe:
         """Probe block corners/edges and OR into the lists (trainer.py:
         1434-1463, reference smoe.py:2287-2365); replace=True makes the
         lists exactly the probe-near & active set."""
-        eff = effective_params(self._full_params(), self.cfg, self.musX_grid)
-        base = torch.zeros_like(self._kernel_lists) if replace \
-            else self.kernel_lists
-        self.kernel_lists = update_kernel_lists(
-            eff.A, eff.musX, eff.pis, self.cfg, self.bset, base,
-            **self._probe_args(eff))
+        with span("smoe.fit.update_kernel_list"):
+            eff = effective_params(self._full_params(), self.cfg,
+                                   self.musX_grid)
+            base = torch.zeros_like(self._kernel_lists) if replace \
+                else self.kernel_lists
+            self.kernel_lists = update_kernel_lists(
+                eff.A, eff.musX, eff.pis, self.cfg, self.bset, base,
+                **self._probe_args(eff))
 
     def _load_rparams(self) -> None:
         """Scatter the dequantized params back into full-capacity slots
@@ -1583,7 +1587,7 @@ class Smoe:
         from smoe_tpu_torch.fit.lsinit import ls_refresh_experts
         # whole on every rank, as JAX runs it outside the mesh
         # (lsinit.py:405-406)
-        with self._all_rows():
+        with span("smoe.fit.ls_refresh"), self._all_rows():
             return ls_refresh_experts(self, mode=mode, ridge=ridge,
                                       damp=damp, timings=timings)
 
@@ -1611,125 +1615,126 @@ class Smoe:
         best-loss snapshot, callbacks.  ls_refresh_iter: every N iterations
         re-solve the experts in closed form (mode "kernel", line-searched,
         so the blend mse cannot rise)."""
-        if ukl_iter is None:
-            ukl_iter = val_iter
-        if grad_clip_value_abs is not None and \
-                grad_clip_value_abs != self.opt_cfg.grad_clip_value_abs:
-            # the reference rebuilds its optimizers with the clip (fresh
-            # state, smoe.py:1491)
-            self.set_optimizer(grad_clip_value_abs=grad_clip_value_abs)
-        if self.optimizer is None:
-            self.set_optimizer()
-        # the reconstruction's error map refreshes the sampling
-        # probabilities (trainer.py:1517-1521)
-        upd_rec = bool(callbacks) or sampling_percentage < 100
-        qm = self.cfg.quantization_mode
+        with span("smoe.fit.train"):
+            if ukl_iter is None:
+                ukl_iter = val_iter
+            if grad_clip_value_abs is not None and \
+                    grad_clip_value_abs != self.opt_cfg.grad_clip_value_abs:
+                # the reference rebuilds its optimizers with the clip (fresh
+                # state, smoe.py:1491)
+                self.set_optimizer(grad_clip_value_abs=grad_clip_value_abs)
+            if self.optimizer is None:
+                self.set_optimizer()
+            # the reconstruction's error map refreshes the sampling
+            # probabilities (trainer.py:1517-1521)
+            upd_rec = bool(callbacks) or sampling_percentage < 100
+            qm = self.cfg.quantization_mode
 
-        if qm >= 1:
-            self._quantize_now()
-        if qm == 1:
-            self.best_qloss, self.best_qmse, _, _ = self.run_batched(
+            if qm >= 1:
+                self._quantize_now()
+            if qm == 1:
+                self.best_qloss, self.best_qmse, _, _ = self.run_batched(
+                    pis_l1, u_l1, sv_l1_sub_l2, train=False,
+                    update_reconstruction=upd_rec, with_quantized_params=True)
+                self.qlosses.append((0, self.best_qloss))
+                self.qmses.append((0, self.best_qmse))
+
+            loss_val, mse_val, num_pi, num_sv = self.run_batched(
                 pis_l1, u_l1, sv_l1_sub_l2, train=False,
-                update_reconstruction=upd_rec, with_quantized_params=True)
-            self.qlosses.append((0, self.best_qloss))
-            self.qmses.append((0, self.best_qmse))
+                update_reconstruction=upd_rec, use_loss_mask=use_loss_mask)
+            self.best_loss, self.best_mse = loss_val, mse_val
+            self._snapshot_best()
+            self.losses.append((self.iter, loss_val))
+            self.mses.append((self.iter, mse_val))
+            self.num_pis.append((self.iter, num_pi))
+            self.num_svs.append((self.iter, num_sv))
+            for cb in callbacks:
+                cb(self)
 
-        loss_val, mse_val, num_pi, num_sv = self.run_batched(
-            pis_l1, u_l1, sv_l1_sub_l2, train=False,
-            update_reconstruction=upd_rec, use_loss_mask=use_loss_mask)
-        self.best_loss, self.best_mse = loss_val, mse_val
-        self._snapshot_best()
-        self.losses.append((self.iter, loss_val))
-        self.mses.append((self.iter, mse_val))
-        self.num_pis.append((self.iter, num_pi))
-        self.num_svs.append((self.iter, num_sv))
-        for cb in callbacks:
-            cb(self)
+            first_loss = self.losses[0][1] if self.losses else loss_val
+            i = 0
+            while i < num_iter:
+                boundary = min(((i // val_iter) + 1) * val_iter,
+                               ((i // ukl_iter) + 1) * ukl_iter, num_iter)
+                if ls_refresh_iter:
+                    boundary = min(boundary, ((i // ls_refresh_iter) + 1)
+                                   * ls_refresh_iter)
+                chunk = boundary - i
+                try:
+                    with self.phase_timer.phase("train_sweeps"):
+                        loss_a, mse_a, npi_a, nsv_a = self.run_batched_chunk(
+                            chunk, pis_l1, u_l1, sv_l1_sub_l2,
+                            sampling_percentage, train_orig=train_orig,
+                            train_inc=train_inc, use_loss_mask=use_loss_mask)
+                    i = boundary
+                    self.iter += chunk
+                    loss_val, mse_val = float(loss_a[-1]), float(mse_a[-1])
+                    num_pi, num_sv = int(npi_a[-1]), int(nsv_a[-1])
+                    # always validate the final iterate too (trainer.py:1578)
+                    validate = i % val_iter == 0 or i == num_iter
+                    do_ukl = i % ukl_iter == 0
 
-        first_loss = self.losses[0][1] if self.losses else loss_val
-        i = 0
-        while i < num_iter:
-            boundary = min(((i // val_iter) + 1) * val_iter,
-                           ((i // ukl_iter) + 1) * ukl_iter, num_iter)
-            if ls_refresh_iter:
-                boundary = min(boundary,
-                               ((i // ls_refresh_iter) + 1) * ls_refresh_iter)
-            chunk = boundary - i
-            try:
-                with self.phase_timer.phase("train_sweeps"):
-                    loss_a, mse_a, npi_a, nsv_a = self.run_batched_chunk(
-                        chunk, pis_l1, u_l1, sv_l1_sub_l2,
-                        sampling_percentage, train_orig=train_orig,
-                        train_inc=train_inc, use_loss_mask=use_loss_mask)
-                i = boundary
-                self.iter += chunk
-                loss_val, mse_val = float(loss_a[-1]), float(mse_a[-1])
-                num_pi, num_sv = int(npi_a[-1]), int(nsv_a[-1])
-                # always validate the final iterate too (trainer.py:1578)
-                validate = i % val_iter == 0 or i == num_iter
-                do_ukl = i % ukl_iter == 0
+                    # divergence guard over every step of the chunk
+                    # (reference smoe.py:1565-1570)
+                    if np.any(np.isnan(loss_a)) or np.any(
+                            loss_a + 1 > (first_loss + 100) * 10):
+                        print("stop: divergence guard")
+                        break
 
-                # divergence guard over every step of the chunk
-                # (reference smoe.py:1565-1570)
-                if np.any(np.isnan(loss_a)) or np.any(
-                        loss_a + 1 > (first_loss + 100) * 10):
-                    print("stop: divergence guard")
-                    break
+                    if do_ukl:
+                        self.update_kernel_list()
+                        if not validate:
+                            loss_val, mse_val, num_pi, num_sv = \
+                                self.run_batched(pis_l1, u_l1, train=False)
 
-                if do_ukl:
-                    self.update_kernel_list()
-                    if not validate:
-                        loss_val, mse_val, num_pi, num_sv = self.run_batched(
-                            pis_l1, u_l1, train=False)
+                    if ls_refresh_iter and i % ls_refresh_iter == 0:
+                        # before the validation, so the snapshot sees the
+                        # refreshed (non-regressing) experts
+                        self.ls_init_experts(mode="kernel")
+                        if not validate:
+                            loss_val, mse_val, num_pi, num_sv = \
+                                self.run_batched(pis_l1, u_l1, train=False,
+                                                 use_loss_mask=use_loss_mask)
 
-                if ls_refresh_iter and i % ls_refresh_iter == 0:
-                    # before the validation, so the snapshot sees the
-                    # refreshed (non-regressing) experts
-                    self.ls_init_experts(mode="kernel")
-                    if not validate:
+                    if validate:
+                        if qm >= 1:
+                            self._quantize_now()
+                        if qm == 1:
+                            qloss_val, qmse_val, _, _ = self.run_batched(
+                                pis_l1, u_l1, sv_l1_sub_l2, train=False,
+                                update_reconstruction=upd_rec,
+                                with_quantized_params=True,
+                                use_loss_mask=use_loss_mask)
+                            self.qlosses.append((self.iter, qloss_val))
+                            self.qmses.append((self.iter, qmse_val))
                         loss_val, mse_val, num_pi, num_sv = self.run_batched(
                             pis_l1, u_l1, train=False,
-                            use_loss_mask=use_loss_mask)
-
-                if validate:
-                    if qm >= 1:
-                        self._quantize_now()
-                    if qm == 1:
-                        qloss_val, qmse_val, _, _ = self.run_batched(
-                            pis_l1, u_l1, sv_l1_sub_l2, train=False,
                             update_reconstruction=upd_rec,
-                            with_quantized_params=True,
                             use_loss_mask=use_loss_mask)
-                        self.qlosses.append((self.iter, qloss_val))
-                        self.qmses.append((self.iter, qmse_val))
-                    loss_val, mse_val, num_pi, num_sv = self.run_batched(
-                        pis_l1, u_l1, train=False,
-                        update_reconstruction=upd_rec,
-                        use_loss_mask=use_loss_mask)
 
-                if np.isnan(loss_val):
-                    print("stop: divergence guard")
+                    if np.isnan(loss_val):
+                        print("stop: divergence guard")
+                        break
+
+                    if validate:
+                        if self.best_loss is None or loss_val < self.best_loss:
+                            self.best_loss = loss_val
+                            self._snapshot_best(mse=mse_val)
+                        self.losses.append((self.iter, loss_val))
+                        if self.best_mse is None or mse_val < self.best_mse:
+                            self.best_mse = mse_val
+                        self.mses.append((self.iter, mse_val))
+                        self.num_pis.append((self.iter, num_pi))
+                        self.num_svs.append((self.iter, num_sv))
+                        for cb in callbacks:
+                            cb(self)
+                except KeyboardInterrupt:
                     break
 
-                if validate:
-                    if self.best_loss is None or loss_val < self.best_loss:
-                        self.best_loss = loss_val
-                        self._snapshot_best(mse=mse_val)
-                    self.losses.append((self.iter, loss_val))
-                    if self.best_mse is None or mse_val < self.best_mse:
-                        self.best_mse = mse_val
-                    self.mses.append((self.iter, mse_val))
-                    self.num_pis.append((self.iter, num_pi))
-                    self.num_svs.append((self.iter, num_sv))
-                    for cb in callbacks:
-                        cb(self)
-            except KeyboardInterrupt:
-                break
-
-        self.losses_history.append(self.losses)
-        self.mses_history.append(self.mses)
-        print(f"end loss/mse: {loss_val} / {mse_val} @iter {i}")
-        print(f"best loss/mse: {self.best_loss} / {self.best_mse}")
+            self.losses_history.append(self.losses)
+            self.mses_history.append(self.mses)
+            print(f"end loss/mse: {loss_val} / {mse_val} @iter {i}")
+            print(f"best loss/mse: {self.best_loss} / {self.best_mse}")
 
     # ---------------- params access ----------------
 
