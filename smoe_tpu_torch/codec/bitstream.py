@@ -18,7 +18,11 @@ predicted first: kernels sit in raster grid order, so per-component
 deltas along the kernel axis (zigzag-mapped, one extra magnitude bit)
 are small and the adaptive bit-position contexts squeeze them well; the
 raw/delta choice is made per param by a magnitude estimate and recorded
-in the header, keeping decode exactly invertible.
+in the header, keeping decode exactly invertible.  The "nbr" mode's
+causal nearest-neighbour graph and its inversion run in the port's own
+C++ (csrc/causal_nbr.cc: a grid search returning the loop's exact
+indices), with the loops `_causal_nbr` / `_nbr_decode` as the fallback;
+the readers time both in the span `smoe.decode.neighbours`.
 
 Container layout:  b"SMOE" | u32 header_len | JSON header | payload
 The JSON header carries everything the decoder needs to rebuild params
@@ -28,6 +32,7 @@ without the original image (shapes, bit depths, bounds, flags).
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import os
 import struct
@@ -36,6 +41,8 @@ import zlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from smoe_tpu_torch.diag.profile import span
 
 MAGIC = b"SMOE"
 _TOP = 1 << 24
@@ -53,14 +60,9 @@ def _native_dir() -> str:
         os.path.dirname(os.path.abspath(__file__)))), "native")
 
 
-def load_native() -> Optional[ctypes.CDLL]:
-    """Load (building if necessary) the C++ range coder; None if unavailable."""
-    global _lib, _lib_tried
-    if _lib is not None or _lib_tried:
-        return _lib
-    _lib_tried = True
-    so = os.path.join(_native_dir(), "libsmoe_rc.so")
-    src = os.path.join(_native_dir(), "rangecoder.cc")
+def _shared_library(src: str, so: str) -> Optional[ctypes.CDLL]:
+    """Load the shared library `so`, building it from the C++ source `src`
+    with g++ when it is missing or older than `src`; None if unavailable."""
     stale = (os.path.exists(src) and os.path.exists(so)
              and os.path.getmtime(src) > os.path.getmtime(so))
     if not os.path.exists(so) or stale:
@@ -71,6 +73,7 @@ def load_native() -> Optional[ctypes.CDLL]:
         # a .so another live process has dlopen'd
         tmp = f"{so}.build.{os.getpid()}"
         try:
+            os.makedirs(os.path.dirname(so), exist_ok=True)
             subprocess.run(
                 ["g++", "-O2", "-fPIC", "-std=c++17", "-shared", "-o", tmp,
                  src], check=True, capture_output=True)
@@ -83,8 +86,20 @@ def load_native() -> Optional[ctypes.CDLL]:
             if not os.path.exists(so):
                 return None
     try:
-        lib = ctypes.CDLL(so)
+        return ctypes.CDLL(so)
     except OSError:
+        return None
+
+
+def load_native() -> Optional[ctypes.CDLL]:
+    """Load (building if necessary) the C++ range coder; None if unavailable."""
+    global _lib, _lib_tried
+    if _lib is not None or _lib_tried:
+        return _lib
+    _lib_tried = True
+    lib = _shared_library(os.path.join(_native_dir(), "rangecoder.cc"),
+                          os.path.join(_native_dir(), "libsmoe_rc.so"))
+    if lib is None:
         return None
     lib.smoe_rc_encode.restype = ctypes.c_size_t
     lib.smoe_rc_encode.argtypes = [
@@ -98,6 +113,26 @@ def load_native() -> Optional[ctypes.CDLL]:
         ctypes.c_size_t, ctypes.POINTER(ctypes.c_uint32)]
     _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _load_nbr() -> Optional[ctypes.CDLL]:
+    """The port's C++ neighbour search and its inversion
+    (`csrc/causal_nbr.cc`, built into the git-ignored `build/` beside it);
+    None where it cannot be built or loaded."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    lib = _shared_library(os.path.join(here, "csrc", "causal_nbr.cc"),
+                          os.path.join(here, "build", "libsmoe_nbr.so"))
+    if lib is None:
+        return None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.smoe_causal_nbr.restype = ctypes.c_int
+    lib.smoe_causal_nbr.argtypes = [i64p, ctypes.c_int64, ctypes.c_int32,
+                                    i64p]
+    lib.smoe_nbr_decode.restype = None
+    lib.smoe_nbr_decode.argtypes = [i64p, ctypes.c_int64, ctypes.c_int64,
+                                    i64p, i64p]
+    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +412,47 @@ def _nbr_decode(z: np.ndarray, k: int, nbr: np.ndarray) -> np.ndarray:
     return out.reshape(-1).astype(np.uint32)
 
 
+# the native search's int64 squared distances over up to 4 axes stay exact
+# while every axis spans less than this; wider inputs take the loop
+_NBR_SPAN = 1 << 30
+
+
+def causal_nbr(mus_int: np.ndarray) -> np.ndarray:
+    """`_causal_nbr`'s indices, from the native grid search where it
+    applies (2-D input of 1 to 4 axes, each spanning under 2^30, and a
+    built library), else from the loop."""
+    m = np.asarray(mus_int)
+    if m.ndim == 2 and m.shape[0] > 1 and 1 <= m.shape[1] <= 4:
+        m = np.ascontiguousarray(m.astype(np.int64))
+        span = [int(hi) - int(lo) for lo, hi in zip(m.min(0), m.max(0))]
+        lib = _load_nbr() if max(span) < _NBR_SPAN else None
+        if lib is not None:
+            idx = np.empty(m.shape[0], np.int64)
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            if lib.smoe_causal_nbr(m.ctypes.data_as(i64p), m.shape[0],
+                                   m.shape[1], idx.ctypes.data_as(i64p)) == 0:
+                return idx
+    return _causal_nbr(mus_int)
+
+
+def nbr_decode(z: np.ndarray, k: int, nbr: np.ndarray) -> np.ndarray:
+    """`_nbr_decode`'s output, from the native recurrence where every
+    `nbr[i]` (i >= 1) points to an earlier row and the library is built,
+    else from the loop."""
+    nb = np.ascontiguousarray(nbr, np.int64)
+    lib = _load_nbr()
+    if (lib is not None and k >= 1 and nb.shape == (k,) and z.size % k == 0
+            and np.all((nb[1:] >= 0) & (nb[1:] < np.arange(1, k)))):
+        d = np.ascontiguousarray(_unzigzag(z).reshape(k, -1))
+        out = np.empty_like(d)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.smoe_nbr_decode(d.ctypes.data_as(i64p), k, d.shape[1],
+                            nb.ctypes.data_as(i64p),
+                            out.ctypes.data_as(i64p))
+        return out.reshape(-1).astype(np.uint32)
+    return _nbr_decode(z, k, nbr)
+
+
 def _est_bits(v: np.ndarray) -> float:
     """Cheap magnitude-entropy estimate to pick the coding mode per param."""
     return float(np.sum(np.ceil(np.log2(v.astype(np.float64) + 2.0))))
@@ -443,7 +519,7 @@ def _symbol_stream(qparams: Dict, bit_depths,
         v64 = np.round(v).astype(np.int64)
         if (name == "musX" and num_kernels > 1 and v.size
                 and v.size % num_kernels == 0):
-            mus_nbr = _causal_nbr(v64.reshape(num_kernels, -1))
+            mus_nbr = causal_nbr(v64.reshape(num_kernels, -1))
         lo = int(min(v64.min(), 0)) if v.size else 0
         hi = int(max(v64.max(), 0)) if v.size else 0
         if lo < 0 or hi >= (1 << b):
@@ -1028,7 +1104,8 @@ def read_bitstream(path: str, max_layers: Optional[int] = None
             if mus_nbr is None:
                 raise ValueError(
                     "corrupt bitstream: 'nbr' mode before musX decoded")
-            raw = _nbr_decode(raw, num_kernels, mus_nbr)
+            with span("smoe.decode.neighbours"):
+                raw = nbr_decode(raw, num_kernels, mus_nbr)
         elif mode.startswith("const:"):
             raw = (_unzigzag(raw) + int(mode[6:])).astype(np.uint32)
         elif mode == "grid":
@@ -1043,8 +1120,9 @@ def read_bitstream(path: str, max_layers: Optional[int] = None
         if (name == "musX" and num_kernels > 1 and n
                 and n % num_kernels == 0):
             # same causal-NN graph the encoder built (original-domain ints)
-            mus_nbr = _causal_nbr(
-                np.asarray(raw, np.int64).reshape(num_kernels, -1))
+            with span("smoe.decode.neighbours"):
+                mus_nbr = causal_nbr(
+                    np.asarray(raw, np.int64).reshape(num_kernels, -1))
         qzero = None
         if name in ("A_diagonal", "A_corr") and len(shapes[name]) == 3:
             from smoe_tpu_torch.codec.quantize import RANGE_EPS
@@ -1143,7 +1221,8 @@ def _read_layered(header: Dict, payload: bytes,
                 if mus_nbr is None:
                     raise ValueError("corrupt bitstream: 'nbr' mode "
                                      "before musX decoded")
-                raw = _nbr_decode(raw, ki, mus_nbr)
+                with span("smoe.decode.neighbours"):
+                    raw = nbr_decode(raw, ki, mus_nbr)
             elif mode.startswith("const:"):
                 raw = (_unzigzag(raw) + int(mode[6:])).astype(np.uint32)
             elif mode == "grid":
@@ -1155,8 +1234,9 @@ def _read_layered(header: Dict, payload: bytes,
             if n in ranges:
                 raw = raw.astype(np.int64) + int(ranges[n][0])
             if n == "musX" and ki > 1:
-                mus_nbr = _causal_nbr(
-                    np.asarray(raw, np.int64).reshape(ki, -1))
+                with span("smoe.decode.neighbours"):
+                    mus_nbr = causal_nbr(
+                        np.asarray(raw, np.int64).reshape(ki, -1))
             chunks[n].append(np.asarray(raw, np.int64).reshape(ki, -1))
 
     slots = np.concatenate(slots_parts)

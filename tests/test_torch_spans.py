@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from smoe_tpu_torch.codec.bitstream import read_header  # noqa: E402
 from smoe_tpu_torch.codec.serve import decode_bitstream  # noqa: E402
 from smoe_tpu_torch.diag.profile import span  # noqa: E402
 from smoe_tpu_torch.fit.trainer import Smoe  # noqa: E402
@@ -87,11 +88,20 @@ def test_decode_spans_nest_in_the_request():
         img = decode_bitstream(FIXTURE, device="cpu")
     assert isinstance(img, np.ndarray)
     evs = _spans(prof)
+    nbrs = [e for e in evs if e.name == "smoe.decode.neighbours"]
+    evs = [e for e in evs if e.name != "smoe.decode.neighbours"]
     assert [e.name for e in evs] == ["smoe.decode", "smoe.decode.range_decode",
                                      "smoe.decode.rescale",
                                      "smoe.decode.to_host"]
     for e in evs[1:]:
         assert e.cpu_parent is not None and e.cpu_parent.name == "smoe.decode"
+    # the neighbour graph, then one inversion a param in "nbr" mode, each
+    # inside the range decode
+    modes = read_header(FIXTURE)["modes"].values()
+    assert len(nbrs) == 1 + sum(m == "nbr" for m in modes)
+    for e in nbrs:
+        assert e.cpu_parent is not None \
+            and e.cpu_parent.name == "smoe.decode.range_decode"
 
 
 def test_span_without_a_profiler_records_nothing(monkeypatch):
