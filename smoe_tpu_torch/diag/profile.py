@@ -14,10 +14,12 @@ smoe_tpu/diag/profile.py).
     `smoe.fit.train` (`Smoe.train`) around `smoe.fit.chunk`
     (`run_batched_chunk`, its one host pull included), `smoe.fit.eval`
     (`run_batched`'s evaluation), `smoe.fit.update_kernel_list`,
-    `smoe.fit.ls_refresh` (`ls_init_experts`); `smoe.graph.warm_up` (the
-    eager first run of a program's key, as before each capture and in
-    each `decode_bitstream` call's one decode) and `smoe.graph.capture`
-    (fit/graph.py);
+    `smoe.fit.ls_refresh` (`ls_init_experts`), `smoe.fit.reseed`
+    (`reseed_time_slab`: the reconstruction it pulls, the error-
+    proportional draw, the list refresh and the re-initialised experts);
+    `smoe.graph.warm_up` (the eager first run of a program's key, as
+    before each capture and in each `decode_bitstream` call's one decode)
+    and `smoe.graph.capture` (fit/graph.py);
     `smoe.decode` (`codec.serve.decode_bitstream`) around
     `smoe.decode.range_decode` and `smoe.decode.rescale` (`read_model`)
     and `smoe.decode.to_host` (the wait for the card and the copy of the

@@ -1946,7 +1946,7 @@ class Smoe:
         of reference smoe_test.py:123-207).  The draw is numpy's, as in the
         JAX package, so a seed picks the same rows and positions in both.
         Returns the activated row indices."""
-        with self._all_rows():
+        with span("smoe.fit.reseed"), self._all_rows():
             return self._reseed_time_slab(kk, rng)
 
     def _reseed_time_slab(self, kk: int, rng):

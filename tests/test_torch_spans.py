@@ -1,7 +1,7 @@
 """The port's spans (smoe_tpu_torch/diag/profile.py:span) on the CPU: the
-ranges `Smoe.train` and `decode_bitstream` open under a running
-torch.profiler, their parents and counts, and nothing recorded without
-one.  No JAX: the spans are the port's own."""
+ranges `Smoe.train`, `Smoe.reseed_time_slab` and `decode_bitstream` open
+under a running torch.profiler, their parents and counts, and nothing
+recorded without one.  No JAX: the spans are the port's own."""
 
 import os
 
@@ -119,3 +119,46 @@ def test_span_without_a_profiler_records_nothing(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         with pytest.raises(AssertionError, match="smoe.a"):
             span("smoe.a")
+
+
+def _video_trainer():
+    """A dual-model fit of a 12 x 12 x 4 panned noise clip with its
+    affines, one sweep trained."""
+    rng = np.random.default_rng(0)
+    base = rng.uniform(0.2, 0.8, (12, 12, 3)).astype(np.float32)
+    vid = np.stack([np.roll(base, i, axis=1) for i in range(4)], axis=2)
+    affines = np.zeros((4, 2, 3), np.float32)
+    affines[:, 0, 0] = affines[:, 1, 1] = 1.0
+    affines[:, 0, 2] = -np.arange(4)
+    s = Smoe(vid, kernels_per_dim=[2, 2, 2], affines=affines,
+             in_graph_ukl=True, device="cpu")
+    s.run_batched_chunk(1)
+    return s
+
+
+@pytest.mark.parametrize("slabs", [1, 2])
+def test_reseed_span_once_a_call(slabs):
+    """One `smoe.fit.reseed` a reseeded slab, enclosing the list refresh
+    and the eval that the reseed's draw reads."""
+    s = _video_trainer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for kk in range(slabs):
+            s.reseed_time_slab(kk, rng=kk)
+    evs = _spans(prof)
+    assert _count(evs, "smoe.fit.reseed") == slabs
+    inner = [e for e in evs if e.name in ("smoe.fit.update_kernel_list",
+                                          "smoe.fit.eval")]
+    assert len(inner) >= slabs
+    for e in inner:
+        assert e.cpu_parent is not None \
+            and e.cpu_parent.name == "smoe.fit.reseed", e.name
+
+
+def test_reseed_records_nothing_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a record of {name!r}")
+
+    s = _video_trainer()
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    rows = s.reseed_time_slab(0, rng=0)
+    assert len(rows) == 4
