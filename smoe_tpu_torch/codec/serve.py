@@ -316,7 +316,9 @@ def decode_bitstream(path: str, chunk_pixels: Optional[int] = None,
     own frame's motion.  `mesh=` splits the pixels over the processes of
     a one-dimensional DeviceMesh (see `make_decoder`); every rank returns
     the whole image.  The call is the span `smoe.decode`; the host's wait
-    for the decode and the copy of its image is `smoe.decode.to_host`.
+    for the decode and the copy of its image is `smoe.decode.to_host`
+    (`to_host`: on the card, into page-locked memory; on the `reference`
+    path, pageable).
     """
     with span("smoe.decode"):
         cfg, rp, header = read_model(path, layers=layers, max_bytes=max_bytes)
@@ -341,5 +343,33 @@ def decode_bitstream(path: str, chunk_pixels: Optional[int] = None,
         rec = dec(padded["A"], padded["musX"], padded["nu_e"],
                   padded["gamma_e"], padded["pis"])
         with span("smoe.decode.to_host"):
-            rec = rec.cpu().numpy()
+            rec = rec.cpu().numpy() if reference else to_host(rec)
         return (rec, header) if return_header else rec
+
+
+def to_host(rec: torch.Tensor) -> np.ndarray:
+    """`rec` as a numpy array in host memory of its own.
+
+    A tensor on the card waits for its stream (`smoe.decode.wait`), then
+    copies into a fresh page-locked tensor (`smoe.decode.copy_pinned`):
+    the caching host allocator hands back a freed block of the same size
+    with no new registration, where a pageable copy of a 4K image goes
+    through a staging buffer and faults in every page of new memory.  A
+    held result keeps its block; none is shared between calls.  Where the
+    page-locked allocation fails, the copy is pageable
+    (`smoe.decode.copy_pageable`).  A CPU tensor is returned as it is.
+    """
+    if rec.device.type != "cuda":
+        return rec.cpu().numpy()
+    stream = torch.cuda.current_stream(rec.device)
+    with span("smoe.decode.wait"):
+        stream.synchronize()
+    try:
+        host = torch.empty(rec.shape, dtype=rec.dtype, pin_memory=True)
+    except RuntimeError:
+        with span("smoe.decode.copy_pageable"):
+            return rec.cpu().numpy()
+    with span("smoe.decode.copy_pinned"):
+        host.copy_(rec, non_blocking=True)
+        stream.synchronize()
+    return host.numpy()

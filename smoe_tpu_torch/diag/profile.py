@@ -23,9 +23,12 @@ smoe_tpu/diag/profile.py).
     `smoe.decode` (`codec.serve.decode_bitstream`) around
     `smoe.decode.range_decode` and `smoe.decode.rescale` (`read_model`)
     and `smoe.decode.to_host` (the wait for the card and the copy of the
-    image); `smoe.decode.neighbours` (`codec.bitstream`'s readers: the
-    "nbr" mode's neighbour graph and its inversion, inside the range
-    decode).  None is opened inside a captured region or once a sweep, so
+    image; on the card around `smoe.decode.wait`, the wait for the
+    decode's stream, and `smoe.decode.copy_pinned` or
+    `smoe.decode.copy_pageable`, the copy by the host memory it went to,
+    `codec.serve.to_host`); `smoe.decode.neighbours` (`codec.bitstream`'s
+    readers: the "nbr" mode's neighbour graph and its inversion, inside
+    the range decode).  None is opened inside a captured region or once a sweep, so
     their number grows with chunks, evals and requests;
   * `PhaseTimer`: what `Smoe.train()` uses.  It reads the host clock, so a
     phase that launches work on the card measures its enqueue plus

@@ -125,6 +125,61 @@ def _init_model(img, cfg, seed):
     return quantize_params(params, cfg)
 
 
+def _pool_files(tmp_path, seeds):
+    """Files as a serving pool holds them: one geometry, each file's params
+    the perturbed init of its own seed."""
+    y, x = np.mgrid[0:24, 0:32] / 31.0
+    img = np.stack([.5 + .3 * np.sin(5 * x), .5 + .3 * np.cos(4 * y),
+                    .4 + .2 * np.sin(3 * (x + y))], -1).astype(np.float32)
+    cfg = SmoeConfig(kernels_per_dim=(4, 4))
+    paths = []
+    for seed in seeds:
+        path = str(tmp_path / f"pool{seed}.smoe")
+        write_bitstream(path, _init_model(img, cfg, seed), cfg,
+                        extra=_extra(img.shape[:2], 3, cfg))
+        paths.append(path)
+    return paths
+
+
+def test_held_result_survives_the_next_decode(tmp_path):
+    """Two files decoded in a row on the device at hand: the first image
+    is bit for bit what it was after the second decode, and the two share
+    no memory."""
+    import torch
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    first, second = _pool_files(tmp_path, (1, 2))
+    a = decode_bitstream(first, device=device)
+    kept = a.tobytes()
+    b = decode_bitstream(second, device=device)
+    assert a.dtype == b.dtype == np.float32 and a.shape == b.shape \
+        == (24, 32, 3)
+    assert a.tobytes() != b.tobytes()
+    assert a.tobytes() == kept
+    assert not np.shares_memory(a, b)
+
+
+def test_card_result_is_page_locked(tmp_path, monkeypatch):
+    """On the card the image comes back in page-locked host memory, bit
+    for bit the decoded tensor's pageable `.cpu()` copy."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from smoe_tpu_torch.codec import serve
+    pageable = []
+    to_host = serve.to_host
+
+    def spy(rec):
+        pageable.append(rec.cpu().numpy())
+        return to_host(rec)
+
+    monkeypatch.setattr(serve, "to_host", spy)
+    path, = _pool_files(tmp_path, (3,))
+    rec = decode_bitstream(path, device="cuda")
+    assert torch.from_numpy(rec).is_pinned()
+    assert rec.dtype == np.float32 and rec.shape == pageable[0].shape
+    assert rec.tobytes() == pageable[0].tobytes()
+
+
 def test_lightfield_d4_views_match_jax(tmp_path):
     """d = 4 at small size: a light field's full decode and its view
     windows (views=)."""

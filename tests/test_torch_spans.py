@@ -104,6 +104,42 @@ def test_decode_spans_nest_in_the_request():
             and e.cpu_parent.name == "smoe.decode.range_decode"
 
 
+COPY_SPANS = ("smoe.decode.wait", "smoe.decode.copy_pinned",
+              "smoe.decode.copy_pageable")
+
+
+@pytest.mark.parametrize("reference", [False, True])
+def test_cpu_decode_records_no_wait_or_copy(reference):
+    """On the CPU the image is the decode's own tensor: no wait for a
+    stream and no copy, so neither span."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        decode_bitstream(FIXTURE, device="cpu", reference=reference)
+    names = [e.name for e in _spans(prof)]
+    assert "smoe.decode.to_host" in names
+    assert not set(names) & set(COPY_SPANS)
+
+
+def test_card_decode_waits_then_copies_inside_to_host():
+    """On the card `smoe.decode.to_host` holds the wait for the decode's
+    stream, then one copy to page-locked memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        img = decode_bitstream(FIXTURE, device="cuda")
+    assert torch.from_numpy(img).is_pinned()
+    evs = _spans(prof)
+    inner = [e for e in evs if e.name in COPY_SPANS]
+    assert [e.name for e in inner] == ["smoe.decode.wait",
+                                       "smoe.decode.copy_pinned"]
+    for e in inner:
+        parent = e.cpu_parent
+        assert parent is not None and parent.name == "smoe.decode.to_host"
+        assert parent.cpu_parent is not None \
+            and parent.cpu_parent.name == "smoe.decode"
+        assert parent.time_range.start <= e.time_range.start \
+            <= e.time_range.end <= parent.time_range.end
+
+
 def test_span_without_a_profiler_records_nothing(monkeypatch):
     """With no profiler running a span never reaches the profiler's record
     of a range, and it is one shared context; under a profiler it is that
