@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 cv2 = pytest.importorskip("cv2")
 
 from smoe_tpu_torch.apps import (anchor_jpeg, anchor_lf,  # noqa: E402
@@ -63,14 +64,6 @@ def same_rows(got, want):
                 assert abs(g[k] - w[k]) <= SSIM_TOL + 1e-9, (g, w)
             else:
                 assert g[k] == w[k], (k, g, w)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("family", ["mri"])

@@ -7,6 +7,7 @@ import os
 import pytest
 
 pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 from smoe_tpu_torch.kernels import build  # noqa: E402
 

@@ -12,6 +12,8 @@ import subprocess
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401
+
 from smoe_tpu.codec import bitstream as jbs
 from smoe_tpu.config import SmoeConfig as JConfig
 from smoe_tpu_torch.codec import bitstream as bs

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 from smoe_tpu.codec import bitstream as jbs  # noqa: E402
 from smoe_tpu.codec import quantize as jq  # noqa: E402

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 from smoe_tpu_torch.apps import exp_em_refresh  # noqa: E402
 from smoe_tpu_torch.bench.flagship import build_image  # noqa: E402
@@ -27,14 +28,6 @@ from test_torch_graph_programs import replaying  # noqa: E402,F401
 
 G_RTOL = 1e-5
 CUT = ["--size", "32", "--max", "40", "--refresh", "20"]
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_exp_em_refresh_tracks_script(monkeypatch):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 cv2 = pytest.importorskip("cv2")
 
 from smoe_tpu.cli import decode as jdec  # noqa: E402

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 cv2 = pytest.importorskip("cv2")
 
 from smoe_tpu.cli import fit as jfit  # noqa: E402
@@ -68,18 +69,29 @@ def _metrics(d):
         return [json.loads(line) for line in fd]
 
 
-@pytest.fixture(scope="module")
-def runs(png):
-    """Every arm through both CLIs: {(pkg, arm): (smoe, out_dir)}."""
-    path, root = png
-    out = {}
-    for arm, (flags, _, _) in ARMS.items():
+class _Runs(dict):
+    """{(pkg, arm): (smoe, out_dir)}: an arm runs through both CLIs when a
+    test first reads it, so each case pays for the arms it reads."""
+
+    def __init__(self, path, root):
+        super().__init__()
+        self.path, self.root = path, root
+
+    def __missing__(self, key):
+        arm = key[1]
         for pkg, main, extra in (("jax", jfit.main, []),
                                  ("torch", tfit.main, ["--device", "cpu"])):
-            d = str(root / f"{pkg}_{arm}")
-            smoe = main(["-i", path, "-r", d] + BASE + flags + extra)
-            out[pkg, arm] = (smoe, d)
-    return out
+            d = str(self.root / f"{pkg}_{arm}")
+            smoe = main(["-i", self.path, "-r", d] + BASE + ARMS[arm][0]
+                        + extra)
+            self[pkg, arm] = (smoe, d)
+        return self[key]
+
+
+@pytest.fixture(scope="module")
+def runs(png):
+    """Every arm through both CLIs, once each (`_Runs`)."""
+    return _Runs(*png)
 
 
 @pytest.mark.parametrize("arm", sorted(ARMS))

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

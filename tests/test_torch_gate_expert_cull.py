@@ -19,6 +19,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 import jax  # noqa: E402,F401  (the JAX package is the reference here)
 

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 import jax  # noqa: E402,F401
 

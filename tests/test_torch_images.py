@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 cv2 = pytest.importorskip("cv2")
 
 from smoe_tpu.io.images import read_image as jax_read_image  # noqa: E402

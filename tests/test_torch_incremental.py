@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 from smoe_tpu.fit import incremental as jinc  # noqa: E402
 from smoe_tpu.fit.trainer import Smoe as JSmoe  # noqa: E402

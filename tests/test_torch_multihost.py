@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 from smoe_tpu_torch.fit.trainer import Smoe  # noqa: E402
 from smoe_tpu_torch.parallel import multihost  # noqa: E402

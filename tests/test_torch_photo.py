@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 cv2 = pytest.importorskip("cv2")
 matplotlib = pytest.importorskip("matplotlib")
 
@@ -274,28 +275,23 @@ def test_small_photo_fit_tracks_jax():
     js.set_optimizer()
     ts = Smoe(img, device="cpu", **kw)
     ts.set_optimizer()
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     mse = []
-    try:
-        for i in range(20):
-            if i:
-                carry(js, ts)
-            _, tm, tn, _ = ts.run_batched_chunk(1)
-            _, jm, jn, _ = js.run_batched_chunk(1)
-            np.testing.assert_allclose(tm, np.asarray(jm), rtol=FIT_RTOL)
-            np.testing.assert_array_equal(tn, np.asarray(jn))
-            np.testing.assert_array_equal(ts.kernel_lists.numpy(),
-                                          np.asarray(js.kernel_lists))
-            tp, jp = ts.get_params(), js.get_params()
-            for k in ("musX", "A_diagonal", "A_corr", "nu_e", "gamma_e",
-                      "pis"):
-                np.testing.assert_allclose(
-                    tp[k], jp[k], rtol=0,
-                    atol=FIT_RTOL * np.abs(jp[k]).max(), err_msg=k)
-            mse.append(float(tm[0]))
-    finally:
-        torch.set_num_threads(n)
+    for i in range(20):
+        if i:
+            carry(js, ts)
+        _, tm, tn, _ = ts.run_batched_chunk(1)
+        _, jm, jn, _ = js.run_batched_chunk(1)
+        np.testing.assert_allclose(tm, np.asarray(jm), rtol=FIT_RTOL)
+        np.testing.assert_array_equal(tn, np.asarray(jn))
+        np.testing.assert_array_equal(ts.kernel_lists.numpy(),
+                                      np.asarray(js.kernel_lists))
+        tp, jp = ts.get_params(), js.get_params()
+        for k in ("musX", "A_diagonal", "A_corr", "nu_e", "gamma_e",
+                  "pis"):
+            np.testing.assert_allclose(
+                tp[k], jp[k], rtol=0,
+                atol=FIT_RTOL * np.abs(jp[k]).max(), err_msg=k)
+        mse.append(float(tm[0]))
     assert np.isfinite(mse).all() and mse[-1] < mse[0]
 
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 matplotlib = pytest.importorskip("matplotlib")
 pytest.importorskip("cv2")
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 cv2 = pytest.importorskip("cv2")
 
 from smoe_tpu.io import images as jimg  # noqa: E402
@@ -59,22 +60,17 @@ def test_precision16_sweeps_step_as_jax():
     ts = Smoe(img, device="cpu", **kw)
     ts.set_optimizer()
     assert ts.cfg.precision == js.cfg.precision == 16
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     mse = []
-    try:
-        for i in range(20):
-            if i:
-                carry(js, ts)
-            _, tm, tn, _ = ts.run_batched_chunk(1)
-            _, jm, jn, _ = js.run_batched_chunk(1)
-            np.testing.assert_allclose(tm, np.asarray(jm), rtol=STEP_RTOL)
-            np.testing.assert_array_equal(tn, np.asarray(jn))
-            np.testing.assert_array_equal(ts.kernel_lists.numpy(),
-                                          np.asarray(js.kernel_lists))
-            mse.append(float(tm[0]))
-    finally:
-        torch.set_num_threads(n)
+    for i in range(20):
+        if i:
+            carry(js, ts)
+        _, tm, tn, _ = ts.run_batched_chunk(1)
+        _, jm, jn, _ = js.run_batched_chunk(1)
+        np.testing.assert_allclose(tm, np.asarray(jm), rtol=STEP_RTOL)
+        np.testing.assert_array_equal(tn, np.asarray(jn))
+        np.testing.assert_array_equal(ts.kernel_lists.numpy(),
+                                      np.asarray(js.kernel_lists))
+        mse.append(float(tm[0]))
     assert np.isfinite(mse).all() and mse[-1] < mse[0]
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 import cv2  # noqa: E402
 

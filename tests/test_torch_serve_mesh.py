@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 import jax  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402

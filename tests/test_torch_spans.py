@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
@@ -19,14 +20,6 @@ from smoe_tpu_torch.fit.trainer import Smoe  # noqa: E402
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "video_cut.smoe")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _toy(n):

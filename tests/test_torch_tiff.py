@@ -16,6 +16,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 from smoe_tpu.io import images as jimg  # noqa: E402
 from smoe_tpu_torch.io import images as timg  # noqa: E402

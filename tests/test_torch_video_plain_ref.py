@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401
 
 from smoe_tpu_torch.config import OptConfig  # noqa: E402
 from smoe_tpu_torch.fit import trainer as T  # noqa: E402
@@ -46,14 +47,6 @@ def _ref_module():
 
 
 VR = _ref_module()
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def moving_clip(seed=5, h=24, w=32, t=4):
